@@ -1,0 +1,92 @@
+"""Public wrappers around the kernels: the model-facing shapes.
+
+Port of the parts of ``repro.kernels.ops`` on the paged W4A16KV8 path:
+row grouping for the multi-query attention kernel, position/window
+normalisation and the live-block bound.  Each call goes to the kernel
+wrapper, which runs the plain version for CPU tensors and the CUDA kernel
+for CUDA tensors.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.packing import PackedWeight
+from repro_torch.core.paged_kvcache import PagedKVCache, blocks_needed
+from repro_torch.core.precision import FormatSpec
+
+from .mpgemm import mpgemm_w4a16
+from .paged_kvattn import paged_kvattn_kv8
+from .ref import NO_WINDOW
+
+
+def mpgemm(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """y = x @ W with in-kernel dequant.  x: (..., K) → (..., N) bf16.
+    Ragged M goes to the kernel as is (the JAX wrapper's ``bm = 1``
+    fallback is a Pallas block-shape constraint the CUDA kernel lacks)."""
+    K, N = w.shape
+    lead = x.shape[:-1]
+    y = mpgemm_w4a16(x.reshape(-1, K).to(torch.bfloat16).contiguous(), w)
+    return y.reshape(*lead, N)
+
+
+def _norm_pos(pos, B: int, device) -> torch.Tensor:
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if pos.dim() == 0:
+        pos = pos.expand(B)
+    return pos.contiguous()
+
+
+def _norm_window(window) -> int:
+    """None / int → the kernels' window operand (NO_WINDOW = off)."""
+    return NO_WINDOW if window is None else int(window)
+
+
+def _group_rows(q: torch.Tensor, Hkv: int, rep: int) -> torch.Tensor:
+    """(B, T, H, D) → (B, Hkv, T*rep, D) token-major q tile: row
+    ``r = t*rep + g`` holds token t's g-th grouped-query head, so the
+    kernel's per-row causal frontier is ``first_pos + r // rep``.
+
+    The JAX wrapper pads ``rep == 1`` to two rows to keep XLA:CPU on its
+    GEMM path (bitwise row stability); that is an XLA workaround, not part
+    of the kernel's contract, and is not needed here."""
+    B, T, H, D = q.shape
+    qg = q.reshape(B, T, Hkv, rep, D).permute(0, 2, 1, 3, 4)
+    return qg.reshape(B, Hkv, T * rep, D)
+
+
+def _ungroup_rows(out: torch.Tensor, B: int, T: int, Hkv: int, rep: int,
+                  D: int) -> torch.Tensor:
+    """Inverse of :func:`_group_rows`."""
+    o = out.reshape(B, Hkv, T, rep, D).permute(0, 2, 1, 3, 4)
+    return o.reshape(B, T, Hkv * rep, D)
+
+
+def kvattn_decode_paged(q: torch.Tensor, cache: PagedKVCache,
+                        spec: FormatSpec, pos, window=None,
+                        max_live: Optional[int] = None) -> torch.Tensor:
+    """Paged decode / chunked-prefill attention, block table resolved
+    inside the kernel.
+
+    q: (B, T, H, D); ``cache`` a per-layer view; ``pos`` the per-slot
+    first query position (token t attends through ``pos + t``).
+    ``max_live`` (tokens) bounds the walk at the batch's first-row
+    live-context high-water mark, widened by ``T - 1`` for the chunk's
+    tail; None walks the whole table."""
+    if spec.name != "kv8":
+        raise NotImplementedError(
+            f"paged attention over {spec.name} is not ported yet "
+            "(ROADMAP queue 2 item 2: the remaining KV formats)")
+    B, T, H, D = q.shape
+    Hkv = cache.k.shape[2]
+    rep = H // Hkv
+    qg = _group_rows(q.to(torch.bfloat16), Hkv, rep).contiguous()
+    n_live = cache.blocks_per_slot
+    if max_live is not None:
+        n_live = blocks_needed(max_live + T - 1, cache.block_size)
+    out = paged_kvattn_kv8(qg, cache.k, cache.k_scale, cache.v,
+                           cache.v_scale, cache.block_table,
+                           _norm_pos(pos, B, q.device), _norm_window(window),
+                           rep, n_live)
+    return _ungroup_rows(out, B, T, Hkv, rep, D).to(q.dtype)

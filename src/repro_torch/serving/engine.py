@@ -1,0 +1,393 @@
+"""Serving engine: continuous batching over the paged W4A16KV8 model.
+
+Port of ``repro.serving.engine`` for the paged backend with reservation
+admission.  The public surface is the JAX engine's:
+
+* :class:`~repro_torch.serving.config.EngineConfig` — validated knobs;
+* ``submit(prompt, params) -> rid``, ``step() -> List[RequestOutput]``,
+  ``generate``, ``stream``, ``abort(rid)``, ``run_until_idle``.
+
+The engine owns one paged KV pool (``n_blocks`` blocks of ``block_size``
+tokens, stacked over layers, one block table) and a host-side
+:class:`BlockAllocator`.  Admission reserves a request's worst case
+(``prompt + max_new_tokens`` blocks), so a running request never stalls;
+its blocks return to the pool when it retires.
+
+Every iteration is one mixed prefill/decode step: prompt + produced output
+form one token stream per request, ``Scheduler.plan`` picks the step width
+(``prefill_chunk`` while any prompt is mid-prefill, else 1), and one
+batched :func:`decode_step` feeds each running slot its next ``valid``
+tokens — the chunk's KV quantize-and-written straight into the slot's pool
+blocks, attention by the multi-query paged kernel for prefill chunks and
+decode alike, every GEMM by the W4A16 kernel.  A slot emits a token only
+on the iteration that consumes its last unfed stream token.
+
+Sampling is per slot (``serving/sampler.py``); feed cursors are host-side,
+and the one device→host sync per iteration besides the KV write filter is
+the sampled-token fetch.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import paged_kvcache as PKV
+from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.models import common as C
+from repro_torch.models.registry import Model, build
+
+from . import sampler as S
+from .config import EngineConfig, EngineError
+from .request import (FinishReason, Request, RequestOutput, SamplingParams,
+                      Status)
+from .scheduler import Scheduler
+
+# Weights that are *not* GEMM operands — never quantized (embeddings,
+# norms), matching the JAX package's list.
+_SKIP_KEYS = ("embed", "dec_pos", "lm_head", "conv_w", "lam", "u", "w0",
+              "ln", "mu_", "b1", "b2", "g", "b")
+
+
+def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
+    """Offline stage: pack every large 2D bf16 GEMM weight (paper §4.1);
+    embeddings and norms stay bf16.  Tensors are moved to ``device`` (when
+    given) first.  Returns a new parameter structure."""
+    if isinstance(params, dict):
+        return {k: quantize_params(v, policy, device, _path + (k,))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [quantize_params(v, policy, device, _path) for v in params]
+    if not isinstance(params, torch.Tensor):
+        return params
+    t = params if device is None else params.to(device)
+    skip = any(str(k).startswith(s) for k in _path for s in _SKIP_KEYS)
+    if not skip and t.dim() >= 2 and t.dtype == torch.bfloat16:
+        return C.maybe_quantize(t, policy)
+    return t
+
+
+class Engine:
+    """Continuous-batching serving engine (see the module docstring).
+    Not thread-safe: one engine, one driver."""
+
+    def __init__(self, config: EngineConfig, params: Optional[Any] = None):
+        """Build the model (seeded random weights unless ``params`` is
+        given), pack its weights and allocate the paged KV pool, all on
+        ``config.device``."""
+        self.config = config
+        cfg = config.model
+        self.model_cfg = cfg
+        self.device = config.device
+        self.policy: PrecisionPolicy = config.policy
+        self.model: Model = build(cfg)
+        raw = params if params is not None else \
+            self.model.init_params(config.seed, self.device)
+        self.params = quantize_params(raw, self.policy, self.device)
+        self.n_slots = config.n_slots
+        self.max_seq = config.max_seq
+        self.block_size = config.block_size
+        self.prefill_chunk = config.prefill_chunk
+        self.max_prompt = config.max_prompt
+        self.blocks_per_slot = config.blocks_per_slot
+        self.n_blocks = config.pool_blocks
+        self.allocator = PKV.BlockAllocator(self.n_blocks)
+        self._block_map: Dict[int, List[int]] = {}
+        self.cache = self.model.init_paged_cache(
+            self.policy, self.n_slots, self.n_blocks, self.block_size,
+            self.blocks_per_slot, self.device)
+        self.scheduler = Scheduler(self.n_slots, admit_gate=self._admit_gate)
+        self._next_rid = 0
+        self._requests: Dict[int, Request] = {}
+        self._unclaimed: List[RequestOutput] = []
+        self._stream_bufs: Dict[int, List[RequestOutput]] = {}
+        self.t0 = time.perf_counter()
+        #: batched model steps run (one decode_step call each)
+        self.model_steps = 0
+
+    # -- the batched step ---------------------------------------------------
+
+    def _step_fn(self, tokens, pos, valid, temp, top_k, seeds, steps,
+                 max_live) -> np.ndarray:
+        """One mixed prefill/decode iteration over every slot: tokens
+        (B, t_step) host array, slot b's first ``valid[b]`` real.  Returns
+        the sampled (B,) tokens on the host."""
+        dev = self.device
+        logits, self.cache = self.model.decode_step(
+            self.params, self.policy, torch.from_numpy(tokens).to(dev),
+            self.cache, torch.from_numpy(pos).to(dev), max_live=max_live,
+            valid=torch.from_numpy(valid).to(dev))
+        self.model_steps += 1
+        nxt = S.sample(logits, temp, top_k, seeds, steps)
+        return nxt.cpu().numpy()
+
+    # -- public API --------------------------------------------------------
+
+    def now(self) -> float:
+        """Monotonic seconds since engine construction (metric clock)."""
+        return time.perf_counter() - self.t0
+
+    def submit(self, prompt: Sequence[int],
+               params: Optional[SamplingParams] = None,
+               arrival_time: Optional[float] = None) -> int:
+        """Enqueue a request; returns its rid.  Inadmissible requests are
+        rejected here with :class:`EngineError`."""
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise EngineError("prompt must contain at least one token")
+        if len(prompt) > self.max_prompt:
+            raise EngineError(
+                f"prompt length {len(prompt)} exceeds max_prompt="
+                f"{self.max_prompt}")
+        if any(t < 0 or t >= self.model_cfg.vocab for t in prompt):
+            raise EngineError(
+                f"prompt token outside the vocabulary [0, "
+                f"{self.model_cfg.vocab})")
+        params = params or SamplingParams()
+        req = Request(rid=self._next_rid, prompt=prompt, params=params,
+                      arrival_time=self.now() if arrival_time is None
+                      else arrival_time,
+                      seed=self._resolve_seed(params, self._next_rid))
+        if self._blocks_for(req) > self.n_blocks:
+            raise EngineError(
+                f"request needs {self._blocks_for(req)} KV blocks "
+                f"(prompt {len(req.prompt)} + max_new "
+                f"{req.params.max_new_tokens}) but the pool has only "
+                f"{self.n_blocks}")
+        self._next_rid += 1
+        self._requests[req.rid] = req
+        self.scheduler.add(req)
+        return req.rid
+
+    def abort(self, rid: int) -> Optional[RequestOutput]:
+        """Cancel a request (idempotent).  A running request frees its
+        slot and returns its KV blocks to the pool immediately.  Returns
+        the final ``finish_reason="abort"`` output, or None."""
+        req = self._requests.get(rid)
+        if req is None:
+            return None
+        if req.status == Status.WAITING:
+            self.scheduler.remove_waiting(req)
+            req.status = Status.FINISHED
+            req.finish_time = self.now()
+        else:
+            self.scheduler.finish(req, self.now())
+            self._reclaim(req)
+        req.finish_reason = FinishReason.ABORT
+        del self._requests[rid]
+        return req.make_output([])
+
+    def _resolve_seed(self, params: SamplingParams, rid: int) -> int:
+        if params.seed is not None:
+            return int(params.seed) & 0x7FFFFFFF
+        return ((self.config.seed * 1_000_003) ^ (rid * 0x9E3779B1)) \
+            & 0x7FFFFFFF
+
+    # -- paged bookkeeping -------------------------------------------------
+
+    def _blocks_for(self, req: Request) -> int:
+        """Worst-case KV blocks: prompt minus the last token plus every
+        potential output token, clipped to the context limit."""
+        toks = min(len(req.prompt) - 1 + req.params.max_new_tokens,
+                   self.max_seq)
+        return PKV.blocks_needed(max(toks, 1), self.block_size)
+
+    def _admit_gate(self, req: Request) -> bool:
+        """Reservation: admit only if the worst case fits, and allocate it."""
+        need = self._blocks_for(req)
+        if not self.allocator.can_alloc(need):
+            return False
+        self._block_map[req.rid] = self.allocator.alloc(need)
+        return True
+
+    def _map_slot_blocks(self, slot: int, blocks: List[int]) -> None:
+        row = torch.full((self.blocks_per_slot,), self.n_blocks,
+                         dtype=torch.int32)
+        if blocks:
+            row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+        self.cache.block_table[slot].copy_(row)
+
+    def _reclaim(self, req: Request) -> None:
+        """Release the request's blocks; its table row goes back to
+        sentinels (writes through it are dropped)."""
+        self.allocator.free(self._block_map.pop(req.rid))
+        self._map_slot_blocks(req.slot, [])
+
+    def _live_bucket(self, running) -> int:
+        """Live-context bound for the attention kernel's walk: the batch's
+        ``max(pos) + 1`` rounded up to a power-of-two block count, clipped
+        to ``max_context`` (the JAX engine's bucketing, kept so both walk
+        the same blocks)."""
+        hw = max(r.pos for r in running) + 1
+        nb = PKV.blocks_needed(hw, self.block_size)
+        nb = 1 << (nb - 1).bit_length()
+        return min(nb, self.blocks_per_slot) * self.block_size
+
+    def _admit(self, req: Request) -> None:
+        """Map the reserved blocks into the slot and seed its feed cursor;
+        the prompt itself is fed by ``step()``."""
+        self._map_slot_blocks(req.slot, self._block_map[req.rid])
+        req.pos = 0
+
+    # -- main loop ---------------------------------------------------------
+
+    def _has_room(self, req: Request) -> bool:
+        """True while the slot can absorb another decode append."""
+        if req.pos >= self.max_seq - 1:
+            return False
+        return req.pos < len(self._block_map[req.rid]) * self.block_size
+
+    def _finish_reason(self, req: Request, tok: int
+                       ) -> Optional[FinishReason]:
+        produced = len(req.output)
+        reason = None
+        if produced >= req.params.min_new_tokens:
+            reason = req.params.stops_on(tok)
+        if reason is None and produced >= req.params.max_new_tokens:
+            reason = FinishReason.LENGTH
+        if reason is None and not self._has_room(req):
+            reason = FinishReason.CONTEXT
+        return reason
+
+    def step(self) -> List[RequestOutput]:
+        """One engine iteration: admit waiting requests, feed every running
+        slot its next stream tokens through one batched model step, retire
+        finished requests.  Returns one :class:`RequestOutput` per emitting
+        request."""
+        for req in self.scheduler.admit():
+            self._admit(req)
+        running = self.scheduler.running()
+        if not running:
+            return []
+        t_step, valids = self.scheduler.plan(self.prefill_chunk)
+
+        # idle slots feed token 0 at position 0 with valid == 0: their
+        # writes are dropped and their logits discarded
+        tokens = np.zeros((self.n_slots, t_step), np.int64)
+        pos = np.zeros((self.n_slots,), np.int32)
+        valid = np.zeros((self.n_slots,), np.int32)
+        temp = np.zeros((self.n_slots,), np.float32)
+        top_k = np.zeros((self.n_slots,), np.int32)
+        seeds = np.zeros((self.n_slots,), np.int64)
+        steps = np.zeros((self.n_slots,), np.int64)
+        for r in running:
+            v = valids[r.rid]
+            stream = r.prompt + r.output
+            tokens[r.slot, :v] = stream[r.pos:r.pos + v]
+            pos[r.slot] = r.pos
+            valid[r.slot] = v
+            temp[r.slot] = r.params.temperature
+            top_k[r.slot] = r.params.top_k
+            seeds[r.slot] = r.seed
+            steps[r.slot] = len(r.output)
+
+        nxt = self._step_fn(tokens, pos, valid, temp, top_k, seeds, steps,
+                            self._live_bucket(running))
+        t = self.now()
+        outputs: List[RequestOutput] = []
+        for r in running:
+            r.pos += valids[r.rid]
+            if r.pos < len(r.prompt) + len(r.output):
+                continue                  # prompt still prefilling
+            tok = int(nxt[r.slot])
+            if r.first_token_time is None:
+                r.first_token_time = t
+            r.output.append(tok)
+            reason = self._finish_reason(r, tok)
+            if reason is not None:
+                r.finish_reason = reason
+                self.scheduler.finish(r, t)
+                self._reclaim(r)
+                del self._requests[r.rid]
+            out = r.make_output([tok])
+            outputs.append(out)
+            if r.rid in self._stream_bufs:
+                self._stream_bufs[r.rid].append(out)
+        return outputs
+
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 params: Union[SamplingParams, Sequence[SamplingParams],
+                               None] = None,
+                 max_iters: int = 100_000) -> List[RequestOutput]:
+        """Submit every prompt, drive ``step()`` until all finish, return
+        their final outputs in prompt order (all-or-nothing admission)."""
+        if params is None or isinstance(params, SamplingParams):
+            params = [params] * len(prompts)
+        if len(params) != len(prompts):
+            raise EngineError(
+                f"got {len(params)} SamplingParams for "
+                f"{len(prompts)} prompts")
+        rids: List[int] = []
+        try:
+            for p, sp in zip(prompts, params):
+                rids.append(self.submit(p, sp))
+        except EngineError:
+            for rid in rids:
+                self.abort(rid)
+            raise
+        pending = set(rids)
+        final: Dict[int, RequestOutput] = {}
+        for _ in range(max_iters):
+            if not pending:
+                return [final[rid] for rid in rids]
+            for out in self.step():
+                if not out.finished:
+                    continue
+                if out.rid in pending:
+                    final[out.rid] = out
+                    pending.discard(out.rid)
+                elif out.rid not in self._stream_bufs:
+                    self._unclaimed.append(out)
+        raise RuntimeError("generate() did not drain")
+
+    def stream(self, prompt: Sequence[int],
+               params: Optional[SamplingParams] = None,
+               max_iters: int = 100_000) -> Iterator[RequestOutput]:
+        """Submit one prompt and yield its outputs as iterations complete;
+        closing the iterator early aborts the request."""
+        rid = self.submit(prompt, params)
+        buf = self._stream_bufs.setdefault(rid, [])
+        try:
+            for _ in range(max_iters):
+                while buf:
+                    out = buf.pop(0)
+                    yield out
+                    if out.finished:
+                        return
+                if rid not in self._requests:
+                    return
+                for out in self.step():
+                    if out.finished and out.rid not in self._stream_bufs \
+                            and out.rid != rid:
+                        self._unclaimed.append(out)
+            raise RuntimeError("stream() did not finish")
+        except GeneratorExit:
+            self.abort(rid)
+            raise
+        finally:
+            self._stream_bufs.pop(rid, None)
+
+    def run_until_idle(self, max_iters: int = 10_000) -> List[RequestOutput]:
+        """Drive ``step()`` until nothing is waiting or running; returns
+        the finished outputs in completion order."""
+        finished, self._unclaimed = self._unclaimed, []
+        for _ in range(max_iters):
+            if self.scheduler.idle:
+                return finished
+            finished.extend(o for o in self.step() if o.finished
+                            and o.rid not in self._stream_bufs)
+        raise RuntimeError("engine did not drain")
+
+    def kv_resident_bytes(self) -> int:
+        """Resident bytes of the KV pool (+ scales + table)."""
+        return PKV.kv_bytes(self.cache)
+
+
+def percentile_stats(vals: List[float]) -> Dict[str, float]:
+    """p50/p90/p95/p99 of a metric list ({} when empty)."""
+    if not vals:
+        return {}
+    a = np.asarray(vals)
+    return {f"p{p}": float(np.percentile(a, p)) for p in (50, 90, 95, 99)}

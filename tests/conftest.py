@@ -11,3 +11,6 @@ def key():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (hand-written kernels of the "
+        "PyTorch port); skips without one")
