@@ -9,20 +9,28 @@ Phases, in order (any failure raises and exits nonzero):
 2. Build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel).
 3. Kernel phase: hold each kernel against its plain PyTorch version on the
-   card at the main path's full-width shapes (smollm-360m), and time
-   kernel, plain version and a library yardstick with CUDA events, L2
-   flushed before every launch.
+   card at the main path's full-width shapes (smollm-360m) — the A16 GEMM
+   at bits 4 and 8, the int8 GEMM at bits 4 and 8, paged and dense-slab
+   attention in every KV format — and time kernel, plain version and a
+   library yardstick with CUDA events, L2 flushed before every launch.
+   The dense and paged attention kernels must agree bit for bit.
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
-   ``decode_step`` on the card (kernels) and on the CPU (plain versions);
+   ``decode_step`` on the card (kernels) and on the CPU (plain versions),
+   on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
    logits must agree.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
-   seeded random weights), ``w4a16kv8``, paged, 4 slots, max_seq 256,
-   block_size 16, prefill_chunk 32, serving 8 greedy requests of 64-token
-   prompts and 32 new tokens through ``Engine.generate``.  The launch
-   counters are zeroed just before and read just after: every GEMM and
-   every attention call must have gone through the two kernels.  One
-   request's stream is then replayed teacher-forced through
-   ``decode_step`` and must follow its argmax.
+   seeded random weights), 4 slots, max_seq 256, block_size 16,
+   prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
+   and on the paged pool: ``w4a16kv8`` serving 8 requests of 64-token
+   prompts and 32 new tokens, then w4a8kv4, w8a8kvfp8 and w8a16kv16
+   serving 4 requests of 32-token prompts and 16 new tokens.  Around each
+   serve the launch counters are zeroed just before and read just after:
+   every GEMM must have gone through the kernel its policy routes to (7 per
+   layer and step) and every attention call through its backend's kernel
+   (1 per layer and step).  For each policy the dense and paged token
+   streams must be identical.  One w4a16kv8 request per backend is
+   replayed teacher-forced through ``decode_step`` and must follow its
+   argmax.
 6. One JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -39,11 +47,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
-N_REQUESTS, PROMPT_LEN, NEW_TOKENS = 8, 64, 32
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 GEMM_SHAPES = [  # weights, K, N, bk, bn of smollm-360m's packed GEMMs
     ("wq/wo", 960, 960, 64, 96), ("wk/wv", 960, 320, 64, 64),
     ("w1/w3", 960, 2560, 64, 128), ("w2", 2560, 960, 32, 96)]
 GEMM_MS = (4, 128)           # n_slots x t_step at decode and at prefill
+KV_FORMATS = ("kv8", "kv4", "kvfp8", "kv16")
+#: (policy, requests, prompt length, new tokens) of the serve phase
+SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
+          ("w8a8kvfp8", 4, 32, 16), ("w8a16kv16", 4, 32, 16)]
+#: logits tolerance, relative to max |logit|: A8 policies re-quantize
+#: every GEMM input per token, which turns one-ulp differences of sum
+#: order into int8 rounding flips (tests/test_torch_model.py)
+TOL, TOL_A8 = 2e-2, 1e-1
 
 
 def check(cond, msg):
@@ -54,11 +70,12 @@ def check(cond, msg):
 
 def time_ms(fn, flush, iters=20):
     """Median device time of ``fn`` over ``iters`` launches, each after a
-    256 MiB write that evicts the 50 MB L2 (the main path streams each
+    1 GiB write that evicts the 50 MB L2 (the main path streams each
     layer's weights and KV once per step, so it finds them cold).  The
-    write also keeps the card busy for ~0.1 ms, longer than the host takes
-    to record the start event and enqueue ``fn``, so the events time the
-    device work and not the wrapper's host latency."""
+    write also keeps the card busy for ~0.4 ms, longer than the host takes
+    to record the start event and enqueue ``fn`` (a library call with
+    several launches included), so the events time the device work and
+    not the host's latency."""
     import torch
     fn()
     ev = []
@@ -73,125 +90,180 @@ def time_ms(fn, flush, iters=20):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
     """Least time for the work on an H100, and what sets it."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def gemm_phase(dev, flush):
-    """mpgemm_w4a16 against its plain version at smollm-360m's shapes."""
+    """Both GEMM kernels against their plain versions at smollm-360m's
+    shapes: A16 at bits 4 and 8, int8 at bits 4 and 8."""
     import torch
     from repro_torch.core.packing import dequantize_packed, pack_weight
-    from repro_torch.kernels.mpgemm import mpgemm_w4a16
-    from repro_torch.kernels.ref import mpgemm_ref
+    from repro_torch.core.quantize import quantize_act_per_token
+    from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
+    from repro_torch.kernels.ref import mpgemm_int8_ref, mpgemm_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows = []
+    rows = {"mpgemm_a16": [], "mpgemm_int8": []}
     for name, K, N, bk, bn in GEMM_SHAPES:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
-        pw = pack_weight(w, bits=4, group=bk, block_k=bk, block_n=bn)
-        wd = dequantize_packed(pw, torch.bfloat16)      # yardstick operand
-        for M in GEMM_MS:
-            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            y, plain = mpgemm_w4a16(x, pw), mpgemm_ref(x, pw)
-            torch.cuda.synchronize()
-            err = (y.float() - plain.float()).abs().max().item()
-            tol = 2 ** -7 * plain.float().abs().max().item()
-            check(err <= tol, f"mpgemm {name} M={M}: |Δ|={err} > {tol}")
-            nbytes = M * K * 2 + K * N // 2 + (K // bk) * N * 4 + M * N * 2
-            b, by = bound_ms(nbytes, 2 * M * N * K)
-            rows.append(dict(
-                shape=f"{name} M={M} K={K} N={N} bk={bk} bn={bn}",
-                max_abs_err=err, tol=tol,
-                ms=time_ms(lambda: mpgemm_w4a16(x, pw), flush),
-                plain_ms=time_ms(lambda: mpgemm_ref(x, pw), flush),
-                library_ms=time_ms(lambda: torch.matmul(x, wd), flush),
-                bound_ms=b, bound_by=by, bytes=nbytes, ops=2 * M * N * K))
+        for bits in (4, 8):
+            pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
+            wd = dequantize_packed(pw, torch.bfloat16)   # yardstick operand
+            wbytes = K * N * bits // 8 + (K // bk) * N * 4
+            for M in GEMM_MS:
+                x = torch.randn(M, K, generator=gen, device=dev).to(
+                    torch.bfloat16)
+                xq, xs = quantize_act_per_token(x.float(), bits=8)
+                for kern, args, plain, xbytes, peak, lib in (
+                        ("mpgemm_a16", (x, pw), mpgemm_ref, M * K * 2,
+                         BF16_OPS_PER_S, lambda: torch.matmul(x, wd)),
+                        ("mpgemm_int8", (xq, xs, pw), mpgemm_int8_ref,
+                         M * K + M * 4, INT8_OPS_PER_S, None)):
+                    fn = mpgemm_a16 if kern == "mpgemm_a16" else mpgemm_int8
+                    y, ref = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    err = (y.float() - ref.float()).abs().max().item()
+                    tol = 2 ** -7 * ref.float().abs().max().item()
+                    check(err <= tol, f"{kern} {name} bits={bits} M={M}: "
+                                      f"|Δ|={err} > {tol}")
+                    nbytes = xbytes + wbytes + M * N * 2
+                    ops = 2 * M * N * K
+                    b, by = bound_ms(nbytes, ops, peak)
+                    rows[kern].append(dict(
+                        shape=f"{name} bits={bits} M={M} K={K} N={N} "
+                              f"bk={bk} bn={bn}",
+                        max_abs_err=err, tol=tol,
+                        ms=time_ms(lambda: fn(*args), flush),
+                        plain_ms=time_ms(lambda: plain(*args), flush),
+                        library_ms=None if lib is None
+                        else time_ms(lib, flush),
+                        bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
+                        ops_per_s=peak))
     return rows
 
 
-def attn_phase(dev, flush):
-    """paged_kvattn_kv8 against its plain version at the serve shapes."""
+def kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx):
+    """A paged pool holding ``ctx[b]`` random tokens for slot b through a
+    shuffled block table (sentinel tail) and a dense slab of ``bps * bs``
+    tokens per slot holding the same tokens; every other cell of both
+    holds finite garbage stored in ``spec``."""
     import dataclasses
 
     import torch
+    from repro_torch.core import kvcache as KV
+    from repro_torch.core import paged_kvcache as PKV
+    from repro_torch.core.quantize import quantize_kv
+    nb = B * bps
+    pool = PKV.init_paged(B, nb, bs, Hkv, D, spec, bps, device=dev).layer(0)
+    slab = KV.init_cache(B, bps * bs, Hkv, D, spec, device=dev).layer(0)
+    for store in (pool, slab):
+        for buf, sc in ((store.k, store.k_scale), (store.v, store.v_scale)):
+            g = torch.randn(tuple(sc.shape) + (D,), generator=gen, device=dev)
+            q, s = quantize_kv(g.to(torch.bfloat16), spec)
+            buf.copy_(q)
+            sc.copy_(s[..., 0])
+    perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    nxt = 0
+    for b, n in enumerate(ctx):
+        need = PKV.blocks_needed(n, bs)
+        pool.block_table[b, :need] = perm[nxt:nxt + need]
+        nxt += need
+        k = torch.randn(1, n, Hkv, D, generator=gen, device=dev)
+        v = torch.randn(1, n, Hkv, D, generator=gen, device=dev)
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        row = dataclasses.replace(pool, block_table=pool.block_table[b:b + 1])
+        PKV.append_paged(row, k, v, zero, spec)
+        KV.append_per_slot(KV.KVCache(slab.k[b:b + 1], slab.v[b:b + 1],
+                                      slab.k_scale[b:b + 1],
+                                      slab.v_scale[b:b + 1]),
+                           k, v, zero, spec)
+    return pool, slab
+
+
+def attn_phase(dev, flush):
+    """Paged and dense-slab attention against their plain versions in
+    every KV format, at the serve shapes (S 256, block 16)."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.core import paged_kvcache as PKV
+    from repro_torch.core.kvcache import store_dim
     from repro_torch.core.precision import get_policy
-    from repro_torch.kernels.paged_kvattn import paged_kvattn_kv8
-    from repro_torch.kernels.ref import NO_WINDOW, paged_kvattn_ref
-    kv8 = get_policy("w4a16kv8").kv
+    from repro_torch.core.quantize import dequantize_kv
+    from repro_torch.kernels.kvattn import kvattn
+    from repro_torch.kernels.paged_kvattn import paged_kvattn
+    from repro_torch.kernels.ref import (NO_WINDOW, kvattn_ref,
+                                         paged_kvattn_ref)
     B, Hkv, rep, D, bs, bps = 4, 5, 3, 64, 16, 16
-    nb = B * bps
+    S = bps * bs
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    rows = []
-    for T, pos in ((1, [95, 36, 70, 0]), (32, [32, 0, 64, 96])):
-        ctx = [p + T for p in pos]
-        cache = PKV.init_paged(B, nb, bs, Hkv, D, kv8, bps, device=dev)
-        lay = cache.layer(0)
-        lay.k.copy_(torch.randint(-127, 128, lay.k.shape, generator=gen,
-                                  device=dev, dtype=torch.int8))
-        lay.v.copy_(torch.randint(-127, 128, lay.v.shape, generator=gen,
-                                  device=dev, dtype=torch.int8))
-        perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
-        nxt = 0
-        for b, n in enumerate(ctx):           # shuffled table, sentinel tail
-            need = PKV.blocks_needed(n, bs)
-            lay.block_table[b, :need] = perm[nxt:nxt + need]
-            nxt += need
-            k = torch.randn(1, n, Hkv, D, generator=gen, device=dev)
-            v = torch.randn(1, n, Hkv, D, generator=gen, device=dev)
-            row = dataclasses.replace(lay, block_table=lay.block_table[b:b + 1])
-            PKV.append_paged(row, k.to(torch.bfloat16), v.to(torch.bfloat16),
-                             torch.zeros(1, dtype=torch.int32, device=dev), kv8)
-        R = T * rep
-        q = torch.randn(B, Hkv, R, D, generator=gen, device=dev).to(
-            torch.bfloat16)
-        posd = torch.tensor(pos, dtype=torch.int32, device=dev)
-        n_live = PKV.blocks_needed(max(ctx), bs)
-        args = (q, lay.k, lay.k_scale, lay.v, lay.v_scale, lay.block_table,
-                posd, NO_WINDOW, rep, n_live)
-        out, plain = paged_kvattn_kv8(*args), paged_kvattn_ref(*args)
-        torch.cuda.synchronize()
-        check(torch.isfinite(out.float()).all().item(), "attention not finite")
-        err = (out.float() - plain.float()).abs().max().item()
-        check(err <= 3e-2, f"paged_kvattn T={T}: |Δ|={err} > 3e-2")
-        # yardstick: SDPA over a gathered, dequantized bf16 view
-        S = n_live * bs
-        tbl = lay.block_table[:, :n_live].long().clamp(max=nb - 1)
-
-        def view(pool, sc):
-            t = pool[tbl].reshape(B, S, Hkv, D).permute(0, 2, 1, 3)
-            s = sc[tbl].reshape(B, S, Hkv).permute(0, 2, 1)
-            return (t.float() * s[..., None]).to(torch.bfloat16).contiguous()
-
-        kd, vd = view(lay.k, lay.k_scale), view(lay.v, lay.v_scale)
-        qh = q.reshape(B, Hkv, T, rep, D).permute(0, 1, 3, 2, 4) \
-            .reshape(B, Hkv * rep, T, D).contiguous()
-        qpos = posd.long()[:, None] + torch.arange(T, device=dev)
-        mask = (torch.arange(S, device=dev)[None, None] <=
-                qpos[:, :, None])[:, None]
-        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-            qh, kd, vd, attn_mask=mask, enable_gqa=True)
-        check(torch.isfinite(sdpa().float()).all().item(), "SDPA not finite")
-        # bytes the data needs: each slot's live keys (int8 K and V + two
-        # f32 scales), q and out, the table rows walked, positions
-        keys = sum(ctx)
-        nbytes = keys * Hkv * (2 * D + 8) + 2 * B * Hkv * R * D * 2 + \
-            B * n_live * 4 + B * 4
-        ops = sum(4 * D * Hkv * (p + r // rep + 1) for p in pos
-                  for r in range(R))
-        b, by = bound_ms(nbytes, ops)
-        rows.append(dict(
-            shape=f"B={B} Hkv={Hkv} rep={rep} D={D} T={T} R={R} bs={bs} "
-                  f"n_live={n_live}",
-            max_abs_err=err, tol=3e-2,
-            ms=time_ms(lambda: paged_kvattn_kv8(*args), flush),
-            plain_ms=time_ms(lambda: paged_kvattn_ref(*args), flush),
-            library_ms=time_ms(sdpa, flush),
-            bound_ms=b, bound_by=by, bytes=nbytes, ops=ops))
+    rows = {"paged_kvattn": [], "kvattn": []}
+    for fmt in KV_FORMATS:
+        spec = get_policy(f"w4a16{fmt}").kv
+        for T, pos in ((1, [95, 36, 70, 0]), (32, [32, 0, 64, 96])):
+            ctx = [p + T for p in pos]
+            pool, slab = kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx)
+            R = T * rep
+            q = torch.randn(B, Hkv, R, D, generator=gen, device=dev).to(
+                torch.bfloat16)
+            posd = torch.tensor(pos, dtype=torch.int32, device=dev)
+            n_live = PKV.blocks_needed(max(ctx), bs)
+            pargs = (q, pool.k, pool.k_scale, pool.v, pool.v_scale,
+                     pool.block_table, posd, NO_WINDOW, rep, n_live)
+            dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd,
+                     NO_WINDOW, rep)
+            # yardstick: SDPA over the slab's live prefix, dequantized bf16
+            Sl = n_live * bs
+            kd, vd = (dequantize_kv(t[:, :Sl], sc[:, :Sl, :, None], spec)
+                      .permute(0, 2, 1, 3).contiguous()
+                      for t, sc in ((slab.k, slab.k_scale),
+                                    (slab.v, slab.v_scale)))
+            qh = q.reshape(B, Hkv, T, rep, D).permute(0, 1, 3, 2, 4) \
+                .reshape(B, Hkv * rep, T, D).contiguous()
+            qpos = posd.long()[:, None] + torch.arange(T, device=dev)
+            mask = (torch.arange(Sl, device=dev)[None, None] <=
+                    qpos[:, :, None])[:, None]
+            sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+                qh, kd, vd, attn_mask=mask, enable_gqa=True)
+            check(torch.isfinite(sdpa().float()).all().item(),
+                  "SDPA not finite")
+            # bytes the data needs: each slot's live keys (stored K and V
+            # + two f32 scales), q and out, positions (+ the table rows)
+            rb = store_dim(D, spec) * spec.dtype.itemsize
+            keys = sum(ctx)
+            ops = sum(4 * D * Hkv * (p + r // rep + 1) for p in pos
+                      for r in range(R))
+            outs = {}
+            for kern, fn, args, plain, extra in (
+                    ("paged_kvattn", paged_kvattn, pargs + (spec,),
+                     lambda: paged_kvattn_ref(*pargs), B * n_live * 4),
+                    ("kvattn", kvattn, dargs + (bs, spec),
+                     lambda: kvattn_ref(*dargs, bs), 0)):
+                out, ref = fn(*args), plain()
+                torch.cuda.synchronize()
+                check(torch.isfinite(out.float()).all().item(),
+                      f"{kern} {fmt} not finite")
+                err = (out.float() - ref.float()).abs().max().item()
+                check(err <= 3e-2, f"{kern} {fmt} T={T}: |Δ|={err} > 3e-2")
+                outs[kern] = out
+                nbytes = keys * Hkv * (2 * rb + 8) + \
+                    2 * B * Hkv * R * D * 2 + B * 4 + extra
+                b, by = bound_ms(nbytes, ops)
+                rows[kern].append(dict(
+                    shape=f"{fmt} B={B} Hkv={Hkv} rep={rep} D={D} T={T} "
+                          f"R={R} bs={bs} n_live={n_live} S={S}",
+                    max_abs_err=err, tol=3e-2,
+                    ms=time_ms(lambda: fn(*args), flush),
+                    plain_ms=time_ms(plain, flush),
+                    library_ms=time_ms(sdpa, flush),
+                    bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
+                    ops_per_s=BF16_OPS_PER_S))
+            check(torch.equal(outs["kvattn"], outs["paged_kvattn"]),
+                  f"dense and paged attention differ ({fmt}, T={T})")
     return rows
 
 
@@ -204,7 +276,27 @@ def to_device(params, dev):
     return params.to(dev)
 
 
-def teacher_forced(model, params, policy, cache, stream, chunks, max_live):
+def new_cache(model, policy, kind, slots, dev):
+    """A fresh 256-token-per-slot cache of ``kind`` (paged: 16-token
+    blocks, slot b's table row mapping its own blocks in shuffled order)
+    and the decode_step keywords the engine passes with it."""
+    import torch
+    if kind == "dense":
+        return model.init_cache(policy, slots, 256, dev), \
+            lambda p: dict(attn_block_s=16)
+    cache = model.init_paged_cache(policy, slots, 16 * slots, 16, 16, dev)
+    perm = torch.randperm(16 * slots, generator=torch.Generator()
+                          .manual_seed(slots)).to(torch.int32)
+    cache.block_table.copy_(perm.reshape(slots, 16))
+
+    def live(p):
+        from repro_torch.core.paged_kvcache import blocks_needed
+        return dict(max_live=min(1 << (blocks_needed(p + 1, 16) - 1)
+                                 .bit_length(), 16) * 16)
+    return cache, live
+
+
+def teacher_forced(model, params, policy, cache, kw, stream, chunks):
     """Feed ``stream`` (1-D list) through decode_step in ``chunks`` (lists
     of token counts); returns the float logits of every step's last row."""
     import torch
@@ -214,8 +306,7 @@ def teacher_forced(model, params, policy, cache, stream, chunks, max_live):
         toks = torch.tensor([stream[p:p + n]], dtype=torch.int64, device=dev)
         logits, _ = model.decode_step(
             params, policy, toks, cache,
-            torch.tensor([p], dtype=torch.int32, device=dev),
-            max_live=max_live(p))
+            torch.tensor([p], dtype=torch.int32, device=dev), **kw(p))
         out.append(logits[0].float().cpu())
         p += n
     return out
@@ -223,35 +314,44 @@ def teacher_forced(model, params, policy, cache, stream, chunks, max_live):
 
 def reference_phase(dev):
     """REDUCED smollm: the kernels on the card against the plain versions
-    on the CPU, teacher-forced, same packed weights."""
+    on the CPU, teacher-forced, same packed weights, both backends."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.core.precision import get_policy
     from repro_torch.models.registry import build
     from repro_torch.serving.engine import quantize_params
-    cfg, pol = get_reduced("smollm-360m"), get_policy("w4a16kv8")
+    cfg = get_reduced("smollm-360m")
     model = build(cfg)
-    params = quantize_params(model.init_params(0, "cpu"), pol)
+    raw = model.init_params(0, "cpu")
     stream = torch.randint(1, cfg.vocab, (12,),
                            generator=torch.Generator().manual_seed(3)).tolist()
     chunks = [4, 4] + [1] * 4
-    logits = {}
-    for d in ("cpu", dev):
-        cache = model.init_paged_cache(pol, 1, 4, 8, 4, d)
-        cache.block_table.copy_(torch.tensor([[2, 0, 3, 1]]))
-        logits[str(d)] = teacher_forced(model, to_device(params, d), pol,
-                                        cache, stream, chunks,
-                                        lambda p: 32)
-    worst = 0.0
-    for lc, lg in zip(logits["cpu"], logits[str(dev)]):
-        check(torch.isfinite(lg).all().item(), "reference logits not finite")
-        scale = lc.abs().max().item()
-        rel = (lg - lc).abs().max().item() / scale
-        worst = max(worst, rel)
-        check(rel <= 2e-2, f"REDUCED logits: card vs CPU rel err {rel}")
-        top2 = lc.topk(2).values
-        if (top2[0] - top2[1]).item() > 2e-2 * scale:
-            check(lg.argmax().item() == lc.argmax().item(), "top-1 differs")
+    worst = {}
+    for name, *_ in SERVES:
+        pol = get_policy(name)
+        params = quantize_params(raw, pol)
+        tol = TOL_A8 if pol.int8_matmul else TOL
+        for kind in ("dense", "paged"):
+            logits = {}
+            for d in ("cpu", dev):
+                cache, kw = new_cache(model, pol, kind, 1, d)
+                logits[str(d)] = teacher_forced(model, to_device(params, d),
+                                                pol, cache, kw, stream,
+                                                chunks)
+            rel_max = 0.0
+            for lc, lg in zip(logits["cpu"], logits[str(dev)]):
+                check(torch.isfinite(lg).all().item(),
+                      f"reference logits not finite ({name}, {kind})")
+                scale = lc.abs().max().item()
+                rel = (lg - lc).abs().max().item() / scale
+                rel_max = max(rel_max, rel)
+                check(rel <= tol, f"REDUCED {name} {kind}: card vs CPU "
+                                  f"rel err {rel} > {tol}")
+                top2 = lc.topk(2).values
+                if (top2[0] - top2[1]).item() > tol * scale:
+                    check(lg.argmax().item() == lc.argmax().item(),
+                          f"top-1 differs ({name}, {kind})")
+            worst[f"{name}/{kind}"] = rel_max
     return worst
 
 
@@ -284,87 +384,126 @@ def profile_window(eng, prompts, sp):
                             for k, (t, n) in top])
 
 
-def serve_phase(dev):
-    """Serve full-width smollm-360m and check the kernels carried it."""
+def launch_counters():
+    """The four kernel wrappers, by name."""
+    from repro_torch.kernels.kvattn import kvattn
+    from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
+    from repro_torch.kernels.paged_kvattn import paged_kvattn
+    return {"mpgemm_a16": mpgemm_a16, "mpgemm_int8": mpgemm_int8,
+            "paged_kvattn": paged_kvattn, "kvattn": kvattn}
+
+
+def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
+    """Serve full-width smollm-360m once; check the kernels carried every
+    GEMM and attention call.  Adds the run's launches to ``totals``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import paged_kvcache as PKV
-    from repro_torch.kernels.mpgemm import mpgemm_w4a16
-    from repro_torch.kernels.paged_kvattn import paged_kvattn_kv8
     from repro_torch.serving import (Engine, EngineConfig, SamplingParams,
                                      percentile_stats)
     cfg = get_config("smollm-360m")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = Engine(EngineConfig(model=cfg, policy="w4a16kv8", n_slots=4,
-                              max_seq=256, block_size=16, prefill_chunk=32,
-                              seed=0, device=dev))
+    eng = Engine(EngineConfig(model=cfg, policy=policy, cache_kind=kind,
+                              n_slots=4, max_seq=256, block_size=16,
+                              prefill_chunk=32, seed=0, device=dev))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    prompts = rng.integers(1, cfg.vocab, (N_REQUESTS, PROMPT_LEN)).tolist()
-    sp = SamplingParams(max_new_tokens=NEW_TOKENS)
+    prompts = rng.integers(1, cfg.vocab, (n_req, prompt_len)).tolist()
+    sp = SamplingParams(max_new_tokens=new_tokens)
     eng.generate(prompts[:1], SamplingParams(max_new_tokens=2))   # warm-up
 
-    mpgemm_w4a16.launches = paged_kvattn_kv8.launches = 0
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
     steps0 = eng.model_steps
     t0 = time.perf_counter()
     outs = eng.generate(prompts, sp)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"mpgemm_w4a16": mpgemm_w4a16.launches,
-                "paged_kvattn_kv8": paged_kvattn_kv8.launches}
+    launches = {k: f.launches for k, f in counters.items()}
     steps = eng.model_steps - steps0
+    for k, n in launches.items():
+        totals[k] += n
     L = cfg.n_layers
-    check(len(outs) == N_REQUESTS and all(
-        len(o.output_token_ids) == NEW_TOKENS for o in outs),
-        "not every request produced its tokens")
+    gemm = "mpgemm_int8" if eng.policy.int8_matmul else "mpgemm_a16"
+    attn = "kvattn" if kind == "dense" else "paged_kvattn"
+    check(len(outs) == n_req and all(
+        len(o.output_token_ids) == new_tokens for o in outs),
+        f"{policy}/{kind}: not every request produced its tokens")
     check(all(0 <= t < cfg.vocab for o in outs for t in o.output_token_ids),
-          "token outside the vocabulary")
-    check(launches["mpgemm_w4a16"] == 7 * L * steps,
-          f"GEMM launches {launches['mpgemm_w4a16']} != 7*{L}*{steps}")
-    check(launches["paged_kvattn_kv8"] == L * steps,
-          f"attention launches {launches['paged_kvattn_kv8']} != {L}*{steps}")
-    check(eng.allocator.live_count == 0, "KV blocks leaked")
+          f"{policy}/{kind}: token outside the vocabulary")
+    want = {k: 0 for k in launches}
+    want[gemm], want[attn] = 7 * L * steps, L * steps
+    check(launches == want, f"{policy}/{kind}: launches {launches} != "
+                            f"{want} (L={L}, steps={steps})")
+    if kind == "paged":
+        check(eng.allocator.live_count == 0, "KV blocks leaked")
 
-    # request 0, teacher-forced on the card: each emitted token must be
-    # the argmax of decode_step's logits up to a near-tie
-    stream = prompts[0] + outs[0].output_token_ids
-    cache = eng.model.init_paged_cache(eng.policy, 1, 16, 16, 16, dev)
-    cache.block_table.copy_(torch.arange(16, dtype=torch.int32)[None])
-    chunks = [32, 32] + [1] * (NEW_TOKENS - 1)
-    tf = teacher_forced(
-        eng.model, eng.params, eng.policy, cache, stream, chunks,
-        lambda p: min(1 << (PKV.blocks_needed(p + 1, 16) - 1).bit_length(),
-                      16) * 16)
-    for lg, tok in zip(tf[1:], outs[0].output_token_ids):
-        check(lg[tok].item() >= lg.max().item() - 2e-2 * lg.abs().max().item(),
-              "served token is not the teacher-forced argmax")
+    res = dict(policy=policy, cache_kind=kind, requests=n_req,
+               prompt_len=prompt_len, new_tokens=new_tokens,
+               model_steps=steps, wall_s=wall,
+               tokens_per_s=n_req * new_tokens / wall,
+               ms_per_step=wall / steps * 1e3,
+               ttft_p50_s=percentile_stats([o.ttft for o in outs])["p50"],
+               latency_p50_s=percentile_stats([o.latency for o in outs])["p50"],
+               setup_s=setup_s, launches=launches,
+               kv_resident_bytes=eng.kv_resident_bytes())
+    if policy == "w4a16kv8":
+        # request 0, teacher-forced on the card: each emitted token must
+        # be the argmax of decode_step's logits up to a near-tie
+        stream = prompts[0] + outs[0].output_token_ids
+        cache, kw = new_cache(eng.model, eng.policy, kind, 1, dev)
+        chunks = [32] * (prompt_len // 32) + [1] * (new_tokens - 1)
+        tf = teacher_forced(eng.model, eng.params, eng.policy, cache, kw,
+                            stream, chunks)
+        for lg, tok in zip(tf[prompt_len // 32 - 1:],
+                           outs[0].output_token_ids):
+            check(lg[tok].item() >= lg.max().item() - TOL *
+                  lg.abs().max().item(),
+                  f"{kind}: served token is not the teacher-forced argmax")
+        res["profile"] = profile_window(eng, prompts[:4], SamplingParams(
+            max_new_tokens=8))
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    streams = [o.output_token_ids for o in outs]
+    del eng
+    torch.cuda.empty_cache()
+    return res, streams
 
-    toks = sum(len(o.output_token_ids) for o in outs)
-    return dict(
-        profile=profile_window(eng, prompts[:4], SamplingParams(
-            max_new_tokens=8)),
-        requests=N_REQUESTS, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
-        model_steps=steps, wall_s=wall, tokens_per_s=toks / wall,
-        ms_per_step=wall / steps * 1e3,
-        ttft_p50_s=percentile_stats([o.ttft for o in outs])["p50"],
-        latency_p50_s=percentile_stats([o.latency for o in outs])["p50"],
-        setup_s=setup_s, launches=launches,
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+def serve_phase(dev):
+    """Every serve of ``SERVES`` on both backends; dense and paged streams
+    must be identical per policy.  Returns the runs and the launches of
+    each kernel summed over them."""
+    totals = {k: 0 for k in launch_counters()}
+    runs = []
+    for policy, n_req, plen, new in SERVES:
+        streams = {}
+        for kind in ("dense", "paged"):
+            res, streams[kind] = serve_one(dev, policy, kind, n_req, plen,
+                                           new, totals)
+            runs.append(res)
+            print("serve:", json.dumps(res))
+        check(streams["dense"] == streams["paged"],
+              f"{policy}: dense and paged token streams differ on the card")
+    for k, n in totals.items():
+        check(n > 0, f"kernel {k} was never launched on the main path")
+    return runs, totals
 
 
 def summarize(rows, launches, **meta):
     """One kernel's line: sums over its main-path shapes."""
+    t_b = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
+    t_o = sum(r["ops"] / r["ops_per_s"] for r in rows)
+    libs = [r["library_ms"] for r in rows]
     return dict(meta, launches=launches,
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=sum(r["ms"] for r in rows),
                 plain_ms=sum(r["plain_ms"] for r in rows),
                 bound_ms=sum(r["bound_ms"] for r in rows),
-                bound_by=("bytes" if sum(r["bytes"] for r in rows)
-                          / HBM_BYTES_PER_S >= sum(r["ops"] for r in rows)
-                          / BF16_OPS_PER_S else "operations"),
-                library_ms=sum(r["library_ms"] for r in rows),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                library_ms=None if None in libs else sum(libs),
                 shapes=rows)
 
 
@@ -394,29 +533,46 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {p.stem.split('-')[0]}: {line.strip()}")
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    gemm_rows = gemm_phase(dev, flush)
-    attn_rows = attn_phase(dev, flush)
-    for r in gemm_rows + attn_rows:
-        print(f"  {r['shape']:44s} err {r['max_abs_err']:.3g} "
-              f"kernel {r['ms'] * 1e3:8.1f} us  plain {r['plain_ms'] * 1e3:8.1f}"
-              f" us  library {r['library_ms'] * 1e3:7.1f} us  bound "
-              f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})")
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    for _ in range(1000):                 # ~0.4 s of work: clocks up
+        flush.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = {**gemm_phase(dev, flush), **attn_phase(dev, flush)}
     del flush
-    rel = reference_phase(dev)
-    print(f"reference: REDUCED logits, card vs CPU, max rel err {rel:.3g}")
-    serve = serve_phase(dev)
-    print("serve:", json.dumps(serve))
+    for kern, rs in rows.items():
+        for r in rs:
+            lib = ("     —    " if r["library_ms"] is None
+                   else f"{r['library_ms'] * 1e3:7.1f} us")
+            print(f"  {kern:12s} {r['shape']:58s} err {r['max_abs_err']:.3g}"
+                  f" kernel {r['ms'] * 1e3:7.1f} us  plain "
+                  f"{r['plain_ms'] * 1e3:8.1f} us  library {lib}  bound "
+                  f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})")
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst = reference_phase(dev)
+    print(f"reference: REDUCED logits, card vs CPU, max rel err "
+          f"{json.dumps(worst)} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _, totals = serve_phase(dev)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s")
 
+    src = "src/repro_torch/csrc/"
     kernels = [
-        summarize(gemm_rows, serve["launches"]["mpgemm_w4a16"],
-                  name="mpgemm_w4a16", route="cuda",
-                  source="src/repro_torch/csrc/mpgemm.cu",
+        summarize(rows["mpgemm_a16"], totals["mpgemm_a16"],
+                  name="mpgemm_a16", route="cuda", source=src + "mpgemm.cu",
                   replaces="src/repro/kernels/mpgemm.py:137"),
-        summarize(attn_rows, serve["launches"]["paged_kvattn_kv8"],
-                  name="paged_kvattn_kv8", route="cuda",
-                  source="src/repro_torch/csrc/paged_kvattn.cu",
+        summarize(rows["mpgemm_int8"], totals["mpgemm_int8"],
+                  name="mpgemm_int8", route="cuda",
+                  source=src + "mpgemm_int8.cu",
+                  replaces="src/repro/kernels/mpgemm.py:96"),
+        summarize(rows["paged_kvattn"], totals["paged_kvattn"],
+                  name="paged_kvattn", route="cuda",
+                  source=src + "paged_kvattn.cu",
                   replaces="src/repro/kernels/paged_kvattn.py:85"),
+        summarize(rows["kvattn"], totals["kvattn"], name="kvattn",
+                  route="cuda", source=src + "kvattn.cu",
+                  replaces="src/repro/kernels/kvattn.py:147"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

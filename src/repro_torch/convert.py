@@ -8,9 +8,9 @@ dicts.  The port then packs the weights with its own packer, which yields
 the JAX packer's bytes.  This is how tests feed both packages the same
 model without downloading weights.
 
-JAX's bf16 arrays reach numpy with an ``ml_dtypes`` dtype; they are
-recognised by name and reinterpreted through their 16-bit pattern, so this
-module needs neither JAX nor ``ml_dtypes``.
+JAX's bf16 and fp8 arrays reach numpy with an ``ml_dtypes`` dtype; they
+are recognised by name and reinterpreted through their bit pattern, so
+this module needs neither JAX nor ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -24,12 +24,20 @@ from repro_torch.configs.base import ModelConfig
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w1", "w2", "w3")
 
 
+#: ``ml_dtypes`` names numpy has no type for → (torch dtype, bit-pattern
+#: carrier of the same width)
+_BY_PATTERN = {"bfloat16": (torch.bfloat16, np.uint16),
+               "float8_e5m2": (torch.float8_e5m2, np.uint8),
+               "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8)}
+
+
 def to_tensor(arr, device="cuda") -> torch.Tensor:
-    """numpy array (bf16 via its bit pattern) → torch tensor on device."""
+    """numpy array (bf16 / fp8 via their bit patterns) → torch tensor on
+    device."""
     arr = np.ascontiguousarray(arr)
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16).copy()) \
-            .view(torch.bfloat16).to(device)
+    if arr.dtype.name in _BY_PATTERN:
+        dt, carrier = _BY_PATTERN[arr.dtype.name]
+        return torch.from_numpy(arr.view(carrier).copy()).view(dt).to(device)
     return torch.from_numpy(arr.copy()).to(device)
 
 

@@ -26,13 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import quantize as Q
+from .kvcache import scatter_rows, store_dim
 from .precision import FormatSpec
-
-
-def store_dim(head_dim: int, spec: FormatSpec) -> int:
-    """Stored last-axis width: kv4 packs head_dim two values per byte."""
-    return head_dim // 2 if spec.packed else head_dim
 
 
 @dataclasses.dataclass
@@ -235,23 +230,14 @@ def append_paged(cache: PagedKVCache, k_new: torch.Tensor,
     ``rows`` is a precomputed :func:`write_rows` result for these
     arguments.  Same quantization as the JAX package, bit for bit.
     """
-    B, T, H = k_new.shape[:3]
     if rows is None:
-        rows = write_rows(cache, pos, T, valid)
-    src, dst = rows
-    # K and V quantize as one stacked tensor (per-(token, head) math, so
-    # the bytes are those of two separate calls, in half the launches)
-    q, s = Q.quantize_kv(torch.stack([k_new, v_new]), spec)
-    q = q.reshape(2, B * T, H, q.shape[-1]).index_select(1, src)
-    s = s.reshape(2, B * T, H).index_select(1, src)
-    nbs = cache.n_blocks * cache.block_size
-    for pool, val in ((cache.k, q[0]), (cache.v, q[1]),
-                      (cache.k_scale, s[0]), (cache.v_scale, s[1])):
-        pool.view((nbs,) + tuple(pool.shape[2:])).index_copy_(0, dst, val)
+        rows = write_rows(cache, pos, k_new.shape[1], valid)
+    scatter_rows(cache, k_new, v_new, spec, *rows)
     return cache
 
 
-def kv_bytes(cache: PagedKVCache) -> int:
-    """Resident bytes of the pool (+ scales + table)."""
-    ts = (cache.k, cache.v, cache.k_scale, cache.v_scale, cache.block_table)
+def kv_bytes(cache) -> int:
+    """Resident bytes of a KV store: paged pool (+ scales + table) or
+    dense slab (+ scales) alike."""
+    ts = [getattr(cache, f.name) for f in dataclasses.fields(cache)]
     return int(sum(t.numel() * t.element_size() for t in ts))

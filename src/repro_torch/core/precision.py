@@ -2,9 +2,7 @@
 
 Port of ``repro.core.precision`` with torch dtypes.  "WxAyKVz" denotes
 x-bit weights, y-bit activations and a z-bit KV cache; every combination
-parses, though the serving engine of this slice runs ``w4a16kv8`` only
-(``serving/config.py`` rejects the rest with the ROADMAP item that ports
-them).
+parses and the serving engine runs every one.
 """
 from __future__ import annotations
 
@@ -96,6 +94,15 @@ class PrecisionPolicy:
     def name(self) -> str:
         """The policy's ``WxAyKVz`` name."""
         return f"{self.weights.name}{self.acts.name}{self.kv.name}"
+
+    @property
+    def int8_matmul(self) -> bool:
+        """Integer weights (bits <= 8) × integer 8-bit activations take the
+        s8×s8→s32 GEMM (W4 nibbles unpack to valid s8 operands).  Float
+        activations (afp8) are not quantized at all: they take the A16
+        GEMM in bf16, as in the JAX package."""
+        return (not self.weights.is_float and self.weights.bits <= 8
+                and not self.acts.is_float and self.acts.bits == 8)
 
 
 # Paper-faithful default serving format (headline format, §5.2 W4A16KV8).

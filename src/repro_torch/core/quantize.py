@@ -94,6 +94,17 @@ def unpack_int4(p: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return stacked.reshape(shape).to(torch.int8)
 
 
+# -- activations (per-token) -------------------------------------------------
+
+
+def quantize_act_per_token(x: torch.Tensor, bits: int = 8
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric quantization (last axis = features).
+    Returns (q int8, scale (..., 1) f32)."""
+    scale = absmax_scale(x, dim=-1, qmax=2 ** (bits - 1) - 1)
+    return quantize_int(x, scale, bits), scale
+
+
 # -- KV cache (per-token, per-head) ------------------------------------------
 
 

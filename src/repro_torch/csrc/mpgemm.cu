@@ -1,15 +1,18 @@
-// W4A16 mixed-precision GEMM over tile-major packed int4 weights.
+// W4A16 / W8A16 mixed-precision GEMM over tile-major packed weights.
 //
 // Replaces repro/kernels/mpgemm.py:137 mpgemm_2d (kernel body
-// _mpgemm_kernel :45, nibble unpack _unpack_nibbles_tile :34), bits = 4:
-// y (M, N) bf16 = x (M, K) bf16 @ W, W stored as (K/bk, N/bn, bk/2, bn)
-// int8 tiles (two nibbles per byte along K, low nibble = even k) with
-// per-(group, column) f32 scales, group == bk.
+// _mpgemm_kernel :45, nibble unpack _unpack_nibbles_tile :34), bits 4 and
+// 8: y (M, N) bf16 = x (M, K) bf16 @ W, W stored as (K/bk, N/bn, bk_store,
+// bn) int8 tiles — bits 4: bk_store = bk/2, two nibbles per byte along K,
+// low nibble = even k; bits 8: bk_store = bk, one value per byte — with
+// per-(group, column) f32 scales, group == bk.  (wfp8 weights take bits 8:
+// the JAX package stores them as per-group int8.)
 //
 // What bounds it on an H100: bytes at decode, both at prefill.  At M = 4
-// the product does 8 flops per weight byte read, so the 4-bit weights'
-// bytes set the floor; at M = 128 operations and bytes take about the same
-// time.  The design keeps W 4-bit until it is in shared memory and spreads
+// the product does 8 flops per 4-bit weight byte read (4 per 8-bit byte),
+// so the weights' bytes set the floor; at M = 128 operations and bytes
+// take about the same time.  The design keeps W in its stored width until
+// it is in shared memory and spreads
 // its bytes over as many SMs as the shape allows:
 //   * a block owns a 32-column slice of one bn-wide packed tile and
 //     16 (M <= 16) or 64 rows of M, so even a 320-wide weight gives 10
@@ -19,9 +22,9 @@
 //     loads while it multiplies the current one; the partial sums are
 //     added at the end in warp order, so every output is the same sum in
 //     the same order whatever M is (batch-composition independent);
-//   * in the warp, the nibbles are unpacked with signed shifts, scaled by
-//     the group scale and rounded to bf16 — the Pallas kernel's I2F +
-//     scale — straight into mma.sync m16n8k16 bf16 B fragments; the
+//   * in the warp, the values (nibbles unpacked with signed shifts) are
+//     scaled by the group scale and rounded to bf16 — the Pallas kernel's
+//     I2F + scale — straight into mma.sync m16n8k16 bf16 B fragments; the
 //     product accumulates in f32 on the tensor cores.
 // Ragged M is masked in the kernel (no bm = 1 fallback).  wgmma, TMA and
 // the paper's ldmatrix fragment layout (which would drop the byte gathers
@@ -35,14 +38,27 @@ namespace {
 constexpr int NW = 8;          // warps per block (split K)
 constexpr int SLICE = 32;      // N columns per block (4 mma n8 tiles)
 
-__device__ __forceinline__ uint32_t dequant_pair(uint8_t byte, float s) {
-  // low nibble = even k, high nibble = odd k; both sign-extended
-  const int lo = static_cast<int>(static_cast<int8_t>(
-                     static_cast<uint8_t>(byte << 4))) >> 4;
-  const int hi = static_cast<int>(static_cast<int8_t>(byte)) >> 4;
+__device__ __forceinline__ uint32_t bf16_pair(int lo, int hi, float s) {
   __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(lo) * s,
                                            static_cast<float>(hi) * s);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// B fragment word of (k, k + 1) at one column, scaled: bits 4 reads the
+// byte row k / 2 (low nibble = even k, both sign-extended), bits 8 the
+// byte rows k and k + 1 of the warp's (bk_store, SLICE) tile.
+template <int BITS>
+__device__ __forceinline__ uint32_t frag_pair(const uint8_t* wsm, int k,
+                                              int col, float s) {
+  if constexpr (BITS == 4) {
+    const uint8_t byte = wsm[(k / 2) * SLICE + col];
+    const int lo = static_cast<int8_t>(static_cast<uint8_t>(byte << 4)) >> 4;
+    const int hi = static_cast<int8_t>(byte) >> 4;
+    return bf16_pair(lo, hi, s);
+  } else {
+    return bf16_pair(static_cast<int8_t>(wsm[k * SLICE + col]),
+                     static_cast<int8_t>(wsm[(k + 1) * SLICE + col]), s);
+  }
 }
 
 __device__ __forceinline__ uint32_t ld_x(const __nv_bfloat16* x, int row,
@@ -59,21 +75,23 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int BK, int MT>
+template <int BITS, int BK, int MT>
 constexpr size_t smem_bytes() {
-  return size_t(NW) * (BK / 2) * SLICE + size_t(NW) * 16 * MT * SLICE * 4;
+  return size_t(NW) * (BK * BITS / 8) * SLICE +
+         size_t(NW) * 16 * MT * SLICE * 4;
 }
 
-// BK: K rows per packed tile (== quant group); MT: m16 tiles per block.
-template <int BK, int MT>
+// BITS: 4 or 8; BK: K rows per packed tile (== quant group); MT: m16
+// tiles per block.
+template <int BITS, int BK, int MT>
 __global__ void __launch_bounds__(NW * 32)
-mpgemm_w4a16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const int8_t* __restrict__ w,
-                    const float* __restrict__ scales,
-                    __nv_bfloat16* __restrict__ y, int M, int K, int N,
-                    int bn) {
-  constexpr int WROWS = BK / 2;        // packed byte rows per tile
-  constexpr int CH = BK / 32;          // 16-byte chunks per lane per tile
+mpgemm_a16_kernel(const __nv_bfloat16* __restrict__ x,
+                  const int8_t* __restrict__ w,
+                  const float* __restrict__ scales,
+                  __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                  int bn) {
+  constexpr int WROWS = BK * BITS / 8; // stored byte rows per tile
+  constexpr int CH = WROWS / 16;       // 16-byte chunks per lane per tile
   constexpr int BM = 16 * MT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -136,9 +154,9 @@ mpgemm_w4a16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         uint32_t b[2];
-        b[0] = dequant_pair(wsm[(ks * 8 + tig) * SLICE + nt * 8 + g], sc[nt]);
-        b[1] = dequant_pair(wsm[(ks * 8 + tig + 4) * SLICE + nt * 8 + g],
-                            sc[nt]);
+        const int k = ks * 16 + tig * 2, col = nt * 8 + g;
+        b[0] = frag_pair<BITS>(wsm, k, col, sc[nt]);
+        b[1] = frag_pair<BITS>(wsm, k + 8, col, sc[nt]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b);
       }
@@ -167,11 +185,11 @@ mpgemm_w4a16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BK, int MT>
+template <int BITS, int BK, int MT>
 int launch(const void* x, const void* w, const void* scales, void* y, int M,
            int K, int N, int bn, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<BK, MT>();
-  auto kern = mpgemm_w4a16_kernel<BK, MT>;
+  constexpr size_t smem = smem_bytes<BITS, BK, MT>();
+  auto kern = mpgemm_a16_kernel<BITS, BK, MT>;
   if (smem > 48 * 1024) {
     static bool attr_set = false;        // once per instantiation
     if (!attr_set) {
@@ -189,32 +207,40 @@ int launch(const void* x, const void* w, const void* scales, void* y, int M,
   return int(cudaGetLastError());
 }
 
-template <int BK>
+template <int BITS, int BK>
 int launch_m(const void* x, const void* w, const void* scales, void* y, int M,
              int K, int N, int bn, cudaStream_t stream) {
-  return M <= 16 ? launch<BK, 1>(x, w, scales, y, M, K, N, bn, stream)
-                 : launch<BK, 4>(x, w, scales, y, M, K, N, bn, stream);
+  return M <= 16 ? launch<BITS, BK, 1>(x, w, scales, y, M, K, N, bn, stream)
+                 : launch<BITS, BK, 4>(x, w, scales, y, M, K, N, bn, stream);
+}
+
+template <int BITS>
+int launch_bk(const void* x, const void* w, const void* scales, void* y,
+              int M, int K, int N, int bk, int bn, cudaStream_t st) {
+  switch (bk) {
+    case 32:
+      return launch_m<BITS, 32>(x, w, scales, y, M, K, N, bn, st);
+    case 64:
+      return launch_m<BITS, 64>(x, w, scales, y, M, K, N, bn, st);
+    case 128:
+      return launch_m<BITS, 128>(x, w, scales, y, M, K, N, bn, st);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// x (M, K) bf16; w (K/bk, N/bn, bk/2, bn) int8; scales (K/bk, N) f32;
-// y (M, N) bf16.  Takes bk in {32, 64, 128} and bn a multiple of 32.
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int mpgemm_w4a16(const void* x, const void* w, const void* scales,
-                            void* y, int M, int K, int N, int bk, int bn,
-                            void* stream) {
+// x (M, K) bf16; w (K/bk, N/bn, bk * bits / 8, bn) int8; scales (K/bk, N)
+// f32; y (M, N) bf16.  Takes bits in {4, 8}, bk in {32, 64, 128} and bn a
+// multiple of 32.  Returns the CUDA error of the launch (0 on success).
+extern "C" int mpgemm_a16(const void* x, const void* w, const void* scales,
+                          void* y, int bits, int M, int K, int N, int bk,
+                          int bn, void* stream) {
   if (bn % SLICE || K % bk || N % bn || M < 1)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bk) {
-    case 32:
-      return launch_m<32>(x, w, scales, y, M, K, N, bn, st);
-    case 64:
-      return launch_m<64>(x, w, scales, y, M, K, N, bn, st);
-    case 128:
-      return launch_m<128>(x, w, scales, y, M, K, N, bn, st);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (bits == 4) return launch_bk<4>(x, w, scales, y, M, K, N, bk, bn, st);
+  if (bits == 8) return launch_bk<8>(x, w, scales, y, M, K, N, bk, bn, st);
+  return int(cudaErrorInvalidValue);
 }

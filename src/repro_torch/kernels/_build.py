@@ -17,11 +17,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_kvattn", "mpgemm")
+SOURCES = ("paged_kvattn", "kvattn", "mpgemm", "mpgemm_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,3 +107,15 @@ def bind(name: str, fn: str, n_ptr: int, n_int: int):
         f.restype = ctypes.c_int
         _FNS[(name, fn)] = f
     return f
+
+
+def check_operands(dev: torch.device, checks: Sequence[Tuple]) -> None:
+    """Raise ``ValueError`` unless every ``(name, tensor, dtype, shape)``
+    is a contiguous tensor of that dtype and shape on ``dev`` — what a
+    kernel reading raw pointers takes."""
+    for name, t, dt, shape in checks:
+        if t.device != dev or t.dtype != dt or \
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous {dt} "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")

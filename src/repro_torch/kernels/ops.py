@@ -1,10 +1,10 @@
 """Public wrappers around the kernels: the model-facing shapes.
 
-Port of the parts of ``repro.kernels.ops`` on the paged W4A16KV8 path:
-row grouping for the multi-query attention kernel, position/window
-normalisation and the live-block bound.  Each call goes to the kernel
-wrapper, which runs the plain version for CPU tensors and the CUDA kernel
-for CUDA tensors.
+Port of ``repro.kernels.ops``: per-token activation quantization for the
+A8 GEMM, row grouping for the multi-query attention kernels,
+position/window normalisation and the paged live-block bound.  Each call
+goes to the kernel wrapper, which runs the plain version for CPU tensors
+and the CUDA kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -12,22 +12,36 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quantize as Q
+from repro_torch.core.kvcache import KVCache
 from repro_torch.core.packing import PackedWeight
 from repro_torch.core.paged_kvcache import PagedKVCache, blocks_needed
-from repro_torch.core.precision import FormatSpec
+from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 
-from .mpgemm import mpgemm_w4a16
-from .paged_kvattn import paged_kvattn_kv8
+from .kvattn import kvattn
+from .mpgemm import mpgemm_a16, mpgemm_int8
+from .paged_kvattn import paged_kvattn
 from .ref import NO_WINDOW
 
 
-def mpgemm(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def mpgemm(x: torch.Tensor, w: PackedWeight,
+           policy: PrecisionPolicy) -> torch.Tensor:
     """y = x @ W with in-kernel dequant.  x: (..., K) → (..., N) bf16.
-    Ragged M goes to the kernel as is (the JAX wrapper's ``bm = 1``
-    fallback is a Pallas block-shape constraint the CUDA kernel lacks)."""
+
+    A8 policies with integer weights (``policy.int8_matmul``) quantize x
+    per token here, outside the kernel, and take the s8×s8→s32 kernel;
+    every other packed weight takes the A16 kernel with x in bf16 (afp8
+    activations are never quantized, as in the JAX package).  Ragged M
+    goes to the kernels as is (the JAX wrapper's ``bm = 1`` fallback is a
+    Pallas block-shape constraint the CUDA kernels lack)."""
     K, N = w.shape
     lead = x.shape[:-1]
-    y = mpgemm_w4a16(x.reshape(-1, K).to(torch.bfloat16).contiguous(), w)
+    x2 = x.reshape(-1, K)
+    if policy.int8_matmul:
+        xq, xs = Q.quantize_act_per_token(x2.float(), bits=8)
+        y = mpgemm_int8(xq, xs, w)
+    else:
+        y = mpgemm_a16(x2.to(torch.bfloat16).contiguous(), w)
     return y.reshape(*lead, N)
 
 
@@ -63,6 +77,22 @@ def _ungroup_rows(out: torch.Tensor, B: int, T: int, Hkv: int, rep: int,
     return o.reshape(B, T, Hkv * rep, D)
 
 
+def kvattn_decode(q: torch.Tensor, cache: KVCache, spec: FormatSpec, pos,
+                  window=None, block_s: int = 256) -> torch.Tensor:
+    """Dense-slab decode / chunked-prefill attention.  q: (B, T, H, D);
+    ``cache`` a per-layer view; ``pos`` the per-slot first query position
+    (token t attends through ``pos + t``).  The kernel walks every
+    ``min(block_s, S)``-token tile of the slab."""
+    B, T, H, D = q.shape
+    Hkv = cache.k.shape[2]
+    rep = H // Hkv
+    qg = _group_rows(q.to(torch.bfloat16), Hkv, rep).contiguous()
+    out = kvattn(qg, cache.k, cache.k_scale, cache.v, cache.v_scale,
+                 _norm_pos(pos, B, q.device), _norm_window(window), rep,
+                 block_s, spec)
+    return _ungroup_rows(out, B, T, Hkv, rep, D).to(q.dtype)
+
+
 def kvattn_decode_paged(q: torch.Tensor, cache: PagedKVCache,
                         spec: FormatSpec, pos, window=None,
                         max_live: Optional[int] = None) -> torch.Tensor:
@@ -74,10 +104,6 @@ def kvattn_decode_paged(q: torch.Tensor, cache: PagedKVCache,
     ``max_live`` (tokens) bounds the walk at the batch's first-row
     live-context high-water mark, widened by ``T - 1`` for the chunk's
     tail; None walks the whole table."""
-    if spec.name != "kv8":
-        raise NotImplementedError(
-            f"paged attention over {spec.name} is not ported yet "
-            "(ROADMAP queue 2 item 2: the remaining KV formats)")
     B, T, H, D = q.shape
     Hkv = cache.k.shape[2]
     rep = H // Hkv
@@ -85,8 +111,7 @@ def kvattn_decode_paged(q: torch.Tensor, cache: PagedKVCache,
     n_live = cache.blocks_per_slot
     if max_live is not None:
         n_live = blocks_needed(max_live + T - 1, cache.block_size)
-    out = paged_kvattn_kv8(qg, cache.k, cache.k_scale, cache.v,
-                           cache.v_scale, cache.block_table,
-                           _norm_pos(pos, B, q.device), _norm_window(window),
-                           rep, n_live)
+    out = paged_kvattn(qg, cache.k, cache.k_scale, cache.v, cache.v_scale,
+                       cache.block_table, _norm_pos(pos, B, q.device),
+                       _norm_window(window), rep, n_live, spec)
     return _ungroup_rows(out, B, T, Hkv, rep, D).to(q.dtype)

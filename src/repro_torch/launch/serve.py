@@ -1,11 +1,13 @@
 """Serving driver: the continuous-batching engine with Poisson arrivals.
 
 Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
-Reports throughput and TTFT / latency percentiles.
+Reports throughput and TTFT / latency percentiles.  The KV store is the
+dense slab unless ``--cache-kind paged``; ``--policy`` takes any
+``WxAyKVz`` name.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-360m --full \
-        --cache-kind paged --requests 16 --rate 8
+        --policy w4a8kv4 --cache-kind paged --requests 16 --rate 8
 """
 import argparse
 import sys

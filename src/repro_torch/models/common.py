@@ -1,7 +1,7 @@
 """Shared model building blocks: norms, RoPE, MLPs, and a linear that is
 transparent over quantized (PackedWeight) vs dense (bf16) weights.
 
-Port of ``repro.models.common`` for the dense family's paged decode path.
+Port of ``repro.models.common`` for the dense family's decode path.
 Plain functions over explicit parameter dicts; initializers return bf16.
 """
 from __future__ import annotations
@@ -26,7 +26,7 @@ from repro_torch.kernels import ops
 def linear(x: torch.Tensor, w, policy: Optional[PrecisionPolicy] = None
            ) -> torch.Tensor:
     """x @ w where w is a bf16 tensor (``torch.matmul``) or a PackedWeight
-    (the W4A16 GEMM kernel)."""
+    (the mixed-precision GEMM kernels, routed by ``policy``)."""
     if isinstance(w, PackedWeight):
         if policy is None:
             raise ValueError("a packed weight needs its precision policy")
@@ -77,22 +77,27 @@ def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
 
 
 # ---------------------------------------------------------------------------
-# Decode attention over the paged pool
+# Decode attention over either KV backend
 # ---------------------------------------------------------------------------
 
 
-def attend_decode(q: torch.Tensor, cache_l: PKV.PagedKVCache,
-                  spec: FormatSpec, pos, window=None,
+def attend_decode(q: torch.Tensor, cache_l, spec: FormatSpec, pos,
+                  window=None, block_s: Optional[int] = None,
                   max_live: Optional[int] = None) -> torch.Tensor:
-    """Decode / chunked-prefill attention over a per-layer paged cache.
-    q: (B, T, H, D); ``pos`` is the per-slot first query position; token t
-    attends causally through ``pos + t``.  The multi-query paged kernel
-    resolves the block table itself, for any T."""
-    if not isinstance(cache_l, PKV.PagedKVCache):
-        raise NotImplementedError(
-            "the dense KV slab is not ported yet (ROADMAP queue 1 item 2)")
-    return ops.kvattn_decode_paged(q, cache_l, spec, pos, window=window,
-                                   max_live=max_live)
+    """Decode / chunked-prefill attention over a per-layer cache of either
+    backend.  q: (B, T, H, D); ``pos`` is the per-slot first query
+    position; token t attends causally through ``pos + t``.
+
+    A paged cache goes to the multi-query paged kernel, which resolves the
+    block table itself for any T, its walk bounded by ``max_live``; a
+    dense slab to the slab kernel at ``block_s`` (default 256, clipped to
+    the slab).  The engine sets ``block_s`` to the paged block size, so
+    both backends walk the same tiles and stay bitwise equal."""
+    if isinstance(cache_l, PKV.PagedKVCache):
+        return ops.kvattn_decode_paged(q, cache_l, spec, pos, window=window,
+                                       max_live=max_live)
+    return ops.kvattn_decode(q, cache_l, spec, pos, window=window,
+                             block_s=block_s or 256)
 
 
 # ---------------------------------------------------------------------------

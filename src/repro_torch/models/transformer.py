@@ -1,10 +1,11 @@
-"""Dense decoder-only transformer family (llama-style), paged decode path.
+"""Dense decoder-only transformer family (llama-style), decode path.
 
-Port of ``repro.models.transformer`` for the dense family on the paged KV
-pool: RMSNorm, interleaved RoPE, GQA, SwiGLU; weights may be bf16 tensors
-or PackedWeights.  Parameters are a dict whose ``"layers"`` entry is a list
-of per-layer dicts (the JAX package stacks them along a leading axis for
-its layer scan; here the scan is a Python loop).
+Port of ``repro.models.transformer`` for the dense family on either KV
+backend (dense slab or paged pool): RMSNorm, interleaved RoPE, GQA,
+SwiGLU; weights may be bf16 tensors or PackedWeights.  Parameters are a
+dict whose ``"layers"`` entry is a list of per-layer dicts (the JAX
+package stacks them along a leading axis for its layer scan; here the
+scan is a Python loop).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.ref import NO_WINDOW as BIG_WINDOW
@@ -60,6 +62,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = C.dense_init(gen, (d, cfg.vocab), scale=0.02)
     return params
+
+
+def init_cache(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
+               max_seq: int, device="cuda") -> KV.KVCache:
+    """Per-layer dense slabs stacked (L, batch, max_seq, H, Ds)."""
+    return KV.init_cache(batch, max_seq, cfg.n_kv_heads, cfg.hd, policy.kv,
+                         n_layers=cfg.n_layers, device=device)
 
 
 def init_paged_cache(cfg: ModelConfig, policy: PrecisionPolicy, n_slots: int,
@@ -112,26 +121,29 @@ def lm_logits(params, h: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Decode: T new tokens per slot against the paged pool
+# Decode: T new tokens per slot against the KV cache
 # ---------------------------------------------------------------------------
 
 
 def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
-                tokens: torch.Tensor, cache: PKV.PagedKVCache,
-                pos: torch.Tensor, max_live: Optional[int] = None,
+                tokens: torch.Tensor, cache, pos: torch.Tensor,
+                max_live: Optional[int] = None,
                 valid: Optional[torch.Tensor] = None,
-                ) -> Tuple[torch.Tensor, PKV.PagedKVCache]:
+                attn_block_s: Optional[int] = None,
+                ) -> Tuple[torch.Tensor, Any]:
     """tokens: (B, T); pos: (B,) position of each slot's first new token.
 
     T > 1 is the engine's chunked prefill / mixed prefill+decode step: the
-    T queries attend causally to ``pos + t`` cached tokens each.  The new
-    K/V are quantized and written into the pool in place, through the
-    block table, before each layer's attention.  ``valid`` ((B,), optional)
-    marks slot b's first ``valid[b]`` rows as real: the rest are padding,
-    their KV writes dropped, and the logits come from each slot's last
-    valid row.  ``max_live`` (tokens) bounds the attention kernel's walk
-    at the batch's live-context high-water mark.  Returns ((B, V) logits,
-    the cache)."""
+    T queries attend causally to ``pos + t`` cached tokens each.
+    ``cache`` is the dense :class:`KV.KVCache` slab or a
+    :class:`PKV.PagedKVCache` pool; the new K/V are quantized and written
+    into it in place (through the block table for paged) before each
+    layer's attention.  ``valid`` ((B,), optional) marks slot b's first
+    ``valid[b]`` rows as real: the rest are padding, their KV writes
+    dropped, and the logits come from each slot's last valid row.
+    ``max_live`` (tokens) bounds the paged kernel's walk at the batch's
+    live-context high-water mark; ``attn_block_s`` is the dense kernel's
+    tile height.  Returns ((B, V) logits, the cache)."""
     if not cfg.use_rope:
         raise NotImplementedError(
             "sinusoidal positions are not ported yet (ROADMAP queue 1 "
@@ -146,16 +158,21 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     # the same for every layer: RoPE tables and the pool rows written
     rotation = C.rope_rotation(rope_pos, cfg.hd, rotary_pct=cfg.rotary_pct,
                                theta=cfg.rope_theta)
-    rows = PKV.write_rows(cache, pos, T, valid)
+    paged = isinstance(cache, PKV.PagedKVCache)
+    rows = (PKV if paged else KV).write_rows(cache, pos, T, valid)
     for i, lp in enumerate(params["layers"]):
         cache_l = cache.layer(i)
         h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv(h, lp, cfg, policy)
         q = C.apply_rope(q, rotation)
         k = C.apply_rope(k, rotation)
-        PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
+        if paged:
+            PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
+        else:
+            KV.append_per_slot(cache_l, k, v, pos, policy.kv, rows=rows)
         attn = C.attend_decode(q, cache_l, policy.kv, pos,
-                               window=layer_window(cfg, i), max_live=max_live)
+                               window=layer_window(cfg, i),
+                               block_s=attn_block_s, max_live=max_live)
         x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
         h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(h2, lp, cfg, policy)

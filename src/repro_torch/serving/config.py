@@ -1,9 +1,10 @@
 """Engine configuration: one validated dataclass.
 
-Port of ``repro.serving.config`` for the paged reservation engine.  Every
-knob of the JAX ``EngineConfig`` is here; the ones whose feature is not
-ported yet raise :class:`EngineError` naming the ROADMAP item that ports
-it, instead of silently doing something else.  New knob: ``device``
+Port of ``repro.serving.config`` for the dense-slab and paged reservation
+engines.  Every knob of the JAX ``EngineConfig`` is here, with its rules;
+the ones whose feature is not ported yet raise :class:`EngineError`
+naming the ROADMAP item that ports it, instead of silently doing
+something else.  New knob: ``device``
 (``"cuda"`` by default; the CPU only when asked for — a missing card is an
 error, never a fallback).
 """
@@ -16,9 +17,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.precision import (DEFAULT_SERVING, PrecisionPolicy,
-                                        get_policy)
-from repro_torch.models.registry import PAGED_FAMILIES
+from repro_torch.core.precision import PrecisionPolicy, get_policy
+from repro_torch.models.registry import KV_FAMILIES
 
 
 class EngineError(ValueError):
@@ -34,14 +34,16 @@ def _not_ported(what: str, item: str) -> EngineError:
 class EngineConfig:
     """Validated serving-engine configuration.
 
-    ``policy`` is a :class:`PrecisionPolicy` or a name; ``None`` is the
-    default ``w4a16kv8``, the only policy this slice serves.  Capacity:
-    ``n_slots`` decode slots, ``max_seq`` tokens of context per slot,
-    ``max_prompt`` admissible prompt length (default ``max_seq``),
-    ``prefill_chunk`` tokens per chunked-prefill step.  Paged knobs:
-    ``block_size`` tokens per KV block, ``n_blocks`` pool blocks (default:
-    ``n_slots * max_seq / block_size``).  ``cache_kind`` defaults to
-    ``"paged"`` (the JAX default, ``"dense"``, is not ported yet).
+    ``policy`` is a :class:`PrecisionPolicy` or any ``WxAyKVz`` name;
+    ``None`` is the default ``w4a16kv8``.  Capacity: ``n_slots`` decode
+    slots, ``max_seq`` tokens of context per slot, ``max_prompt``
+    admissible prompt length (default ``max_seq``), ``prefill_chunk``
+    tokens per chunked-prefill step.  ``cache_kind`` is ``"dense"`` (the
+    default, as in the JAX package: one ``n_slots × max_seq`` slab) or
+    ``"paged"``.  ``block_size`` is the paged pool's tokens per block and
+    the dense kernel's tile height when it divides ``max_seq`` (so both
+    backends walk the same tiles); ``n_blocks`` (paged only) is the pool
+    size (default: ``n_slots * max_seq / block_size``).
     """
 
     model: ModelConfig
@@ -50,7 +52,7 @@ class EngineConfig:
     max_seq: int = 256
     max_prompt: Optional[int] = None
     seed: int = 0
-    cache_kind: str = "paged"
+    cache_kind: str = "dense"
     block_size: int = 16
     n_blocks: Optional[int] = None
     prefill_chunk: int = 32
@@ -70,18 +72,12 @@ class EngineConfig:
                 self.policy = get_policy(self.policy)
             except ValueError as e:
                 raise EngineError(f"invalid policy: {e}") from e
-        if self.policy.name != DEFAULT_SERVING:
-            raise _not_ported(f"policy {self.policy.name!r}",
-                              "item 6 (the remaining policies)")
 
         for name in ("n_slots", "max_seq", "block_size", "prefill_chunk"):
             v = getattr(self, name)
             if not isinstance(v, int) or v < 1:
                 raise EngineError(f"{name} must be a positive int, got {v!r}")
-        if self.cache_kind == "dense":
-            raise _not_ported("cache_kind='dense'",
-                              "item 2 (the dense backend)")
-        if self.cache_kind != "paged":
+        if self.cache_kind not in ("dense", "paged"):
             raise EngineError(
                 f"unknown cache_kind {self.cache_kind!r} "
                 "(expected 'dense' or 'paged')")
@@ -92,16 +88,6 @@ class EngineConfig:
             raise EngineError(
                 f"unknown attn_impl {self.attn_impl!r} "
                 "(expected 'kernel' or 'xla')")
-        if self.enable_prefix_caching:
-            raise _not_ported("enable_prefix_caching",
-                              "item 3 (prefix sharing)")
-        if self.enable_block_growth:
-            raise _not_ported("enable_block_growth",
-                              "item 4 (growth and preemption)")
-        if self.reserve_headroom_blocks:
-            raise EngineError(
-                "reserve_headroom_blocks requires enable_block_growth")
-
         if self.max_prompt is None:
             self.max_prompt = self.max_seq
         if not isinstance(self.max_prompt, int) or self.max_prompt < 1:
@@ -111,32 +97,66 @@ class EngineConfig:
             raise EngineError(
                 f"max_prompt={self.max_prompt} exceeds max_seq={self.max_seq}")
 
-        if self.max_seq % self.block_size:
+        if self.model.family not in KV_FAMILIES:
             raise EngineError(
-                f"max_seq={self.max_seq} must be a multiple of "
-                f"block_size={self.block_size} for the paged cache")
-        if self.n_blocks is not None and (
-                not isinstance(self.n_blocks, int) or self.n_blocks < 1):
-            raise EngineError(
-                f"n_blocks must be a positive int, got {self.n_blocks!r}")
-        if self.model.family not in PAGED_FAMILIES:
-            raise EngineError(
-                f"family {self.model.family!r} has no ported paged KV cache")
+                f"family {self.model.family!r} has no ported KV cache")
         if self.model.n_img_tokens:
             raise EngineError(
-                "paged cache does not support modality-stub families "
-                "(their prefill consumes extra encoder inputs)")
-        # chunks are quantize-and-written straight into pool blocks: a
-        # chunk must tile a block exactly or span whole blocks
-        if self.prefill_chunk % self.block_size and \
-                self.block_size % self.prefill_chunk:
-            lo = (self.prefill_chunk // self.block_size) * self.block_size
+                "modality-stub families are not ported (their prefill "
+                "consumes extra encoder inputs)")
+        if self.cache_kind == "paged":
+            if self.max_seq % self.block_size:
+                raise EngineError(
+                    f"max_seq={self.max_seq} must be a multiple of "
+                    f"block_size={self.block_size} for the paged cache")
+            if self.n_blocks is not None and (
+                    not isinstance(self.n_blocks, int) or self.n_blocks < 1):
+                raise EngineError(
+                    f"n_blocks must be a positive int, got {self.n_blocks!r}")
+            # chunks are quantize-and-written straight into pool blocks: a
+            # chunk must tile a block exactly or span whole blocks
+            if self.prefill_chunk % self.block_size and \
+                    self.block_size % self.prefill_chunk:
+                lo = (self.prefill_chunk // self.block_size) * self.block_size
+                raise EngineError(
+                    f"prefill_chunk={self.prefill_chunk} must divide or be "
+                    f"a multiple of block_size={self.block_size} for paged "
+                    "kernel prefill (chunks are written straight into pool "
+                    f"blocks); try --prefill-chunk "
+                    f"{max(lo, self.block_size)} or {lo + self.block_size}")
+            if self.enable_prefix_caching:
+                raise _not_ported("enable_prefix_caching",
+                                  "item 3 (prefix sharing)")
+            if self.enable_block_growth:
+                raise _not_ported("enable_block_growth",
+                                  "item 4 (growth and preemption)")
+        else:
+            if self.enable_prefix_caching:
+                # prefix sharing maps one physical block into several
+                # block tables — only the paged backend has blocks
+                raise EngineError(
+                    "enable_prefix_caching requires cache_kind='paged' "
+                    f"(got {self.cache_kind!r})")
+            if self.n_blocks is not None:
+                # a dense slab has no pool: silently ignoring the knob
+                # would hand the caller n_slots*max_seq of KV while they
+                # believe they capped it at n_blocks*block_size
+                raise EngineError(
+                    "n_blocks requires cache_kind='paged' "
+                    f"(got {self.cache_kind!r}; the dense slab is sized "
+                    "by n_slots * max_seq)")
+            if self.enable_block_growth:
+                raise EngineError(
+                    "enable_block_growth requires cache_kind='paged' "
+                    f"(got {self.cache_kind!r})")
+        if not isinstance(self.reserve_headroom_blocks, int) \
+                or self.reserve_headroom_blocks < 0:
             raise EngineError(
-                f"prefill_chunk={self.prefill_chunk} must divide or be a "
-                f"multiple of block_size={self.block_size} for paged kernel "
-                "prefill (chunks are written straight into pool blocks); "
-                f"try --prefill-chunk {max(lo, self.block_size)} or "
-                f"{lo + self.block_size}")
+                "reserve_headroom_blocks must be a non-negative int, "
+                f"got {self.reserve_headroom_blocks!r}")
+        if self.reserve_headroom_blocks and not self.enable_block_growth:
+            raise EngineError(
+                "reserve_headroom_blocks requires enable_block_growth")
 
         try:
             self.device = torch.device(self.device)
@@ -153,12 +173,13 @@ class EngineConfig:
 
     @property
     def blocks_per_slot(self) -> int:
-        """Logical blocks each slot's table row maps."""
+        """Logical blocks each slot's table row maps (paged)."""
         return self.max_seq // self.block_size
 
     @property
     def pool_blocks(self) -> int:
-        """Actual pool size: ``n_blocks`` or dense-capacity parity."""
+        """Actual pool size (paged): ``n_blocks`` or dense-capacity
+        parity."""
         if self.n_blocks is not None:
             return self.n_blocks
         return self.n_slots * self.blocks_per_slot
@@ -170,7 +191,7 @@ class EngineConfig:
                      **defaults) -> argparse.ArgumentParser:
         """Install the engine's knobs on an argparse parser."""
         d = dict(arch="smollm-360m", policy="w4a16kv8", slots=4,
-                 max_seq=256, max_prompt=None, seed=0, cache_kind="paged",
+                 max_seq=256, max_prompt=None, seed=0, cache_kind="dense",
                  block_size=16, n_blocks=None, prefill_chunk=32,
                  attn_impl="kernel", device="cuda")
         d.update(defaults)
@@ -190,7 +211,8 @@ class EngineConfig:
         ap.add_argument("--block-size", type=int, default=d["block_size"],
                         help="tokens per KV block")
         ap.add_argument("--n-blocks", type=int, default=d["n_blocks"],
-                        help="KV pool blocks (default: dense parity)")
+                        help="KV pool blocks, paged only (default: dense "
+                             "parity)")
         ap.add_argument("--prefill-chunk", type=int,
                         default=d["prefill_chunk"],
                         help="tokens per chunked-prefill step (must divide "

@@ -1,25 +1,31 @@
-"""Serving engine: continuous batching over the paged W4A16KV8 model.
+"""Serving engine: continuous batching over the mixed-precision model.
 
-Port of ``repro.serving.engine`` for the paged backend with reservation
-admission.  The public surface is the JAX engine's:
+Port of ``repro.serving.engine`` for the KV-cache families on the dense
+slab and on the paged backend with reservation admission, under every
+``WxAyKVz`` policy.  The public surface is the JAX engine's:
 
 * :class:`~repro_torch.serving.config.EngineConfig` — validated knobs;
 * ``submit(prompt, params) -> rid``, ``step() -> List[RequestOutput]``,
   ``generate``, ``stream``, ``abort(rid)``, ``run_until_idle``.
 
-The engine owns one paged KV pool (``n_blocks`` blocks of ``block_size``
-tokens, stacked over layers, one block table) and a host-side
-:class:`BlockAllocator`.  Admission reserves a request's worst case
-(``prompt + max_new_tokens`` blocks), so a running request never stalls;
-its blocks return to the pool when it retires.
+The engine owns one KV store, stacked over layers.  ``cache_kind="dense"``
+(the default) is an ``n_slots × max_seq`` slab: no allocator, no admission
+gate, a slot's room bounded by ``max_seq`` alone.  ``cache_kind="paged"``
+is a pool of ``n_blocks`` blocks of ``block_size`` tokens with one block
+table and a host-side :class:`BlockAllocator`: admission reserves a
+request's worst case (``prompt + max_new_tokens`` blocks), so a running
+request never stalls, and its blocks return to the pool when it retires.
 
 Every iteration is one mixed prefill/decode step: prompt + produced output
 form one token stream per request, ``Scheduler.plan`` picks the step width
 (``prefill_chunk`` while any prompt is mid-prefill, else 1), and one
 batched :func:`decode_step` feeds each running slot its next ``valid``
-tokens — the chunk's KV quantize-and-written straight into the slot's pool
-blocks, attention by the multi-query paged kernel for prefill chunks and
-decode alike, every GEMM by the W4A16 kernel.  A slot emits a token only
+tokens — the chunk's KV quantize-and-written straight into the slot's slab
+rows or pool blocks, attention by the multi-query slab or paged kernel
+for prefill chunks and decode alike, every packed GEMM by the A16 or int8
+kernel.  The slab kernel walks ``block_size`` tiles when that divides
+``max_seq`` (else one ``max_seq`` tile), so the two backends traverse the
+same tiles and serve byte-identical greedy streams.  A slot emits a token only
 on the iteration that consumes its last unfed stream token.
 
 Sampling is per slot (``serving/sampler.py``); feed cursors are host-side,
@@ -75,7 +81,7 @@ class Engine:
 
     def __init__(self, config: EngineConfig, params: Optional[Any] = None):
         """Build the model (seeded random weights unless ``params`` is
-        given), pack its weights and allocate the paged KV pool, all on
+        given), pack its weights and allocate the KV store, all on
         ``config.device``."""
         self.config = config
         cfg = config.model
@@ -91,14 +97,27 @@ class Engine:
         self.block_size = config.block_size
         self.prefill_chunk = config.prefill_chunk
         self.max_prompt = config.max_prompt
-        self.blocks_per_slot = config.blocks_per_slot
-        self.n_blocks = config.pool_blocks
-        self.allocator = PKV.BlockAllocator(self.n_blocks)
-        self._block_map: Dict[int, List[int]] = {}
-        self.cache = self.model.init_paged_cache(
-            self.policy, self.n_slots, self.n_blocks, self.block_size,
-            self.blocks_per_slot, self.device)
-        self.scheduler = Scheduler(self.n_slots, admit_gate=self._admit_gate)
+        self.cache_kind = config.cache_kind
+        self._paged = config.cache_kind == "paged"
+        self.allocator: Optional[PKV.BlockAllocator] = None
+        if self._paged:
+            self.blocks_per_slot = config.blocks_per_slot
+            self.n_blocks = config.pool_blocks
+            self.allocator = PKV.BlockAllocator(self.n_blocks)
+            self._block_map: Dict[int, List[int]] = {}
+            self.cache = self.model.init_paged_cache(
+                self.policy, self.n_slots, self.n_blocks, self.block_size,
+                self.blocks_per_slot, self.device)
+        else:
+            self.cache = self.model.init_cache(self.policy, self.n_slots,
+                                               self.max_seq, self.device)
+        #: the dense kernel's tile height: the paged block size when it
+        #: divides the slab, else one whole-sequence tile
+        self.attn_block_s = (self.block_size
+                             if self.max_seq % self.block_size == 0
+                             else self.max_seq)
+        self.scheduler = Scheduler(
+            self.n_slots, admit_gate=self._admit_gate if self._paged else None)
         self._next_rid = 0
         self._requests: Dict[int, Request] = {}
         self._unclaimed: List[RequestOutput] = []
@@ -118,7 +137,8 @@ class Engine:
         logits, self.cache = self.model.decode_step(
             self.params, self.policy, torch.from_numpy(tokens).to(dev),
             self.cache, torch.from_numpy(pos).to(dev), max_live=max_live,
-            valid=torch.from_numpy(valid).to(dev))
+            valid=torch.from_numpy(valid).to(dev),
+            attn_block_s=self.attn_block_s)
         self.model_steps += 1
         nxt = S.sample(logits, temp, top_k, seeds, steps)
         return nxt.cpu().numpy()
@@ -150,7 +170,7 @@ class Engine:
                       arrival_time=self.now() if arrival_time is None
                       else arrival_time,
                       seed=self._resolve_seed(params, self._next_rid))
-        if self._blocks_for(req) > self.n_blocks:
+        if self._paged and self._blocks_for(req) > self.n_blocks:
             raise EngineError(
                 f"request needs {self._blocks_for(req)} KV blocks "
                 f"(prompt {len(req.prompt)} + max_new "
@@ -163,8 +183,8 @@ class Engine:
 
     def abort(self, rid: int) -> Optional[RequestOutput]:
         """Cancel a request (idempotent).  A running request frees its
-        slot and returns its KV blocks to the pool immediately.  Returns
-        the final ``finish_reason="abort"`` output, or None."""
+        slot (and, paged, returns its KV blocks to the pool) immediately.
+        Returns the final ``finish_reason="abort"`` output, or None."""
         req = self._requests.get(rid)
         if req is None:
             return None
@@ -174,7 +194,8 @@ class Engine:
             req.finish_time = self.now()
         else:
             self.scheduler.finish(req, self.now())
-            self._reclaim(req)
+            if self._paged:
+                self._reclaim(req)
         req.finish_reason = FinishReason.ABORT
         del self._requests[rid]
         return req.make_output([])
@@ -226,18 +247,26 @@ class Engine:
         return min(nb, self.blocks_per_slot) * self.block_size
 
     def _admit(self, req: Request) -> None:
-        """Map the reserved blocks into the slot and seed its feed cursor;
-        the prompt itself is fed by ``step()``."""
-        self._map_slot_blocks(req.slot, self._block_map[req.rid])
+        """Map the reserved blocks into the slot (paged) and seed its feed
+        cursor; the prompt itself is fed by ``step()``.  A dense slot is
+        not cleared: cells past the frontier are masked by position."""
+        if self._paged:
+            self._map_slot_blocks(req.slot, self._block_map[req.rid])
         req.pos = 0
 
     # -- main loop ---------------------------------------------------------
 
     def _has_room(self, req: Request) -> bool:
-        """True while the slot can absorb another decode append."""
+        """True while the slot can absorb another decode append: the
+        context limit binds both backends; a paged slot's next write must
+        also land in its reserved blocks (which never binds before
+        ``max_new_tokens`` does, so the backends retire requests on the
+        same iterations)."""
         if req.pos >= self.max_seq - 1:
             return False
-        return req.pos < len(self._block_map[req.rid]) * self.block_size
+        if self._paged:
+            return req.pos < len(self._block_map[req.rid]) * self.block_size
+        return True
 
     def _finish_reason(self, req: Request, tok: int
                        ) -> Optional[FinishReason]:
@@ -283,8 +312,10 @@ class Engine:
             seeds[r.slot] = r.seed
             steps[r.slot] = len(r.output)
 
+        # paged: bound the kernel's walk by the batch's live context
+        max_live = self._live_bucket(running) if self._paged else None
         nxt = self._step_fn(tokens, pos, valid, temp, top_k, seeds, steps,
-                            self._live_bucket(running))
+                            max_live)
         t = self.now()
         outputs: List[RequestOutput] = []
         for r in running:
@@ -299,7 +330,8 @@ class Engine:
             if reason is not None:
                 r.finish_reason = reason
                 self.scheduler.finish(r, t)
-                self._reclaim(r)
+                if self._paged:
+                    self._reclaim(r)
                 del self._requests[r.rid]
             out = r.make_output([tok])
             outputs.append(out)
@@ -381,7 +413,9 @@ class Engine:
         raise RuntimeError("engine did not drain")
 
     def kv_resident_bytes(self) -> int:
-        """Resident bytes of the KV pool (+ scales + table)."""
+        """Resident bytes of the KV store (slab or pool + scales + table).
+        The JAX slab also holds a (L, B) int32 ``length`` the port does
+        not keep."""
         return PKV.kv_bytes(self.cache)
 
 

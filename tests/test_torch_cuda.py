@@ -7,13 +7,17 @@ tests/test_torch_cuda.py``).
 
 Tolerances:
 
-* GEMM — kernel and plain version multiply the same bf16 weights and
-  accumulate in f32, in different orders; after the bf16 output rounding
-  they may differ by one bf16 ulp: |Δ| ≤ 2^-7 · max|y|.
-* Attention — same rounding points, but the kernel rounds the softmax
-  weights to bf16 relative to its running max and the plain version
-  relative to the global max (each ≤ 2^-9 relative), plus one bf16 ulp of
-  the output: |Δ| ≤ 3e-2 on outputs of magnitude ≤ ~4.
+* GEMMs — kernel and plain version multiply the same bf16 weights (A16)
+  or the same integers with exact s32 group partials (A8) and accumulate
+  in f32, in different orders; after the bf16 output rounding they may
+  differ by one bf16 ulp: |Δ| ≤ 2^-7 · max|y|.
+* Attention — same rounding points and the same tile walk, but the sums
+  inside a tile run in other orders (the kernel's fmaf chains against
+  PyTorch's vectorised reductions), so a softmax weight may round to bf16
+  on the other side of a tie, plus one bf16 ulp of the output: |Δ| ≤ 3e-2
+  on outputs of magnitude ≤ ~4.
+* Dense ≡ paged: the two kernels run one block program over the same
+  tiles, so their outputs are compared bit for bit.
 """
 import dataclasses
 
@@ -21,16 +25,23 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
+from repro_torch.core import quantize as Q
 from repro_torch.core.packing import pack_weight
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ref
-from repro_torch.kernels.mpgemm import mpgemm_w4a16
-from repro_torch.kernels.paged_kvattn import paged_kvattn_kv8
+from repro_torch.kernels.kvattn import kvattn
+from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
+from repro_torch.kernels.paged_kvattn import paged_kvattn
 
 pytestmark = pytest.mark.cuda
 
-KV8 = get_policy("w4a16kv8").kv
+FORMATS = ("kv8", "kv4", "kvfp8", "kv16")
+
+
+def spec_of(fmt):
+    return get_policy(f"w4a16{fmt}").kv
 
 
 @pytest.fixture
@@ -41,22 +52,35 @@ def dev():
     return torch.device("cuda")
 
 
-def paged_case(seed, B, Hkv, D, bs, bps, lengths, device):
-    """A per-layer kv8 pool holding ``lengths[b]`` random tokens for slot
-    b through a shuffled block table (sentinel tail), every other pool
-    cell filled with finite garbage."""
+def _garbage(store, spec, rng, D):
+    """Fill every cell of a per-layer KV store with finite values stored in
+    ``spec`` (what stale slots and unmapped blocks hold)."""
+    for buf, sc in ((store.k, store.k_scale), (store.v, store.v_scale)):
+        x = torch.from_numpy(rng.standard_normal(
+            tuple(sc.shape) + (D,), np.float32)).to(buf.device)
+        q, s = Q.quantize_kv(x.to(torch.bfloat16), spec)
+        buf.copy_(q)
+        sc.copy_(s[..., 0])
+
+
+def _tokens(rng, n, Hkv, D, device):
+    return torch.from_numpy(rng.standard_normal((1, n, Hkv, D), np.float32)
+                            ).to(device, torch.bfloat16)
+
+
+def paged_case(seed, fmt, B, Hkv, D, bs, bps, lengths, device):
+    """A per-layer pool holding ``lengths[b]`` random tokens for slot b
+    through a shuffled block table (sentinel tail), every other pool cell
+    filled with finite garbage; and the same tokens, written the same way,
+    in a dense slab of ``bps * bs`` tokens per slot."""
+    spec = spec_of(fmt)
     rng = np.random.default_rng(seed)
     nb = B * bps + 3
-    cache = PKV.init_paged(B, nb, bs, Hkv, D, KV8, bps, device=device)
-    layer = cache.layer(0)
-    layer.k.copy_(torch.from_numpy(
-        rng.integers(-127, 128, layer.k.shape, dtype=np.int8)))
-    layer.v.copy_(torch.from_numpy(
-        rng.integers(-127, 128, layer.v.shape, dtype=np.int8)))
-    layer.k_scale.copy_(torch.from_numpy(
-        rng.uniform(0.01, 0.05, layer.k_scale.shape).astype(np.float32)))
-    layer.v_scale.copy_(torch.from_numpy(
-        rng.uniform(0.01, 0.05, layer.v_scale.shape).astype(np.float32)))
+    layer = PKV.init_paged(B, nb, bs, Hkv, D, spec, bps,
+                           device=device).layer(0)
+    slab = KV.init_cache(B, bps * bs, Hkv, D, spec, device=device).layer(0)
+    _garbage(layer, spec, rng, D)
+    _garbage(slab, spec, rng, D)
     order = rng.permutation(nb)
     tbl = np.full((B, bps), nb, np.int32)
     nxt = 0
@@ -65,14 +89,16 @@ def paged_case(seed, B, Hkv, D, bs, bps, lengths, device):
         tbl[b, :need] = order[nxt:nxt + need]
         nxt += need
     layer.block_table.copy_(torch.from_numpy(tbl))
+    zero = torch.zeros(1, dtype=torch.int32, device=device)
     for b, n in enumerate(lengths):
-        k = torch.from_numpy(rng.standard_normal((1, n, Hkv, D), np.float32))
-        v = torch.from_numpy(rng.standard_normal((1, n, Hkv, D), np.float32))
+        k, v = _tokens(rng, n, Hkv, D, device), _tokens(rng, n, Hkv, D, device)
         row = dataclasses.replace(layer, block_table=layer.block_table[b:b + 1])
-        PKV.append_paged(row, k.to(device, torch.bfloat16),
-                         v.to(device, torch.bfloat16),
-                         torch.zeros(1, dtype=torch.int32, device=device), KV8)
-    return layer
+        PKV.append_paged(row, k, v, zero, spec)
+        KV.append_per_slot(KV.KVCache(slab.k[b:b + 1], slab.v[b:b + 1],
+                                      slab.k_scale[b:b + 1],
+                                      slab.v_scale[b:b + 1]),
+                           k, v, zero, spec)
+    return layer, slab
 
 
 ATTN_CASES = [
@@ -86,26 +112,75 @@ ATTN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_paged_kvattn_matches_plain(dev, case):
+def _attn_inputs(case, fmt, dev):
     B, Hkv, rep, D, bs, bps, pos, T, window, n_live = case
-    lengths = [p + T for p in pos]
-    layer = paged_case(0, B, Hkv, D, bs, bps, lengths, dev)
+    layer, slab = paged_case(0, fmt, B, Hkv, D, bs, bps,
+                             [p + T for p in pos], dev)
     rng = np.random.default_rng(1)
-    q = torch.from_numpy(rng.standard_normal((B, Hkv, T * rep, D),
-                                             np.float32)).to(dev, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, Hkv, T * rep, D), np.float32)).to(dev, torch.bfloat16)
     posd = torch.tensor(pos, dtype=torch.int32, device=dev)
     win = ref.NO_WINDOW if window is None else window
     nl = bps if n_live is None else n_live
-    out = paged_kvattn_kv8(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
-                           layer.block_table, posd, win, rep, nl)
-    plain = ref.paged_kvattn_ref(q, layer.k, layer.k_scale, layer.v,
-                                 layer.v_scale, layer.block_table, posd, win,
-                                 rep, nl)
+    return layer, slab, q, posd, win, rep, nl, bs
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_paged_kvattn_matches_plain(dev, case, fmt):
+    layer, _, q, posd, win, rep, nl, _ = _attn_inputs(case, fmt, dev)
+    args = (q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+            layer.block_table, posd, win, rep, nl)
+    out = paged_kvattn(*args, spec_of(fmt))
+    plain = ref.paged_kvattn_ref(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     err = (out.float() - plain.float()).abs().max().item()
     assert err <= 3e-2, err
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_kvattn_matches_plain_and_paged(dev, case, fmt):
+    """The slab kernel against its plain version, and bit for bit against
+    the paged kernel over the same logical contents (block_s = block
+    size, the whole table walked)."""
+    layer, slab, q, posd, win, rep, _, bs = _attn_inputs(case, fmt, dev)
+    spec = spec_of(fmt)
+    args = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win, rep)
+    out = kvattn(*args, bs, spec)
+    plain = ref.kvattn_ref(*args, bs)
+    paged = paged_kvattn(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+                         layer.block_table, posd, win, rep,
+                         layer.blocks_per_slot, spec)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - plain.float()).abs().max().item()
+    assert err <= 3e-2, err
+    assert torch.equal(out, paged)
+
+
+def test_kvattn_tile_too_large_raises(dev):
+    """block_s = 256 at D = 128 needs more than 227 KB of shared memory:
+    the wrapper raises instead of launching (no plain-version fallback)."""
+    kv8 = spec_of("kv8")
+    slab = KV.init_cache(1, 256, 1, 128, kv8, device=dev).layer(0)
+    q = torch.zeros((1, 1, 2, 128), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = kvattn.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, pos,
+               ref.NO_WINDOW, 2, 256, kv8)
+    assert kvattn.launches == before
+
+
+def test_kv_format_mismatch_raises(dev):
+    slab = KV.init_cache(1, 16, 1, 64, spec_of("kv8"), device=dev).layer(0)
+    q = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="kvfp8"):
+        kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, pos,
+               ref.NO_WINDOW, 1, 16, spec_of("kvfp8"))
 
 
 GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
@@ -115,20 +190,51 @@ GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
 ]
 
 
-@pytest.mark.parametrize("M", [1, 4, 37, 128])
-@pytest.mark.parametrize("shape", GEMM_SHAPES)
-def test_mpgemm_matches_plain(dev, shape, M):
+def _gemm_inputs(shape, M, bits, dev):
     K, N, bk, bn = shape
-    rng = np.random.default_rng(K + N + M)
+    rng = np.random.default_rng(K + N + M + bits)
     w = torch.from_numpy(rng.standard_normal((K, N), np.float32)) / K ** 0.5
-    pw = pack_weight(w.to(dev), bits=4, group=bk, block_k=bk, block_n=bn)
+    pw = pack_weight(w.to(dev), bits=bits, group=bk, block_k=bk, block_n=bn)
     x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(
         dev, torch.bfloat16)
-    y = mpgemm_w4a16(x, pw)
+    return pw, x
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 4, 37, 128])
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_mpgemm_matches_plain(dev, shape, M, bits):
+    pw, x = _gemm_inputs(shape, M, bits, dev)
+    y = mpgemm_a16(x, pw)
     plain = ref.mpgemm_ref(x, pw)
     torch.cuda.synchronize()
     err = (y.float() - plain.float()).abs().max().item()
     assert err <= 2 ** -7 * plain.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 4, 37, 128])
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_mpgemm_int8_matches_plain(dev, shape, M, bits):
+    pw, x = _gemm_inputs(shape, M, bits, dev)
+    xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+    y = mpgemm_int8(xq, xs, pw)
+    plain = ref.mpgemm_int8_ref(xq, xs, pw)
+    torch.cuda.synchronize()
+    err = (y.float() - plain.float()).abs().max().item()
+    assert err <= 2 ** -7 * plain.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gemms_independent_of_batch(dev, bits):
+    """Row m of the output is the same bits whatever rows share the call
+    (no split-K in a varying order): what dense ≡ paged on the card needs
+    of a mixed batch."""
+    pw, x = _gemm_inputs(GEMM_SHAPES[0], 37, bits, dev)
+    xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+    assert torch.equal(mpgemm_a16(x, pw)[:4], mpgemm_a16(x[:4], pw))
+    assert torch.equal(mpgemm_int8(xq, xs, pw)[:4],
+                       mpgemm_int8(xq[:4], xs[:4], pw))
 
 
 def test_misaligned_input_rejected(dev):
@@ -137,14 +243,28 @@ def test_misaligned_input_rejected(dev):
     buf = torch.zeros(4 * 64 + 1, device=dev, dtype=torch.bfloat16)
     x = buf[1:].view(4, 64)                   # 2-byte storage offset
     with pytest.raises(ValueError, match="misaligned"):
-        mpgemm_w4a16(x, pw)
+        mpgemm_a16(x, pw)
 
 
 def test_wrappers_count_launches(dev):
     pw = pack_weight(torch.randn(64, 64, device=dev), bits=4, group=64,
                      block_k=64, block_n=64)
     x = torch.randn(4, 64, device=dev).to(torch.bfloat16)
-    before = mpgemm_w4a16.launches
-    mpgemm_w4a16(x, pw)
-    mpgemm_w4a16(x.cpu(), pw.to("cpu"))          # plain version: not counted
-    assert mpgemm_w4a16.launches == before + 1
+    xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+    before = (mpgemm_a16.launches, mpgemm_int8.launches)
+    mpgemm_a16(x, pw)
+    mpgemm_a16(x.cpu(), pw.to("cpu"))          # plain version: not counted
+    mpgemm_int8(xq, xs, pw)
+    mpgemm_int8(xq.cpu(), xs.cpu(), pw.to("cpu"))
+    assert (mpgemm_a16.launches, mpgemm_int8.launches) == \
+        (before[0] + 1, before[1] + 1)
+    layer, slab, q, posd, win, rep, nl, bs = _attn_inputs(
+        ATTN_CASES[2], "kv8", dev)
+    kv8 = spec_of("kv8")
+    before = (kvattn.launches, paged_kvattn.launches)
+    kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win, rep, bs,
+           kv8)
+    paged_kvattn(q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+                 layer.block_table, posd, win, rep, nl, kv8)
+    assert (kvattn.launches, paged_kvattn.launches) == \
+        (before[0] + 1, before[1] + 1)

@@ -4,8 +4,14 @@
   ``decode_step``, run with the engine's step shapes (two prompts in
   lockstep: two 4-token chunks, then single-token steps) — exact equality,
   since both run the same ops on the same shapes.
-* ``EngineConfig`` rules: invalid values and every feature not yet ported
-  raise ``EngineError``; so does the default device when CUDA is missing.
+* Dense ≡ paged: for every KV format, the dense-slab and paged engines
+  serve byte-identical greedy streams (ragged prompts crossing chunk and
+  block boundaries, slot churn, eos) — the JAX suite's
+  ``TestPagedDenseEquivalence``, inside the port.
+* ``EngineConfig`` rules: invalid values (the JAX package's dense/paged
+  rules among them) and every feature not yet ported raise
+  ``EngineError``; so does the default device when CUDA is missing.
+  Every ``WxAyKVz`` policy builds an engine that serves.
 * Lifecycle: abort returns blocks, stream() reassembles generate().
 """
 import numpy as np
@@ -16,9 +22,13 @@ from repro_torch.configs import get_reduced
 from repro_torch.serving import (Engine, EngineConfig, EngineError,
                                  FinishReason, SamplingParams)
 
+# tiny tensors: one intra-op thread avoids the barrier waits that
+# dominate when pytest-xdist workers share the cores
+torch.set_num_threads(1)
+
 SMOLLM = get_reduced("smollm-360m")
 KW = dict(model=SMOLLM, n_slots=2, max_seq=32, max_prompt=16, block_size=8,
-          prefill_chunk=4, device="cpu")
+          prefill_chunk=4, device="cpu", cache_kind="paged")
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +122,10 @@ def test_seeded_sampling_reproducible(engine):
     dict(n_blocks=0), dict(cache_kind="ring"), dict(attn_impl="triton"),
     dict(prefill_chunk=6, block_size=4),                # straddles blocks
     dict(policy="w4a16kv9"), dict(device="tpu"),
+    dict(cache_kind="dense", n_blocks=8),               # a slab has no pool
+    dict(cache_kind="dense", enable_block_growth=True),
+    dict(cache_kind="dense", enable_prefix_caching=True),
+    dict(reserve_headroom_blocks=-1),
 ])
 def test_invalid_configs_rejected(kw):
     args = dict(KW)
@@ -121,12 +135,9 @@ def test_invalid_configs_rejected(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cache_kind="dense"), "item 2"),
     (dict(enable_prefix_caching=True), "item 3"),
     (dict(enable_block_growth=True), "item 4"),
     (dict(attn_impl="xla"), "item 5"),
-    (dict(policy="w8a16kv8"), "item 6"),
-    (dict(policy="w4a16kv4"), "item 6"),
 ])
 def test_unported_features_raise(kw, item):
     args = dict(KW)
@@ -134,6 +145,111 @@ def test_unported_features_raise(kw, item):
     with pytest.raises(EngineError, match=f"not yet ported: ROADMAP queue 1 "
                                           f"{item}"):
         EngineConfig(**args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cache_kind="dense"), dict(policy="w8a16kv8"),
+    dict(policy="w4a16kv4"),
+])
+def test_formerly_unported_configs_serve(kw):
+    """The dense backend and the policies beyond w4a16kv8 build and serve
+    (they raised "not yet ported" before the dense family was complete)."""
+    args = dict(KW)
+    args.update(kw)
+    eng = Engine(EngineConfig(**args))
+    assert eng.cache_kind == args["cache_kind"]
+    assert eng.policy.name == args.get("policy", "w4a16kv8")
+    out = eng.generate([[3, 1, 4, 1, 5]], SamplingParams(max_new_tokens=3))
+    assert len(out[0].output_token_ids) == 3
+
+
+def test_dense_is_the_default_backend():
+    args = {k: v for k, v in KW.items() if k != "cache_kind"}
+    cfg = EngineConfig(**args)
+    assert cfg.cache_kind == "dense"
+    eng = Engine(cfg)
+    L, hkv, hd = SMOLLM.n_layers, SMOLLM.n_kv_heads, SMOLLM.hd
+    assert tuple(eng.cache.k.shape) == (L, 2, 32, hkv, hd)
+    assert eng.allocator is None and eng.attn_block_s == 8
+    # int8 K and V plus two f32 scales per (layer, slot, token, head)
+    assert eng.kv_resident_bytes() == L * 2 * 32 * hkv * (2 * hd + 8)
+    # block_size not dividing max_seq: one whole-sequence tile
+    assert Engine(EngineConfig(**dict(args, max_seq=30))).attn_block_s == 30
+
+
+ALL_POLICIES = [w + a + kv for w in ("w4", "w8", "wfp8", "w16")
+                for a in ("a8", "afp8", "a16")
+                for kv in ("kv4", "kv8", "kvfp8", "kv16")]
+
+
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+def test_every_policy_serves(policy):
+    eng = Engine(EngineConfig(**dict(KW, policy=policy, cache_kind="dense")))
+    out = eng.generate([[2, 7, 1, 8, 2, 8]], SamplingParams(max_new_tokens=2))
+    assert len(out[0].output_token_ids) == 2
+    assert all(0 <= t < SMOLLM.vocab for t in out[0].output_token_ids)
+
+
+PROMPTS = [
+    [5, 6, 7],
+    [1],                                  # single token: no prefill at all
+    [9, 8, 7, 6, 5, 4, 3, 2, 1, 2, 3],    # crosses chunk + block boundaries
+    [42, 17],
+    [3, 1, 4, 1, 5, 9, 2, 6],
+]
+
+
+def _drain(eng):
+    return {o.rid: o for o in eng.run_until_idle()}
+
+
+class TestPagedDenseEquivalence:
+    """Same prompts, same seed, ``block_size`` dividing ``max_seq``: the
+    dense and paged engines emit byte-identical greedy streams, for every
+    KV format."""
+
+    @pytest.fixture(scope="class", params=["kv8", "kv4", "kvfp8", "kv16"])
+    def engines(self, request):
+        args = dict(KW, n_slots=3, max_seq=64, policy=f"w4a16{request.param}")
+        return (Engine(EngineConfig(**dict(args, cache_kind="dense"))),
+                Engine(EngineConfig(**dict(args, cache_kind="paged"))))
+
+    def test_greedy_streams_identical(self, engines):
+        outs = []
+        for eng in engines:
+            rids = [eng.submit(p, SamplingParams(max_new_tokens=6))
+                    for p in PROMPTS]
+            final = _drain(eng)
+            assert all(len(final[r].output_token_ids) == 6 for r in rids)
+            outs.append([final[r].output_token_ids for r in rids])
+        assert outs[0] == outs[1], "paged engine diverged from dense"
+
+    def test_equivalence_under_slot_churn(self, engines):
+        """Slot reuse (stale slab rows, blocks freed and re-allocated to
+        new requests) leaves the streams identical."""
+        outs = []
+        for eng in engines:
+            batch1 = [eng.submit(p, SamplingParams(max_new_tokens=4))
+                      for p in PROMPTS[:3]]
+            f1 = _drain(eng)
+            batch2 = [eng.submit(p, SamplingParams(max_new_tokens=4))
+                      for p in PROMPTS[2:]]
+            f2 = _drain(eng)
+            outs.append([f1[r].output_token_ids for r in batch1]
+                        + [f2[r].output_token_ids for r in batch2])
+        assert outs[0] == outs[1]
+
+    def test_eos_identical(self, engines):
+        res = []
+        for eng in engines:
+            probe = eng.submit([3, 1, 4], SamplingParams(max_new_tokens=2))
+            eos = _drain(eng)[probe].output_token_ids[0]
+            r = eng.submit([3, 1, 4], SamplingParams(max_new_tokens=8,
+                                                     eos_id=eos))
+            out = _drain(eng)[r]
+            assert out.finish_reason == "eos"
+            res.append(out.output_token_ids)
+        assert res[0] == res[1] and len(res[0]) == 1
 
 
 def test_default_device_needs_cuda(monkeypatch):

@@ -3,10 +3,12 @@
 Same numpy inputs through ``repro.core`` (under ``jax.jit``, as the JAX
 engine runs it — see ``repro_torch/core/quantize.py`` on why eager JAX
 differs in the last bit of some scales) and ``repro_torch.core``:
-quantized integers, f32 scales (compared as bit patterns), nibble order,
-tile-major packed bytes and the block-table scatter of ``append_paged``
-(valid mask, sentinel table entries, idle slots).  Tolerance: none — every
-comparison is exact.
+quantized integers, f32 scales (compared as bit patterns), per-token
+activation quantization, nibble order, tile-major packed bytes, the
+block-table scatter of ``append_paged`` (valid mask, sentinel table
+entries, idle slots) and the dense slab's ``append`` / ``append_per_slot``
+(valid mask, rows past the slab dropped), for every KV format.
+Tolerance: none — every comparison is exact.
 """
 import dataclasses
 
@@ -16,15 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import kvcache as JKV
 from repro.core import packing as JP
 from repro.core import paged_kvcache as JPKV
 from repro.core import precision as JPR
 from repro.core import quantize as JQ
 from repro_torch.convert import to_tensor
+from repro_torch.core import kvcache as TKV
 from repro_torch.core import packing as TP
 from repro_torch.core import paged_kvcache as TPKV
 from repro_torch.core import precision as TPR
 from repro_torch.core import quantize as TQ
+
+# tiny tensors: one intra-op thread avoids the barrier waits that
+# dominate when pytest-xdist workers share the cores
+torch.set_num_threads(1)
 
 
 def _np(t):
@@ -154,6 +162,99 @@ def test_append_paged_pool_bitwise():
     np.testing.assert_array_equal(_np(lt.v), _np(cj.v))
     np.testing.assert_array_equal(_np(lt.k_scale), _np(cj.k_scale[..., 0]))
     np.testing.assert_array_equal(_np(lt.v_scale), _np(cj.v_scale[..., 0]))
+
+
+ALL_POLICIES = [w + a + kv for w in ("w4", "w8", "wfp8", "w16")
+                for a in ("a8", "afp8", "a16")
+                for kv in ("kv4", "kv8", "kvfp8", "kv16")]
+
+
+@pytest.mark.parametrize("fmt", ALL_POLICIES)
+def test_int8_matmul_route_matches(fmt):
+    """Which GEMM a policy takes: integer weights × int8 activations only
+    (afp8 activations are never quantized)."""
+    t = TPR.get_policy(fmt)
+    assert t.int8_matmul == JPR.get_policy(fmt).int8_matmul
+    assert t.int8_matmul == (fmt[:2] in ("w4", "w8") and "a8" in fmt
+                             and "afp8" not in fmt)
+
+
+@pytest.mark.parametrize("shape", [(5, 320), (2, 3, 960), (1, 64)])
+def test_quantize_act_per_token_bitwise(shape):
+    x = _bf16(np.random.default_rng(len(shape)), shape, 3.0)
+    x[..., 0, :] = 0.0                        # an all-zero token row
+    qj, sj = jax.jit(JQ.quantize_act_per_token, static_argnums=1)(
+        jnp.asarray(x), 8)
+    qt, st = TQ.quantize_act_per_token(torch.from_numpy(x), 8)
+    np.testing.assert_array_equal(_np(qt), _np(qj))
+    np.testing.assert_array_equal(_np(st), _np(sj))
+
+
+def _kv_state(c, j):
+    """A KV store's quantized bytes and scale bits: port (scales (..., H))
+    or JAX (scales (..., H, 1))."""
+    if j:
+        return [_bits(c.k), _bits(c.v), _np(c.k_scale[..., 0]),
+                _np(c.v_scale[..., 0])]
+    return [_bits(c.k), _bits(c.v), _np(c.k_scale), _np(c.v_scale)]
+
+
+@pytest.mark.parametrize("fmt", ["kv8", "kv4", "kvfp8", "kv16"])
+def test_append_dense_bitwise(fmt):
+    """Ragged per-slot appends (a valid mask, an idle slot, a slot running
+    past the slab), then an aligned append clamped at the slab's end: slab
+    bytes and scales equal JAX's."""
+    B, S, H, D = 3, 12, 2, 32
+    spec_j = JPR.get_policy(f"w4a16{fmt}").kv
+    spec_t = TPR.get_policy(f"w4a16{fmt}").kv
+    cj = JKV.init_cache(B, S, H, D, spec_j)
+    ct = TKV.init_cache(B, S, H, D, spec_t, device="cpu").layer(0)
+    rng = np.random.default_rng(12)
+    per_slot = jax.jit(JKV.append_per_slot, static_argnames=("spec",))
+    for T, pos, valid in ((6, [0, 9, 2], [6, 5, 0]),
+                          (3, [6, 11, 2], [2, 3, 3])):
+        k, v = _bf16(rng, (B, T, H, D)), _bf16(rng, (B, T, H, D))
+        cj = per_slot(cj, jnp.asarray(k).astype(jnp.bfloat16),
+                      jnp.asarray(v).astype(jnp.bfloat16),
+                      jnp.asarray(pos, jnp.int32), spec=spec_j,
+                      valid=jnp.asarray(valid, jnp.int32))
+        TKV.append_per_slot(ct, torch.from_numpy(k).to(torch.bfloat16),
+                            torch.from_numpy(v).to(torch.bfloat16),
+                            torch.tensor(pos, dtype=torch.int32), spec_t,
+                            valid=torch.tensor(valid, dtype=torch.int32))
+    k, v = _bf16(rng, (B, 4, H, D)), _bf16(rng, (B, 4, H, D))
+    cj = jax.jit(JKV.append, static_argnames=("spec",))(
+        cj, jnp.asarray(k).astype(jnp.bfloat16),
+        jnp.asarray(v).astype(jnp.bfloat16), jnp.int32(10), spec=spec_j)
+    TKV.append(ct, torch.from_numpy(k).to(torch.bfloat16),
+               torch.from_numpy(v).to(torch.bfloat16), 10, spec_t)
+    for a, b in zip(_kv_state(ct, False), _kv_state(cj, True)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fmt", ["kv4", "kvfp8", "kv16"])
+def test_append_paged_other_formats_bitwise(fmt):
+    B, nb, bs, H, D, bps = 2, 6, 4, 2, 32, 3
+    spec_j = JPR.get_policy(f"w4a16{fmt}").kv
+    spec_t = TPR.get_policy(f"w4a16{fmt}").kv
+    tbl = np.array([[4, 1, nb], [0, 5, 2]], np.int32)
+    cj = JPKV.init_paged(B, nb, bs, H, D, spec_j, blocks_per_slot=bps)
+    cj = dataclasses.replace(cj, block_table=jnp.asarray(tbl))
+    ct = TPKV.init_paged(B, nb, bs, H, D, spec_t, bps, device="cpu")
+    ct.block_table.copy_(torch.from_numpy(tbl))
+    rng = np.random.default_rng(13)
+    k, v = _bf16(rng, (B, 10, H, D)), _bf16(rng, (B, 10, H, D))
+    pos, valid = [0, 1], [10, 7]
+    cj = jax.jit(JPKV.append_paged, static_argnames=("spec",))(
+        cj, jnp.asarray(k).astype(jnp.bfloat16),
+        jnp.asarray(v).astype(jnp.bfloat16), jnp.asarray(pos, jnp.int32),
+        spec=spec_j, valid=jnp.asarray(valid, jnp.int32))
+    TPKV.append_paged(ct.layer(0), torch.from_numpy(k).to(torch.bfloat16),
+                      torch.from_numpy(v).to(torch.bfloat16),
+                      torch.tensor(pos, dtype=torch.int32), spec_t,
+                      valid=torch.tensor(valid, dtype=torch.int32))
+    for a, b in zip(_kv_state(ct.layer(0), False), _kv_state(cj, True)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_bf16_carry_across():
