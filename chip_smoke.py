@@ -9,28 +9,41 @@ Phases, in order (any failure raises and exits nonzero):
 2. Build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel).
 3. Kernel phase: hold each kernel against its plain PyTorch version on the
-   card at the main path's full-width shapes (smollm-360m) — the A16 GEMM
-   at bits 4 and 8, the int8 GEMM at bits 4 and 8, paged and dense-slab
-   attention in every KV format — and time kernel, plain version and a
-   library yardstick with CUDA events, L2 flushed before every launch.
-   The dense and paged attention kernels must agree bit for bit.
+   card at the main paths' full-width shapes — the A16 GEMM at bits 4 and
+   8 and the int8 GEMM at bits 4 and 8 (smollm-360m), the A16 GEMM at
+   bits 4 (recurrentgemma-2b), paged and dense-slab attention in every KV
+   format (smollm-360m), flash prefill at recurrentgemma-2b's local
+   attention (S 127 and 4096, window 2048, D 256, 10 query heads on one
+   KV head), whisper-tiny's encoder (S 1500, non-causal, D 64) and its
+   decoder prompt (S 15, causal, D 64) — and
+   time kernel, plain version and a library yardstick with CUDA events,
+   L2 flushed before every launch.  The dense and paged attention kernels
+   must agree bit for bit.
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
-   logits must agree.
+   recurrentgemma-2b and whisper-tiny REDUCED, one-shot ``prefill`` then
+   teacher-forced ``decode_step``, under w4a16kv8 and w16a16kv16; logits
+   must agree.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
    prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
    and on the paged pool: ``w4a16kv8`` serving 8 requests of 64-token
    prompts and 32 new tokens, then w4a8kv4, w8a8kvfp8 and w8a16kv16
-   serving 4 requests of 32-token prompts and 16 new tokens.  Around each
-   serve the launch counters are zeroed just before and read just after:
-   every GEMM must have gone through the kernel its policy routes to (7 per
-   layer and step) and every attention call through its backend's kernel
-   (1 per layer and step).  For each policy the dense and paged token
-   streams must be identical.  One w4a16kv8 request per backend is
-   replayed teacher-forced through ``decode_step`` and must follow its
-   argmax.
+   serving 4 requests of 32-token prompts and 16 new tokens.  Then the
+   one-shot-prefill families on the dense slab under w4a16kv8: full-width
+   recurrentgemma-2b (26 layers, d_model 2560, vocab 256000), max_seq 512,
+   4 requests of 128-token prompts, and full-width whisper-tiny (4 + 4
+   layers, 1500 frames), max_seq 256, 4 requests of 16-token prompts, 16
+   new tokens each.  Around each serve the launch counters are zeroed just
+   before and read just after: every GEMM must have gone through the
+   kernel its policy routes to and every attention call through its
+   kernel (smollm: 7 GEMMs and 1 attention call per layer and step; the
+   one-shot families: 8 flash-prefill launches per request, and their
+   packed GEMMs per prefill and per step on the A16 kernel).  For each
+   smollm policy the dense and paged token streams must be identical.
+   One request per w4a16kv8 serve is replayed teacher-forced and must
+   follow its argmax.
 6. One JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -51,11 +64,38 @@ INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 GEMM_SHAPES = [  # weights, K, N, bk, bn of smollm-360m's packed GEMMs
     ("wq/wo", 960, 960, 64, 96), ("wk/wv", 960, 320, 64, 64),
     ("w1/w3", 960, 2560, 64, 128), ("w2", 2560, 960, 32, 96)]
+#: recurrentgemma-2b's packed GEMMs (A16, bits 4: the serve phase's policy)
+RG_GEMM_SHAPES = [
+    ("wq/wo/wx/wy/wa/wi", 2560, 2560, 32, 128), ("wk/wv", 2560, 256, 32, 128),
+    ("w1/w3", 2560, 7680, 32, 96), ("w2", 7680, 2560, 32, 128)]
 GEMM_MS = (4, 128)           # n_slots x t_step at decode and at prefill
+#: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
+#: causal, window) — recurrentgemma's local attention at the serve prompt
+#: and where the window binds, whisper-tiny's encoder (not a tile multiple)
+#: and its decoder prompt (the serve's 16-token prompt less its last token)
+FLASH_SHAPES = [
+    ("recurrentgemma S127", 1, 10, 1, 127, 256, True, 2048),
+    ("recurrentgemma S4096", 1, 10, 1, 4096, 256, True, 2048),
+    ("whisper encoder S1500", 1, 6, 6, 1500, 64, False, None),
+    ("whisper decoder S15", 1, 6, 6, 15, 64, True, None)]
+#: flash prefill's bar against its plain version: two bf16 ulps of the
+#: largest output (both round p and the output to bf16 at the same points;
+#: f32 sum order flips a rounding now and then)
+FLASH_REL_TOL = 2 ** -6
 KV_FORMATS = ("kv8", "kv4", "kvfp8", "kv16")
 #: (policy, requests, prompt length, new tokens) of the serve phase
 SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
           ("w8a8kvfp8", 4, 32, 16), ("w8a16kv16", 4, 32, 16)]
+#: the one-shot-prefill serves: (arch, max_seq, requests, prompt length,
+#: new tokens, packed GEMMs per prefill call, per decode step), w4a16kv8 on
+#: the dense slab.  recurrentgemma: 18 recurrent blocks x 8 GEMMs (wy, wx,
+#: wa, wi, wo, w1, w3, w2) + 8 attention blocks x 7; whisper: prefill 4
+#: encoder layers x 6 + 4 cross K/V pairs + 4 decoder layers x 8 (wq, wk,
+#: wv, wo, xwq, xwo, w1, w2), a step the decoder's 32.  Every prefill runs
+#: 8 flash-prefill launches (8 attention blocks; 4 encoder + 4 decoder).
+ONE_SHOT_SERVES = [("recurrentgemma-2b", 512, 4, 128, 16, 200, 200),
+                   ("whisper-tiny", 256, 4, 16, 16, 64, 32)]
+FLASH_PER_PREFILL = 8
 #: logits tolerance, relative to max |logit|: A8 policies re-quantize
 #: every GEMM input per token, which turns one-ulp differences of sum
 #: order into int8 rounding flips (tests/test_torch_model.py)
@@ -98,7 +138,8 @@ def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
 
 def gemm_phase(dev, flush):
     """Both GEMM kernels against their plain versions at smollm-360m's
-    shapes: A16 at bits 4 and 8, int8 at bits 4 and 8."""
+    shapes (A16 at bits 4 and 8, int8 at bits 4 and 8) and the A16 kernel
+    at recurrentgemma-2b's (bits 4)."""
     import torch
     from repro_torch.core.packing import dequantize_packed, pack_weight
     from repro_torch.core.quantize import quantize_act_per_token
@@ -107,9 +148,14 @@ def gemm_phase(dev, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = {"mpgemm_a16": [], "mpgemm_int8": []}
-    for name, K, N, bk, bn in GEMM_SHAPES:
+    shapes = [(f"smollm {n}", K, N, bk, bn, (4, 8), ("mpgemm_a16",
+                                                    "mpgemm_int8"))
+              for n, K, N, bk, bn in GEMM_SHAPES] + \
+        [(f"recurrentgemma {n}", K, N, bk, bn, (4,), ("mpgemm_a16",))
+         for n, K, N, bk, bn in RG_GEMM_SHAPES]
+    for name, K, N, bk, bn, bit_set, kernels in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
-        for bits in (4, 8):
+        for bits in bit_set:
             pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
             wd = dequantize_packed(pw, torch.bfloat16)   # yardstick operand
             wbytes = K * N * bits // 8 + (K // bk) * N * 4
@@ -122,6 +168,8 @@ def gemm_phase(dev, flush):
                          BF16_OPS_PER_S, lambda: torch.matmul(x, wd)),
                         ("mpgemm_int8", (xq, xs, pw), mpgemm_int8_ref,
                          M * K + M * 4, INT8_OPS_PER_S, None)):
+                    if kern not in kernels:
+                        continue
                     fn = mpgemm_a16 if kern == "mpgemm_a16" else mpgemm_int8
                     y, ref = fn(*args), plain(*args)
                     torch.cuda.synchronize()
@@ -267,6 +315,80 @@ def attn_phase(dev, flush):
     return rows
 
 
+def kept_pairs(S, causal, window):
+    """(query, key) pairs the flash-prefill mask keeps at length S: key
+    kpos < S, kpos <= qpos if causal, kpos > qpos - window."""
+    win = S if window is None else window
+    return sum(max(0, (q + 1 if causal else S) - max(0, q - win + 1))
+               for q in range(S))
+
+
+def flash_inputs(gen, B, H, Hkv, S, D, dev):
+    """q, k, v whose scores single out a few keys per row: q ~ 4 N(0, 1)
+    gives scaled scores of std 4, so one key or a mask edge moves the
+    output by O(1).  q and k also carry opposite constant offsets that
+    lower every real score by 20, under the 0 that an all-zero padding
+    key past S would score: an unmasked padding key would swamp the
+    row.  v ~ N(0, 1) / 4 keeps outputs within ~1, so the bar (two bf16
+    ulps of the largest output) stays under 3e-2."""
+    import torch
+    c = (20 / D ** 0.5) ** 0.5
+    q, k, v = (torch.randn(B, h, S, D, generator=gen, device=dev)
+               for h in (H, Hkv, Hkv))
+    return [t.to(torch.bfloat16) for t in (4 * q - c, k + c, v / 4)]
+
+
+def flash_phase(dev, flush):
+    """The flash-prefill kernel against its plain version (the same tile
+    walk in PyTorch ops) at the one-shot serves' shapes; SDPA with the
+    same mask as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashprefill import BLOCK_K, BLOCK_Q, \
+        flash_prefill
+    from repro_torch.kernels.ref import NO_WINDOW, flash_prefill_walk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = []
+    for name, B, H, Hkv, S, D, causal, window in FLASH_SHAPES:
+        q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dev)
+        win = NO_WINDOW if window is None else window
+        kw = dict(causal=causal, window=window)
+        plain = lambda: flash_prefill_walk(   # noqa: E731
+            q, k, v, causal, win, S, BLOCK_Q, BLOCK_K)
+        out, ref = flash_prefill(q, k, v, **kw), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out.float()).all().item(),
+              f"flash_prefill {name} not finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FLASH_REL_TOL * ref.float().abs().max().item()
+        check(err <= tol, f"flash_prefill {name}: |Δ|={err} > {tol}")
+        pos = torch.arange(S, device=dev)
+        mask = None
+        if causal or window is not None:
+            mask = pos[None] > pos[:, None] - win
+            if causal:
+                mask &= pos[None] <= pos[:, None]
+        sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=Hkv != H)
+        lib = sdpa()
+        check(torch.isfinite(lib.float()).all().item(), "SDPA not finite")
+        nbytes = 2 * 2 * B * H * S * D + 2 * 2 * B * Hkv * S * D
+        ops = 4 * D * B * H * kept_pairs(S, causal, window)
+        b, by = bound_ms(nbytes, ops)
+        rows.append(dict(
+            shape=f"{name} B={B} H={H} Hkv={Hkv} D={D} causal={causal} "
+                  f"window={window} tile={BLOCK_Q}x{BLOCK_K}",
+            max_abs_err=err, tol=tol,
+            sdpa_max_abs_err=(lib.float() - ref.float()).abs().max().item(),
+            ms=time_ms(lambda: flash_prefill(q, k, v, **kw), flush),
+            plain_ms=time_ms(plain, flush, iters=5),
+            library_ms=time_ms(sdpa, flush),
+            bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
+            ops_per_s=BF16_OPS_PER_S))
+    return {"flash_prefill": rows}
+
+
 def to_device(params, dev):
     """Parameter dict/list of tensors and PackedWeights → ``dev``."""
     if isinstance(params, dict):
@@ -338,20 +460,77 @@ def reference_phase(dev):
                 logits[str(d)] = teacher_forced(model, to_device(params, d),
                                                 pol, cache, kw, stream,
                                                 chunks)
-            rel_max = 0.0
-            for lc, lg in zip(logits["cpu"], logits[str(dev)]):
-                check(torch.isfinite(lg).all().item(),
-                      f"reference logits not finite ({name}, {kind})")
-                scale = lc.abs().max().item()
-                rel = (lg - lc).abs().max().item() / scale
-                rel_max = max(rel_max, rel)
-                check(rel <= tol, f"REDUCED {name} {kind}: card vs CPU "
-                                  f"rel err {rel} > {tol}")
-                top2 = lc.topk(2).values
-                if (top2[0] - top2[1]).item() > tol * scale:
-                    check(lg.argmax().item() == lc.argmax().item(),
-                          f"top-1 differs ({name}, {kind})")
-            worst[f"{name}/{kind}"] = rel_max
+            worst[f"{name}/{kind}"] = compare_logits(
+                logits["cpu"], logits[str(dev)], tol, f"{name} {kind}")
+    return worst
+
+
+def one_shot_teacher_forced(model, params, policy, stream, P, extra,
+                            max_seq, dev):
+    """Prefill ``stream[:P]`` into a fresh B=1 cache, then feed the rest
+    one token at a time through decode_step; returns the float logits of
+    the prefill and of every step."""
+    import torch
+    cache = model.init_cache(policy, 1, max_seq, dev)
+    logits, cache = model.prefill(
+        params, policy, torch.tensor([stream[:P]], device=dev), cache,
+        **extra)
+    out = [logits[0].float().cpu()]
+    for p in range(P, len(stream)):
+        logits, cache = model.decode_step(
+            params, policy, torch.tensor([[stream[p]]], device=dev), cache,
+            torch.tensor([p], dtype=torch.int32, device=dev))
+        out.append(logits[0].float().cpu())
+    return out
+
+
+def compare_logits(ref, got, tol, what):
+    """Card logits within ``tol`` · max |logit| of the CPU's, top-1 equal
+    where the CPU's top-2 margin is clear; returns the worst relative
+    error."""
+    import torch
+    rel_max = 0.0
+    for lc, lg in zip(ref, got):
+        check(torch.isfinite(lg).all().item(),
+              f"reference logits not finite ({what})")
+        scale = lc.abs().max().item()
+        rel = (lg - lc).abs().max().item() / scale
+        rel_max = max(rel_max, rel)
+        check(rel <= tol, f"REDUCED {what}: card vs CPU rel err {rel} > "
+                          f"{tol}")
+        top2 = lc.topk(2).values
+        if (top2[0] - top2[1]).item() > tol * scale:
+            check(lg.argmax().item() == lc.argmax().item(),
+                  f"top-1 differs ({what})")
+    return rel_max
+
+
+def one_shot_reference(dev):
+    """REDUCED recurrentgemma and whisper: one-shot prefill (the
+    flash-prefill kernel) then teacher-forced decode steps, the card
+    against the CPU's plain versions, same packed weights and frames."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    worst = {}
+    for arch, *_ in ONE_SHOT_SERVES:
+        cfg = get_reduced(arch)
+        model = build(cfg)
+        raw = model.init_params(0, "cpu")
+        extra = model.extra_inputs(5, 1, "cpu")
+        stream = torch.randint(1, cfg.vocab, (12,), generator=torch.Generator()
+                               .manual_seed(6)).tolist()
+        for name in ("w4a16kv8", "w16a16kv16"):
+            pol = get_policy(name)
+            params = quantize_params(raw, pol)
+            logits = {str(d): one_shot_teacher_forced(
+                model, to_device(params, d), pol, stream, 8,
+                {k: v.to(d) for k, v in extra.items()}, 32, d)
+                for d in ("cpu", dev)}
+            worst[f"{arch}/{name}"] = compare_logits(
+                logits["cpu"], logits[str(dev)], TOL, f"{arch} {name}")
     return worst
 
 
@@ -385,12 +564,14 @@ def profile_window(eng, prompts, sp):
 
 
 def launch_counters():
-    """The four kernel wrappers, by name."""
+    """The five kernel wrappers, by name."""
+    from repro_torch.kernels.flashprefill import flash_prefill
     from repro_torch.kernels.kvattn import kvattn
     from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
     from repro_torch.kernels.paged_kvattn import paged_kvattn
     return {"mpgemm_a16": mpgemm_a16, "mpgemm_int8": mpgemm_int8,
-            "paged_kvattn": paged_kvattn, "kvattn": kvattn}
+            "paged_kvattn": paged_kvattn, "kvattn": kvattn,
+            "flash_prefill": flash_prefill}
 
 
 def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
@@ -472,10 +653,83 @@ def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
     return res, streams
 
 
+def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
+                   gemm_prefill, gemm_step, totals):
+    """Serve full-width ``arch`` (a one-shot-prefill family) once on the
+    dense slab under w4a16kv8; check that every prefill went through the
+    flash-prefill kernel and every packed GEMM through the A16 kernel.
+    Adds the run's launches to ``totals``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (Engine, EngineConfig, SamplingParams,
+                                     percentile_stats)
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(EngineConfig(model=cfg, policy="w4a16kv8", n_slots=4,
+                              max_seq=max_seq, seed=0, device=dev))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (n_req, prompt_len)).tolist()
+    sp = SamplingParams(max_new_tokens=new_tokens)
+    eng.generate(prompts[:1], SamplingParams(max_new_tokens=2))   # warm-up
+
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    steps0 = eng.model_steps
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    steps = eng.model_steps - steps0
+    for k, n in launches.items():
+        totals[k] += n
+    check(len(outs) == n_req and all(
+        len(o.output_token_ids) == new_tokens for o in outs),
+        f"{arch}: not every request produced its tokens")
+    check(all(0 <= t < cfg.vocab for o in outs for t in o.output_token_ids),
+          f"{arch}: token outside the vocabulary")
+    want = {k: 0 for k in launches}
+    want["mpgemm_a16"] = gemm_prefill * n_req + gemm_step * steps
+    want["flash_prefill"] = FLASH_PER_PREFILL * n_req
+    check(launches == want, f"{arch}: launches {launches} != {want} "
+                            f"({n_req} prefills, {steps} steps)")
+
+    # request 0, teacher-forced on the card: each emitted token must be the
+    # argmax of decode_step's logits up to a near-tie
+    stream = prompts[0] + outs[0].output_token_ids[:-1]
+    tf = one_shot_teacher_forced(eng.model, eng.params, eng.policy, stream,
+                                 prompt_len - 1, eng._extra, max_seq, dev)
+    for lg, tok in zip(tf[1:], outs[0].output_token_ids):
+        check(lg[tok].item() >= lg.max().item() - TOL *
+              lg.abs().max().item(),
+              f"{arch}: served token is not the teacher-forced argmax")
+    res = dict(arch=arch, policy="w4a16kv8", cache_kind="dense",
+               requests=n_req, prompt_len=prompt_len, new_tokens=new_tokens,
+               model_steps=steps, wall_s=wall,
+               tokens_per_s=n_req * new_tokens / wall,
+               ms_per_step=wall / steps * 1e3,
+               ttft_p50_s=percentile_stats([o.ttft for o in outs])["p50"],
+               latency_p50_s=percentile_stats([o.latency for o in outs])["p50"],
+               setup_s=setup_s, launches=launches,
+               kv_resident_bytes=eng.kv_resident_bytes(),
+               profile=profile_window(eng, prompts, SamplingParams(
+                   max_new_tokens=8)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_phase(dev):
-    """Every serve of ``SERVES`` on both backends; dense and paged streams
-    must be identical per policy.  Returns the runs and the launches of
-    each kernel summed over them."""
+    """Every serve of ``SERVES`` on both backends (dense and paged streams
+    must be identical per policy), then the one-shot serves of
+    ``ONE_SHOT_SERVES``.  Returns the runs and the launches of each kernel
+    summed over them."""
     totals = {k: 0 for k in launch_counters()}
     runs = []
     for policy, n_req, plen, new in SERVES:
@@ -487,6 +741,10 @@ def serve_phase(dev):
             print("serve:", json.dumps(res))
         check(streams["dense"] == streams["paged"],
               f"{policy}: dense and paged token streams differ on the card")
+    for serve in ONE_SHOT_SERVES:
+        res = serve_one_shot(dev, *serve, totals)
+        runs.append(res)
+        print("serve:", json.dumps(res))
     for k, n in totals.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
     return runs, totals
@@ -538,7 +796,8 @@ def main() -> int:
         flush.zero_()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rows = {**gemm_phase(dev, flush), **attn_phase(dev, flush)}
+    rows = {**gemm_phase(dev, flush), **attn_phase(dev, flush),
+            **flash_phase(dev, flush)}
     del flush
     for kern, rs in rows.items():
         for r in rs:
@@ -550,7 +809,7 @@ def main() -> int:
                   f"{r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worst = reference_phase(dev)
+    worst = {**reference_phase(dev), **one_shot_reference(dev)}
     print(f"reference: REDUCED logits, card vs CPU, max rel err "
           f"{json.dumps(worst)} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -573,6 +832,10 @@ def main() -> int:
         summarize(rows["kvattn"], totals["kvattn"], name="kvattn",
                   route="cuda", source=src + "kvattn.cu",
                   replaces="src/repro/kernels/kvattn.py:147"),
+        summarize(rows["flash_prefill"], totals["flash_prefill"],
+                  name="flash_prefill", route="cuda",
+                  source=src + "flash_prefill.cu",
+                  replaces="src/repro/kernels/flashprefill.py:82"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,14 @@ from __future__ import annotations
 
 from typing import List
 
-from . import smollm_360m
+from . import recurrentgemma_2b, smollm_360m, whisper_tiny
 from .base import ModelConfig
 
 #: architectures the port runs, in the JAX registry's id spelling
-ARCHS: List[str] = ["smollm-360m"]
+ARCHS: List[str] = ["whisper-tiny", "smollm-360m", "recurrentgemma-2b"]
 
-_MODULES = {"smollm-360m": smollm_360m}
+_MODULES = {"whisper-tiny": whisper_tiny, "smollm-360m": smollm_360m,
+            "recurrentgemma-2b": recurrentgemma_2b}
 
 
 def _module(arch_id: str):
@@ -31,5 +32,5 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def get_reduced(arch_id: str) -> ModelConfig:
-    """CPU-sized member of ``arch_id``'s family (2 layers)."""
+    """CPU-sized member of ``arch_id``'s family (2-3 layers)."""
     return _module(arch_id).REDUCED

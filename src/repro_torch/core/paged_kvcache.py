@@ -235,9 +235,3 @@ def append_paged(cache: PagedKVCache, k_new: torch.Tensor,
     scatter_rows(cache, k_new, v_new, spec, *rows)
     return cache
 
-
-def kv_bytes(cache) -> int:
-    """Resident bytes of a KV store: paged pool (+ scales + table) or
-    dense slab (+ scales) alike."""
-    ts = [getattr(cache, f.name) for f in dataclasses.fields(cache)]
-    return int(sum(t.numel() * t.element_size() for t in ts))

@@ -1,8 +1,9 @@
 """Public wrappers around the kernels: the model-facing shapes.
 
 Port of ``repro.kernels.ops``: per-token activation quantization for the
-A8 GEMM, row grouping for the multi-query attention kernels,
-position/window normalisation and the paged live-block bound.  Each call
+A8 GEMM, the head-major layout of the flash-prefill kernel, row grouping
+for the multi-query attention kernels, position/window normalisation and
+the paged live-block bound.  Each call
 goes to the kernel wrapper, which runs the plain version for CPU tensors
 and the CUDA kernel for CUDA tensors.
 """
@@ -18,6 +19,7 @@ from repro_torch.core.packing import PackedWeight
 from repro_torch.core.paged_kvcache import PagedKVCache, blocks_needed
 from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 
+from .flashprefill import BLOCK_K, BLOCK_Q, flash_prefill
 from .kvattn import kvattn
 from .mpgemm import mpgemm_a16, mpgemm_int8
 from .paged_kvattn import paged_kvattn
@@ -43,6 +45,23 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
     else:
         y = mpgemm_a16(x2.to(torch.bfloat16).contiguous(), w)
     return y.reshape(*lead, N)
+
+
+def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None,
+                            block_q: int = BLOCK_Q,
+                            block_k: int = BLOCK_K) -> torch.Tensor:
+    """Fused flash prefill.  q: (B, S, H, D); k/v: (B, S, Hkv, D).
+
+    The kernel takes head-major bf16 operands and masks the ragged tail
+    itself, so S needs no padding (the JAX wrapper pads S to a block
+    multiple for its Pallas grid).  Returns (B, S, H, D) in q's dtype."""
+    hm = [t.transpose(1, 2).to(torch.bfloat16).contiguous()
+          for t in (q, k, v)]
+    out = flash_prefill(*hm, causal=causal, window=window,
+                        block_q=block_q, block_k=block_k)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _norm_pos(pos, B: int, device) -> torch.Tensor:

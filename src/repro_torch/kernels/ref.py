@@ -6,7 +6,7 @@ The kernel wrappers run these for CPU tensors (the tests); on the card they
 serve only ``chip_smoke.py`` and the CUDA tests, which hold each kernel
 against them.
 
-The two attention versions share one tile walk (:func:`_flash_walk`), as
+The two decode-attention versions share one tile walk (:func:`_flash_walk`), as
 the two CUDA kernels share ``csrc/flash_block.cuh``: the dense slab and
 the paged pool are visited one ``block_size`` tile at a time with the
 same online-softmax update, so the same logical contents give bitwise
@@ -164,3 +164,89 @@ def paged_kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
             yield s * bs, kd, vd
 
     return _flash_walk(q, tiles(), _row_frontiers(pos, R, rep), window)
+
+
+def prefill_kv_tiles(q0: int, qc: int, S: int, seq: int, causal: bool,
+                     window: int, block_k: int) -> range:
+    """First keys of the ``block_k``-key tiles that can hold a kept key of
+    query rows ``[q0, q0 + qc)``: tiles wholly past ``seq``, above the
+    diagonal (causal) or before the window are skipped, as the kernel
+    skips them (each is an exact no-op of the online softmax)."""
+    hi = min(seq, S)
+    if causal:
+        hi = min(hi, q0 + qc)
+    lo = max(0, q0 - window + 1)
+    return range(lo // block_k * block_k, hi, block_k)
+
+
+def flash_prefill_walk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int, seq: int, block_q: int,
+                       block_k: int) -> torch.Tensor:
+    """Flash prefill over ``block_q × block_k`` tiles: the port of
+    ``repro.core.attention.flash_attention``'s ``q_chunk × kv_chunk``
+    walk (attention.py:118-173) on the kernel's head-major operands.
+
+    q (B, H, S, D), k/v (B, Hkv, S, D) bf16; head h reads KV head
+    ``h // rep``; a key is kept when ``kpos < seq``, ``kpos <= qpos`` if
+    ``causal`` and ``kpos > qpos - window`` (NO_WINDOW: no window).
+    Rounding points of the kernel: scores f32 times ``rsqrt(D)``, masked to
+    ``NEG_INF``, p zeroed under the mask, l summing the unrounded p, p
+    rounded to bf16 before the PV product, ``bf16(acc / max(l, 1e-20))``.
+    Rows and keys need no padding: the last tiles are cut short."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    dev = q.device
+    qg = q.float().reshape(B, Hkv, rep, S, D)
+    kf, vf = k.float(), v.float()
+    inv = torch.rsqrt(torch.full((), float(D), device=dev))
+    out = torch.empty((B, Hkv, rep, S, D), dtype=torch.bfloat16, device=dev)
+    for q0 in range(0, S, block_q):
+        qb = qg[:, :, :, q0:q0 + block_q]                   # (B,Hkv,rep,qc,D)
+        qc = qb.shape[3]
+        qpos = (q0 + torch.arange(qc, device=dev))[:, None]
+        m = torch.full((B, Hkv, rep, qc, 1), NEG_INF, device=dev)
+        l = torch.zeros((B, Hkv, rep, qc, 1), device=dev)
+        acc = torch.zeros((B, Hkv, rep, qc, D), device=dev)
+        for k0 in prefill_kv_tiles(q0, qc, S, seq, causal, window, block_k):
+            kb = kf[:, :, None, k0:k0 + block_k]            # (B,Hkv,1,kc,D)
+            vb = vf[:, :, None, k0:k0 + block_k]
+            kpos = k0 + torch.arange(kb.shape[3], device=dev)
+            mask = (kpos[None] < seq) & (kpos[None] > qpos - window)
+            if causal:
+                mask &= kpos[None] <= qpos
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * inv
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(
+                p.to(torch.bfloat16).float(), vb)
+            m = m_new
+        out[:, :, :, q0:q0 + qc] = (acc / l.clamp_min(1e-20)).to(
+            torch.bfloat16)
+    return out.reshape(B, H, S, D)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, window=None) -> torch.Tensor:
+    """Oracle for the flash-prefill kernel: full f32 attention (port of
+    ``repro.kernels.ref.flash_prefill_ref``).  q (B, S, H, D); k/v
+    (B, S, Hkv, D); returns (B, S, H, D) in q's dtype."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    qf = q.float().reshape(B, S, Hkv, rep, D)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.float())
+    scores = scores / torch.sqrt(torch.tensor(float(D)))
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = (kpos <= qpos) if causal else torch.ones(
+        (S, S), dtype=torch.bool, device=q.device)
+    if window is not None:
+        mask &= kpos > (qpos - window)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)

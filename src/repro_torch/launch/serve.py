@@ -1,13 +1,18 @@
 """Serving driver: the continuous-batching engine with Poisson arrivals.
 
 Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
-Reports throughput and TTFT / latency percentiles.  The KV store is the
-dense slab unless ``--cache-kind paged``; ``--policy`` takes any
+Reports throughput and TTFT / latency percentiles.  ``--arch`` takes the
+ported architectures (smollm-360m, recurrentgemma-2b, whisper-tiny),
+REDUCED unless ``--full``.  The KV store is the dense slab unless
+``--cache-kind paged`` (dense family only); ``--policy`` takes any
 ``WxAyKVz`` name.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-360m --full \
         --policy w4a8kv4 --cache-kind paged --requests 16 --rate 8
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b --full \
+        --max-seq 512 --prompt-len 128
+    python -m repro_torch.launch.serve --arch whisper-tiny --device cpu
 """
 import argparse
 import sys

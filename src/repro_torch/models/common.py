@@ -1,8 +1,9 @@
 """Shared model building blocks: norms, RoPE, MLPs, and a linear that is
 transparent over quantized (PackedWeight) vs dense (bf16) weights.
 
-Port of ``repro.models.common`` for the dense family's decode path.
-Plain functions over explicit parameter dicts; initializers return bf16.
+Port of ``repro.models.common`` for the ported families (dense, hybrid,
+audio).  Plain functions over explicit parameter dicts; initializers
+return bf16.
 """
 from __future__ import annotations
 
@@ -111,6 +112,35 @@ def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
     h = x.float()
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
     return (h * (1.0 + g.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with gain and bias, in f32: the population variance
+    (``jnp.var``, so ``unbiased=False``), then back to x's dtype."""
+    h = x.float()
+    mu = h.mean(-1, keepdim=True)
+    var = h.var(-1, keepdim=True, unbiased=False)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * g.float() + b.float()).to(x.dtype)
+
+
+def sinusoidal_pos(S: int, D: int, offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(S, D) bf16 table ``[sin(pos·inv) | cos(pos·inv)]`` with
+    ``inv = exp(-ln(10000) · 2i / D)``, computed in f32."""
+    pos = torch.arange(S, dtype=torch.float32, device=device) + offset
+    inv = torch.exp(-math.log(10000.0) * torch.arange(
+        0, D, 2, dtype=torch.float32, device=device) / D)
+    ang = pos[:, None] * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(
+        torch.bfloat16)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU as ``jax.nn.gelu`` computes it by default: the tanh
+    approximation (the exact erf form differs by up to ~1e-3)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rope_freqs(head_dim: int, rotary_pct: float, theta: float,

@@ -1,10 +1,11 @@
 """Engine configuration: one validated dataclass.
 
 Port of ``repro.serving.config`` for the dense-slab and paged reservation
-engines.  Every knob of the JAX ``EngineConfig`` is here, with its rules;
-the ones whose feature is not ported yet raise :class:`EngineError`
-naming the ROADMAP item that ports it, instead of silently doing
-something else.  New knob: ``device``
+engines of the dense family and the one-shot-prefill engines of the hybrid
+and audio families.  Every knob of the JAX ``EngineConfig`` is here, with
+its rules; the ones whose feature is not ported yet raise
+:class:`EngineError` naming the ROADMAP item that ports it, instead of
+silently doing something else.  New knob: ``device``
 (``"cuda"`` by default; the CPU only when asked for — a missing card is an
 error, never a fallback).
 """
@@ -16,9 +17,11 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import PrecisionPolicy, get_policy
-from repro_torch.models.registry import KV_FAMILIES
+from repro_torch.models.registry import (FAMILIES, PAGED_FAMILIES,
+                                          not_ported)
 
 
 class EngineError(ValueError):
@@ -97,13 +100,11 @@ class EngineConfig:
             raise EngineError(
                 f"max_prompt={self.max_prompt} exceeds max_seq={self.max_seq}")
 
-        if self.model.family not in KV_FAMILIES:
-            raise EngineError(
-                f"family {self.model.family!r} has no ported KV cache")
-        if self.model.n_img_tokens:
-            raise EngineError(
-                "modality-stub families are not ported (their prefill "
-                "consumes extra encoder inputs)")
+        if self.model.family not in FAMILIES or self.model.n_experts or \
+                self.model.n_img_tokens:
+            raise EngineError(not_ported(
+                "moe" if self.model.n_experts else "vlm"
+                if self.model.n_img_tokens else self.model.family))
         if self.cache_kind == "paged":
             if self.max_seq % self.block_size:
                 raise EngineError(
@@ -113,6 +114,9 @@ class EngineConfig:
                     not isinstance(self.n_blocks, int) or self.n_blocks < 1):
                 raise EngineError(
                     f"n_blocks must be a positive int, got {self.n_blocks!r}")
+            if self.model.family not in PAGED_FAMILIES:
+                raise EngineError(
+                    f"family {self.model.family!r} has no KV cache to page")
             # chunks are quantize-and-written straight into pool blocks: a
             # chunk must tile a block exactly or span whole blocks
             if self.prefill_chunk % self.block_size and \
@@ -195,7 +199,7 @@ class EngineConfig:
                  block_size=16, n_blocks=None, prefill_chunk=32,
                  attn_impl="kernel", device="cuda")
         d.update(defaults)
-        ap.add_argument("--arch", default=d["arch"])
+        ap.add_argument("--arch", default=d["arch"], choices=ARCHS)
         ap.add_argument("--reduced", action="store_true", default=True)
         ap.add_argument("--full", dest="reduced", action="store_false")
         ap.add_argument("--policy", default=d["policy"])
@@ -226,7 +230,6 @@ class EngineConfig:
     @classmethod
     def from_cli(cls, args: argparse.Namespace) -> "EngineConfig":
         """Build a validated config from :meth:`add_cli_args` flags."""
-        from repro_torch.configs import ARCHS, get_config, get_reduced
         try:
             model = (get_reduced(args.arch) if args.reduced
                      else get_config(args.arch))

@@ -1,8 +1,9 @@
 """Serving engine: continuous batching over the mixed-precision model.
 
-Port of ``repro.serving.engine`` for the KV-cache families on the dense
-slab and on the paged backend with reservation admission, under every
-``WxAyKVz`` policy.  The public surface is the JAX engine's:
+Port of ``repro.serving.engine`` for the dense family on the dense slab
+and on the paged backend with reservation admission, and for the hybrid
+and audio families with their one-shot prefill, under every ``WxAyKVz``
+policy.  The public surface is the JAX engine's:
 
 * :class:`~repro_torch.serving.config.EngineConfig` — validated knobs;
 * ``submit(prompt, params) -> rid``, ``step() -> List[RequestOutput]``,
@@ -28,18 +29,26 @@ kernel.  The slab kernel walks ``block_size`` tiles when that divides
 same tiles and serve byte-identical greedy streams.  A slot emits a token only
 on the iteration that consumes its last unfed stream token.
 
+The hybrid (recurrent state) and audio (encoder inputs) families keep the
+JAX engine's one-shot path instead: at admission the prompt minus its last
+token runs through ``model.prefill`` into a B=1 cache (flash-prefill
+attention), which is spliced into the slot; every step then feeds one
+token per slot through ``decode_step``.
+
 Sampling is per slot (``serving/sampler.py``); feed cursors are host-side,
 and the one device→host sync per iteration besides the KV write filter is
 the sampled-token fetch.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import common as C
@@ -75,6 +84,27 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     return t
 
 
+def _leaves(cache) -> List[torch.Tensor]:
+    """Every tensor of a cache dataclass, nested caches included."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for f in dataclasses.fields(cache)
+            for t in _leaves(getattr(cache, f.name))]
+
+
+def _slot_insert(batch_cache, slot_cache, slot: int) -> None:
+    """Write a B=1 cache into the batched cache at ``slot``, in place.
+
+    Every cache leaf of every family carries batch at axis 1 (leaves are
+    stacked ``(L, B, ...)``).  The splice covers only the slot cache's
+    extent along the other axes and leaves the rest untouched (causally
+    masked).  Used only by the one-shot prefill path."""
+    for buf, val in zip(_leaves(batch_cache), _leaves(slot_cache)):
+        idx = (slice(None), slice(slot, slot + 1)) + tuple(
+            slice(0, n) for n in val.shape[2:])
+        buf[idx].copy_(val)
+
+
 class Engine:
     """Continuous-batching serving engine (see the module docstring).
     Not thread-safe: one engine, one driver."""
@@ -92,6 +122,10 @@ class Engine:
         raw = params if params is not None else \
             self.model.init_params(config.seed, self.device)
         self.params = quantize_params(raw, self.policy, self.device)
+        #: the stub modality inputs every prefill of this engine consumes
+        self._extra = self.model.extra_inputs(config.seed + 2, 1,
+                                              self.device)
+        self._has_extra = bool(self._extra)
         self.n_slots = config.n_slots
         self.max_seq = config.max_seq
         self.block_size = config.block_size
@@ -111,6 +145,11 @@ class Engine:
         else:
             self.cache = self.model.init_cache(self.policy, self.n_slots,
                                                self.max_seq, self.device)
+        self._kv_family = isinstance(self.cache,
+                                     (KV.KVCache, PKV.PagedKVCache))
+        #: prompts fed in chunks through decode_step (KV families without
+        #: extra inputs); else the one-shot prefill at admission
+        self._chunked = self._kv_family and not self._has_extra
         #: the dense kernel's tile height: the paged block size when it
         #: divides the slab, else one whole-sequence tile
         self.attn_block_s = (self.block_size
@@ -134,11 +173,13 @@ class Engine:
         (B, t_step) host array, slot b's first ``valid[b]`` real.  Returns
         the sampled (B,) tokens on the host."""
         dev = self.device
+        kw = {}
+        if self._chunked:
+            kw = dict(max_live=max_live, attn_block_s=self.attn_block_s,
+                      valid=torch.from_numpy(valid).to(dev))
         logits, self.cache = self.model.decode_step(
             self.params, self.policy, torch.from_numpy(tokens).to(dev),
-            self.cache, torch.from_numpy(pos).to(dev), max_live=max_live,
-            valid=torch.from_numpy(valid).to(dev),
-            attn_block_s=self.attn_block_s)
+            self.cache, torch.from_numpy(pos).to(dev), **kw)
         self.model_steps += 1
         nxt = S.sample(logits, temp, top_k, seeds, steps)
         return nxt.cpu().numpy()
@@ -248,11 +289,34 @@ class Engine:
 
     def _admit(self, req: Request) -> None:
         """Map the reserved blocks into the slot (paged) and seed its feed
-        cursor; the prompt itself is fed by ``step()``.  A dense slot is
-        not cleared: cells past the frontier are masked by position."""
+        cursor; a chunked engine's prompt is fed by ``step()``.  A dense
+        slot is not cleared: cells past the frontier are masked by
+        position.
+
+        One-shot families prefill the prompt minus its last token
+        (at least one token, so an audio request always builds its
+        encoder cache) into a B=1 cache spliced into the slot; a
+        single-token prompt into a recurrent family resets the slot's
+        state instead (stale state is masked by no causal mask)."""
         if self._paged:
             self._map_slot_blocks(req.slot, self._block_map[req.rid])
-        req.pos = 0
+        if self._chunked:
+            req.pos = 0
+            return
+        n = len(req.prompt)
+        if n > 1 or self._has_extra:
+            P = max(n - 1, 1)
+            toks = torch.tensor([req.prompt[:P]], dtype=torch.int64,
+                                device=self.device)
+            cache1 = self.model.init_cache(self.policy, 1, self.max_seq,
+                                           self.device)
+            _, cache1 = self.model.prefill(self.params, self.policy, toks,
+                                           cache1, **self._extra)
+            _slot_insert(self.cache, cache1, req.slot)
+        elif not self._kv_family:
+            _slot_insert(self.cache, self.model.init_cache(
+                self.policy, 1, self.max_seq, self.device), req.slot)
+        req.pos = n - 1
 
     # -- main loop ---------------------------------------------------------
 
@@ -290,7 +354,8 @@ class Engine:
         running = self.scheduler.running()
         if not running:
             return []
-        t_step, valids = self.scheduler.plan(self.prefill_chunk)
+        t_step, valids = self.scheduler.plan(
+            self.prefill_chunk if self._chunked else 1)
 
         # idle slots feed token 0 at position 0 with valid == 0: their
         # writes are dropped and their logits discarded
@@ -413,10 +478,11 @@ class Engine:
         raise RuntimeError("engine did not drain")
 
     def kv_resident_bytes(self) -> int:
-        """Resident bytes of the KV store (slab or pool + scales + table).
-        The JAX slab also holds a (L, B) int32 ``length`` the port does
-        not keep."""
-        return PKV.kv_bytes(self.cache)
+        """Resident bytes of the decode state: slab or pool + scales +
+        table, and a hybrid model's recurrent state or an audio model's
+        cross-attention slab.  The JAX slab also holds a (L, B) int32
+        ``length`` the port does not keep."""
+        return sum(t.numel() * t.element_size() for t in _leaves(self.cache))
 
 
 def percentile_stats(vals: List[float]) -> Dict[str, float]:

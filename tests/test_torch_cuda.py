@@ -18,6 +18,13 @@ Tolerances:
   on outputs of magnitude ≤ ~4.
 * Dense ≡ paged: the two kernels run one block program over the same
   tiles, so their outputs are compared bit for bit.
+* Flash prefill — the kernel against its plain version (the same tile
+  walk, ``ref.flash_prefill_walk``): the same rounding points, dot
+  products summed in other orders (tensor-core fragments against
+  PyTorch's matmul), so p may round to bf16 on the other side of a tie,
+  plus one bf16 ulp of the output: |Δ| ≤ 2^-6 · max|plain| (two bf16
+  ulps of the largest output), on inputs whose scores single out a few
+  keys per row so a mask or window error moves the output by O(1).
 """
 import dataclasses
 
@@ -31,6 +38,7 @@ from repro_torch.core import quantize as Q
 from repro_torch.core.packing import pack_weight
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ref
+from repro_torch.kernels.flashprefill import flash_prefill
 from repro_torch.kernels.kvattn import kvattn
 from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
 from repro_torch.kernels.paged_kvattn import paged_kvattn
@@ -268,3 +276,79 @@ def test_wrappers_count_launches(dev):
                  layer.block_table, posd, win, rep, nl, kv8)
     assert (kvattn.launches, paged_kvattn.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+FLASH_CASES = [
+    # B, H, Hkv, S, D, causal, window
+    (1, 10, 1, 127, 256, True, 2048),   # recurrentgemma serve prompt
+    (1, 10, 1, 700, 256, True, 256),    # the window binds, rep 10
+    (1, 6, 6, 1500, 64, False, None),   # whisper encoder, ragged tiles
+    (2, 6, 6, 15, 64, True, None),      # whisper decoder prompt, rep 1
+    (2, 8, 2, 200, 128, True, None),    # D 128, rep 4
+    (1, 8, 8, 96, 128, False, 40),      # non-causal window
+    (1, 4, 4, 70, 32, True, None),      # whisper REDUCED head dim
+]
+
+
+#: flash prefill's bar against its plain version: two bf16 ulps of the
+#: largest output (both round p and the output to bf16 at the same points;
+#: f32 sum order flips a rounding now and then)
+FLASH_REL_TOL = 2 ** -6
+
+
+def _flash_inputs(case, dev):
+    """Scores of std 4, so one key or a mask edge moves the output by
+    O(1); opposite constant offsets on q and k put every real score ~20
+    under the 0 an unmasked all-zero padding key would score; v / 4 keeps
+    outputs within ~1."""
+    B, H, Hkv, S, D = case[:5]
+    rng = np.random.default_rng(S + D)
+    c = (20 / D ** 0.5) ** 0.5
+    q, k, v = (rng.standard_normal((B, h, S, D), np.float32)
+               for h in (H, Hkv, Hkv))
+    return [torch.from_numpy(t).to(dev, torch.bfloat16)
+            for t in (4 * q - c, k + c, v / 4)]
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (32, 128), (128, 64)])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_prefill_matches_plain(dev, case, tile):
+    q, k, v = _flash_inputs(case, dev)
+    causal, window = case[5:]
+    S = q.shape[2]
+    for seq in (S, max(1, S - 9)):            # padded keys masked
+        kw = dict(causal=causal, window=window, seq=seq, block_q=tile[0],
+                  block_k=tile[1])
+        out = flash_prefill(q, k, v, **kw)
+        plain = flash_prefill(q.cpu(), k.cpu(), v.cpu(), **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        err = (out.float().cpu() - plain.float()).abs().max().item()
+        assert err <= FLASH_REL_TOL * plain.float().abs().max().item(), \
+            (seq, err)
+
+
+def test_flash_prefill_refuses(dev):
+    """Sq != Sk is outside the kernel's contract (flash_attention raises);
+    a tile past 227 KB of shared memory and an unbuilt head dim raise
+    ValueError without launching."""
+    from repro_torch.core.attention import flash_attention
+    q, k, v = _flash_inputs(FLASH_CASES[0], dev)
+    before = flash_prefill.launches
+    with pytest.raises(NotImplementedError, match="item 12"):
+        flash_attention(q.transpose(1, 2), k[:, :, :64].transpose(1, 2),
+                        v[:, :, :64].transpose(1, 2))
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_prefill(q, k, v, block_q=128, block_k=256)   # D 256: 304 KB
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                      v[..., :48].contiguous())
+    assert flash_prefill.launches == before
+
+
+def test_flash_prefill_counts_launches(dev):
+    q, k, v = _flash_inputs(FLASH_CASES[3], dev)
+    before = flash_prefill.launches
+    flash_prefill(q, k, v)
+    flash_prefill(q.cpu(), k.cpu(), v.cpu())           # plain: not counted
+    assert flash_prefill.launches == before + 1

@@ -33,10 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as j_config
 from repro.configs import get_reduced as j_reduced
 from repro.core.precision import get_policy as j_policy
 from repro.models import transformer as JT
 from repro.serving.engine import quantize_params as j_quantize
+from repro_torch.configs import ARCHS
+from repro_torch.configs import get_config as t_config
 from repro_torch.configs import get_reduced as t_reduced
 from repro_torch.convert import params_from_jax, to_tensor
 from repro_torch.core.packing import PackedWeight
@@ -90,9 +93,13 @@ def test_rms_norm_and_interleaved_rope_match_jax():
         np.testing.assert_allclose(rt, rj, rtol=1e-5, atol=1e-5)
 
 
-def test_config_copy_matches():
-    assert dataclasses.asdict(t_reduced("smollm-360m")) == \
-        dataclasses.asdict(j_reduced("smollm-360m"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_copy_matches(arch):
+    """Every ported configuration, full and REDUCED, field for field the
+    JAX package's."""
+    for t_get, j_get in ((t_reduced, j_reduced), (t_config, j_config)):
+        assert dataclasses.asdict(t_get(arch)) == \
+            dataclasses.asdict(j_get(arch))
 
 
 def test_packed_weights_equal_jax(models):
@@ -193,3 +200,13 @@ def test_teacher_forced_logits_other_policies(raw, policy, kind):
     assert packed == (policy[:3] != "w16")
     _teacher_forced(cfg_j, cfg_t, pol_j, pol_t, j_quantize(raw_j, pol_j),
                     params_t, kind)
+
+
+def test_dense_sinusoidal_positions_not_ported():
+    """No dense configuration uses sinusoidal positions (whisper's are in
+    the audio family), so the dense decode step names its ROADMAP item."""
+    cfg = dataclasses.replace(t_reduced("smollm-360m"), use_rope=False)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TT.decode_step({}, cfg, t_policy("w4a16kv8"),
+                       torch.zeros((1, 1), dtype=torch.int32), None,
+                       torch.zeros((1,), dtype=torch.int32))
