@@ -62,25 +62,24 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    pos_offset: int = 0, q_chunk: int = ops.BLOCK_Q,
-                    kv_chunk: int = ops.BLOCK_K) -> torch.Tensor:
-    """Online-softmax prefill attention over ``q_chunk × kv_chunk`` tiles.
+                    pos_offset: int = 0) -> torch.Tensor:
+    """Online-softmax prefill attention over tiles of keys.
     q (B, S, H, D), k/v (B, S, Hkv, D) → (B, S, H, D) in q's dtype.
 
-    The flash-prefill kernel's tile is the chunk pair (default 64 × 64:
-    the JAX default of 512 × 512 does not fit in a block's shared memory
-    at D 256); tiles wholly masked are skipped.  The kernel's contract is
-    every caller's in the ported families: ``pos_offset == 0``, as many
-    queries as keys, and an int or no window.  Chunked or offset prefill
-    (``launch/spattn.py``, training) is ROADMAP queue 1 item 12."""
+    The flash-prefill kernel's wrapper picks the tile from the shapes
+    (the JAX default of 512 × 512 chunks does not fit in a block's shared
+    memory at D 256); tiles wholly masked are skipped.  The kernel's
+    contract is every caller's in the ported families: ``pos_offset ==
+    0``, as many queries as keys, and an int or no window.  Chunked or
+    offset prefill (``launch/spattn.py``, training) is ROADMAP queue 1
+    item 12."""
     if not isinstance(pos_offset, int) or pos_offset != 0 or \
             q.shape[1] != k.shape[1] or not (
                 window is None or isinstance(window, int)):
         raise NotImplementedError(
             "flash_attention takes pos_offset 0, Sq == Sk and an int or no "
             "window; the rest is not yet ported: ROADMAP queue 1 item 12")
-    return ops.flash_prefill_attention(q, k, v, causal=causal, window=window,
-                                       block_q=q_chunk, block_k=kv_chunk)
+    return ops.flash_prefill_attention(q, k, v, causal=causal, window=window)
 
 
 def _scale_rows(scale: torch.Tensor) -> torch.Tensor:

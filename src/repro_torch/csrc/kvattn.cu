@@ -6,15 +6,18 @@
 // (B, S, Hkv, ROW_BYTES) in block_s-token tiles, tile s at logical
 // positions s * block_s + j.
 //
-// What bounds it on an H100: bytes, as for the paged kernel — the stored
-// K/V of every tile it visits plus two f32 scales per token, against 4 * D
-// flops per (query row, key).  Like the Pallas grid it visits every tile
-// of the slab, masked ones included (skipping tiles past the batch's
-// frontier is later speed work).  It runs the paged kernel's block
-// program (flash::decode_rows) with the same ROW_TILE, thread count and
-// per-thread work split, so the dense and paged backends sum in the same
-// order and give bitwise equal outputs on the same logical contents when
-// block_s equals the pool's block_size.
+// What bounds it on an H100: bytes — the stored K/V of the live tiles
+// plus two f32 scales per token, against 4 * D flops per (query row,
+// key) — and, at the serve's few hundred keys a slot, the latency of a
+// walk in series.  It runs the paged kernel's block program
+// (flash::decode_rows): each block visits only the tiles up to its rows'
+// frontier (the Pallas grid visits every tile of the slab, masked ones
+// included), the walk is split over a cluster of 8 blocks by logical tile
+// index and combined in rank order, the dots run on mma.sync and the
+// stored bytes come through a cp.async ring.  The split, the tile shape
+// and the per-row arithmetic are the paged kernel's, so the dense and
+// paged backends give bitwise equal outputs on the same logical contents
+// when block_s equals the pool's block_size.
 //
 // Shared memory grows with block_s: at D = 128 a 256-token tile needs more
 // than the 227 KB a block may use, and the launch is refused with
@@ -35,10 +38,9 @@ kvattn_kernel(const __nv_bfloat16* __restrict__ q,
               const uint8_t* __restrict__ v, const float* __restrict__ v_scale,
               const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
               int Hkv, int R, int rep, int S, int bs, int window) {
-  const size_t tok_b = size_t(blockIdx.x) * S;   // slot b's first token row
-  flash::decode_rows<F, D>(q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep,
-                           bs, S / bs, window,
-                           [=](int s) { return tok_b + size_t(s) * bs; });
+  flash::decode_rows<F, D>(
+      q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep, bs, S / bs, window,
+      [=](int b, int s) { return size_t(b) * S + size_t(s) * bs; });
 }
 
 struct Launch {

@@ -10,19 +10,20 @@
 // D / 2 for kv4, 2 * D for kv16) plus two f32 scales, and does 4 * D
 // flops per (query row, key) — at decode (R = rep = 3 rows) about 1.5 flop
 // per kv8 byte, far below the ~295 flop/byte where the tensor cores would
-// become the limit.  The design therefore reads the pool once per (slot,
-// kv-head, row tile) straight through the block table — no dense per-slot
-// view is ever gathered — keeps K/V in their stored format until they are
-// in shared memory, and bounds the walk by the batch's live context
-// (n_live), not by the table's length.  Everything after the load is
-// simple CUDA-core arithmetic in shared memory (flash_block.cuh); wgmma,
-// TMA and a cp.async pipeline over blocks are later work.
+// become the limit.  At the serve's sizes the walk's latency dominates
+// the bytes, so the design reads the pool straight through the block
+// table (no dense per-slot view is gathered), keeps K/V in their stored
+// format until they are in shared memory, and spreads the walk: each
+// block visits only the tiles up to its rows' frontier (n_live stays an
+// upper bound), eight blocks of a cluster take the tiles s % 8 in
+// parallel and combine in rank order, the dots run on mma.sync and the
+// stored bytes come through a cp.async ring (flash_block.cuh).
 //
-// Grid: (B, Hkv, ceil(R / ROW_TILE)); 128 threads; the block program is
-// flash::decode_rows.  For each logical block s < n_live the block reads
-// tbl[b, s] itself and clamps the sentinel (n_blocks = unmapped) to
-// n_blocks - 1 — its contents are masked to an exact no-op by the causal
-// test.
+// Grid: (8, Hkv, B * ceil(R / 64)), clusters of 8 along x; 128 threads;
+// the block program is flash::decode_rows.  For each logical block s <
+// n_live it visits, the block reads tbl[b, s] itself and clamps the
+// sentinel (n_blocks = unmapped) to n_blocks - 1 — its contents are
+// masked to an exact no-op by the causal test.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,11 +43,10 @@ paged_kvattn_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ tbl, const int* __restrict__ pos,
                     __nv_bfloat16* __restrict__ out, int Hkv, int R, int rep,
                     int nb, int bs, int bps, int n_live, int window) {
-  const int* row = tbl + size_t(blockIdx.x) * bps;
   flash::decode_rows<F, D>(
       q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep, bs, n_live, window,
-      [=](int s) {
-        int blk = row[s];
+      [=](int b, int s) {
+        int blk = tbl[size_t(b) * bps + s];
         blk = blk < 0 ? 0 : (blk >= nb ? nb - 1 : blk);   // sentinel: masked
         return size_t(blk) * bs;
       });

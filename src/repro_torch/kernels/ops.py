@@ -19,7 +19,7 @@ from repro_torch.core.packing import PackedWeight
 from repro_torch.core.paged_kvcache import PagedKVCache, blocks_needed
 from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 
-from .flashprefill import BLOCK_K, BLOCK_Q, flash_prefill
+from .flashprefill import flash_prefill
 from .kvattn import kvattn
 from .mpgemm import mpgemm_a16, mpgemm_int8
 from .paged_kvattn import paged_kvattn
@@ -49,18 +49,16 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
 
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
-                            window: Optional[int] = None,
-                            block_q: int = BLOCK_Q,
-                            block_k: int = BLOCK_K) -> torch.Tensor:
+                            window: Optional[int] = None) -> torch.Tensor:
     """Fused flash prefill.  q: (B, S, H, D); k/v: (B, S, Hkv, D).
 
     The kernel takes head-major bf16 operands and masks the ragged tail
     itself, so S needs no padding (the JAX wrapper pads S to a block
-    multiple for its Pallas grid).  Returns (B, S, H, D) in q's dtype."""
+    multiple for its Pallas grid); its wrapper picks the tile.  Returns
+    (B, S, H, D) in q's dtype."""
     hm = [t.transpose(1, 2).to(torch.bfloat16).contiguous()
           for t in (q, k, v)]
-    out = flash_prefill(*hm, causal=causal, window=window,
-                        block_q=block_q, block_k=block_k)
+    out = flash_prefill(*hm, causal=causal, window=window)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -100,8 +98,9 @@ def kvattn_decode(q: torch.Tensor, cache: KVCache, spec: FormatSpec, pos,
                   window=None, block_s: int = 256) -> torch.Tensor:
     """Dense-slab decode / chunked-prefill attention.  q: (B, T, H, D);
     ``cache`` a per-layer view; ``pos`` the per-slot first query position
-    (token t attends through ``pos + t``).  The kernel walks every
-    ``min(block_s, S)``-token tile of the slab."""
+    (token t attends through ``pos + t``).  The kernel walks the
+    ``min(block_s, S)``-token tiles of the slab up to each slot's
+    frontier."""
     B, T, H, D = q.shape
     Hkv = cache.k.shape[2]
     rep = H // Hkv

@@ -116,7 +116,8 @@ def kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
                v: torch.Tensor, v_scale: torch.Tensor, pos: torch.Tensor,
                window: int, rep: int, block_s: int) -> torch.Tensor:
     """Multi-query attention over the dense slab, walked in ``block_s``
-    tiles (every tile of the slab, as the kernel does).
+    tiles (every tile of the slab; the kernel skips the tiles past each
+    slot's frontier, exact no-ops of the walk).
 
     q: (B, Hkv, R, D) bf16, rows token-major; k/v (B, S, Hkv, Dstore) of
     any KV format (int8 kv8, nibble-packed int8 kv4, float8_e5m2, bf16);

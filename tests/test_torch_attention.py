@@ -98,15 +98,55 @@ def test_flash_attention_matches_pallas_and_oracles(case):
         np.testing.assert_allclose(out_t, _f32(ref), rtol=0.05, atol=0.03)
 
 
-@pytest.mark.parametrize("chunks", [(16, 64), (32, 128), (128, 64)])
+def _head_major(*ts):
+    return [_t(a).transpose(1, 2).contiguous() for a in ts]
+
+
+@pytest.mark.parametrize("chunks", [(16, 128), (32, 256), (128, 128)])
 def test_flash_attention_any_tile(chunks):
     """The walk gives the same answer at every tile the kernel takes (a
     skipped tile is an exact no-op), within the tile-order tolerance."""
     q, k, v = _qkv(7, 1, 130, 4, 2, 64)
     base = _f32(TA.flash_attention(_t(q), _t(k), _t(v), window=50))
-    out = _f32(TA.flash_attention(_t(q), _t(k), _t(v), window=50,
-                                  q_chunk=chunks[0], kv_chunk=chunks[1]))
+    out = _f32(flash_prefill(*_head_major(q, k, v), window=50,
+                             tile=chunks).transpose(1, 2))
     assert np.abs(out - base).max() <= 2e-2
+
+
+#: the main path's flash-prefill shapes: (B, H, Hkv, S, D, causal, window)
+#: — recurrentgemma-2b's serve prompt and its window-bound length,
+#: whisper-tiny's encoder and decoder prompt, whisper-tiny REDUCED's
+#: encoder (head dim 32) — and the tile the wrapper picks for each
+MAIN_PATH_FLASH = [
+    ((1, 10, 1, 127, 256, True, 2048), (64, 64)),
+    ((1, 10, 1, 4096, 256, True, 2048), (128, 64)),
+    ((1, 6, 6, 1500, 64, False, None), (128, 128)),
+    ((1, 6, 6, 15, 64, True, None), (128, 128)),
+    ((1, 4, 4, 64, 32, False, None), (16, 128)),
+]
+
+
+@pytest.mark.parametrize("case,tile", MAIN_PATH_FLASH)
+def test_flash_tile_choice_at_main_path_shapes(case, tile):
+    """The wrapper's tile at each main-path shape is one the kernel takes
+    (block_q a multiple of 16 up to 128, block_k one online-softmax
+    slice: 128 keys, 64 at D 256), fits in the 227
+    KB of shared memory a block may use, and the plain walk at that tile
+    matches JAX's ``flash_attention`` at the walk's 2e-2."""
+    from repro_torch.kernels import flashprefill as FP
+    B, H, Hkv, S, D, causal, window = case
+    got = FP.pick_tile(B, H, Hkv, S, D)
+    assert got == tile
+    FP.check_tile(D, *got)
+    assert FP.smem_bytes(D, *got) <= FP.MAX_SMEM
+    q, k, v = _qkv(S + D, B, S, H, Hkv, D)
+    before = flash_prefill.launches
+    out_t = flash_prefill(*_head_major(q, k, v), causal=causal,
+                          window=window)
+    assert flash_prefill.launches == before          # plain version on CPU
+    out_j = JA.flash_attention(q, k, v, causal=causal, window=window)
+    err = np.abs(_f32(out_t.transpose(1, 2)) - _f32(out_j)).max()
+    assert err <= 2e-2, err
 
 
 def test_prefill_attention_oracle_matches_jax():
