@@ -9,9 +9,9 @@ Phases, in order (any failure raises and exits nonzero):
 2. Build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel).
 3. Kernel phase: hold each kernel against its plain PyTorch version on the
-   card at the main paths' full-width shapes — the A16 GEMM at bits 4 and
-   8 and the int8 GEMM at bits 4 and 8 (smollm-360m), the A16 GEMM at
-   bits 4 (recurrentgemma-2b), paged and dense-slab attention in every KV
+   card at the main paths' full-width shapes — both GEMMs at bits 4 and 8
+   at smollm-360m's and recurrentgemma-2b's packed shapes, the weights in
+   the kernels' fragment order, paged and dense-slab attention in every KV
    format (smollm-360m), flash prefill at recurrentgemma-2b's local
    attention (S 127 and 4096, window 2048, D 256, 10 query heads on one
    KV head), whisper-tiny's encoder (S 1500, non-causal, D 64) and its
@@ -68,10 +68,14 @@ INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 GEMM_SHAPES = [  # weights, K, N, bk, bn of smollm-360m's packed GEMMs
     ("wq/wo", 960, 960, 64, 96), ("wk/wv", 960, 320, 64, 64),
     ("w1/w3", 960, 2560, 64, 128), ("w2", 2560, 960, 32, 96)]
-#: recurrentgemma-2b's packed GEMMs (A16, bits 4: the serve phase's policy)
+#: recurrentgemma-2b's packed GEMMs
 RG_GEMM_SHAPES = [
     ("wq/wo/wx/wy/wa/wi", 2560, 2560, 32, 128), ("wk/wv", 2560, 256, 32, 128),
     ("w1/w3", 2560, 7680, 32, 96), ("w2", 7680, 2560, 32, 128)]
+#: whisper-tiny's packed GEMMs (encoder, decoder and cross attention)
+WH_GEMM_SHAPES = [
+    ("wq/wk/wv/wo", 384, 384, 128, 128), ("w1", 384, 1536, 128, 96),
+    ("w2", 1536, 384, 32, 128)]
 GEMM_MS = (4, 128)           # n_slots x t_step at decode and at prefill
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
@@ -145,41 +149,42 @@ def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
 
 
 def gemm_phase(dev, flush):
-    """Both GEMM kernels against their plain versions at smollm-360m's
-    shapes (A16 at bits 4 and 8, int8 at bits 4 and 8) and the A16 kernel
-    at recurrentgemma-2b's (bits 4)."""
+    """Both GEMM kernels against their plain versions at smollm-360m's,
+    recurrentgemma-2b's and whisper-tiny's packed shapes, bits 4 and 8,
+    the weights in the kernels' fragment order."""
     import torch
-    from repro_torch.core.packing import dequantize_packed, pack_weight
+    from repro_torch.core.packing import (dequantize_packed, pack_weight,
+                                          to_kernel_layout)
     from repro_torch.core.quantize import quantize_act_per_token
     from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
     from repro_torch.kernels.ref import mpgemm_int8_ref, mpgemm_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = {"mpgemm_a16": [], "mpgemm_int8": []}
-    shapes = [(f"smollm {n}", K, N, bk, bn, (4, 8), ("mpgemm_a16",
-                                                    "mpgemm_int8"))
-              for n, K, N, bk, bn in GEMM_SHAPES] + \
-        [(f"recurrentgemma {n}", K, N, bk, bn, (4,), ("mpgemm_a16",))
-         for n, K, N, bk, bn in RG_GEMM_SHAPES]
-    for name, K, N, bk, bn, bit_set, kernels in shapes:
+    shapes = [(f"smollm {n}", *shape) for n, *shape in GEMM_SHAPES] + \
+        [(f"recurrentgemma {n}", *shape) for n, *shape in RG_GEMM_SHAPES] + \
+        [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES]
+    for name, K, N, bk, bn in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
-        for bits in bit_set:
+        for bits in (4, 8):
+            # the kernels take their fragment orders; the plain versions
+            # read the JAX package's tile-major bytes
             pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
+            frag = {k: to_kernel_layout(pw, k) for k in ("a16", "a8")}
             wd = dequantize_packed(pw, torch.bfloat16)   # yardstick operand
             wbytes = K * N * bits // 8 + (K // bk) * N * 4
             for M in GEMM_MS:
                 x = torch.randn(M, K, generator=gen, device=dev).to(
                     torch.bfloat16)
                 xq, xs = quantize_act_per_token(x.float(), bits=8)
-                for kern, args, plain, xbytes, peak, lib in (
-                        ("mpgemm_a16", (x, pw), mpgemm_ref, M * K * 2,
-                         BF16_OPS_PER_S, lambda: torch.matmul(x, wd)),
-                        ("mpgemm_int8", (xq, xs, pw), mpgemm_int8_ref,
-                         M * K + M * 4, INT8_OPS_PER_S, None)):
-                    if kern not in kernels:
-                        continue
-                    fn = mpgemm_a16 if kern == "mpgemm_a16" else mpgemm_int8
-                    y, ref = fn(*args), plain(*args)
+                for kern, fn, args, plain, pargs, xbytes, peak, lib in (
+                        ("mpgemm_a16", mpgemm_a16, (x, frag["a16"]),
+                         mpgemm_ref, (x, pw), M * K * 2, BF16_OPS_PER_S,
+                         lambda: torch.matmul(x, wd)),
+                        ("mpgemm_int8", mpgemm_int8, (xq, xs, frag["a8"]),
+                         mpgemm_int8_ref, (xq, xs, pw), M * K + M * 4,
+                         INT8_OPS_PER_S, None)):
+                    y, ref = fn(*args), plain(*pargs)
                     torch.cuda.synchronize()
                     err = (y.float() - ref.float()).abs().max().item()
                     tol = 2 ** -7 * ref.float().abs().max().item()
@@ -193,7 +198,7 @@ def gemm_phase(dev, flush):
                               f"bk={bk} bn={bn}",
                         max_abs_err=err, tol=tol,
                         ms=time_ms(lambda: fn(*args), flush),
-                        plain_ms=time_ms(lambda: plain(*args), flush),
+                        plain_ms=time_ms(lambda: plain(*pargs), flush),
                         library_ms=None if lib is None
                         else time_ms(lib, flush),
                         bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
@@ -424,13 +429,22 @@ def flash_phase(dev, flush):
     return {"flash_prefill": rows}
 
 
-def to_device(params, dev):
-    """Parameter dict/list of tensors and PackedWeights → ``dev``."""
+def to_device(params, dev, policy):
+    """Parameter dict/list of tensors and PackedWeights → ``dev``, packed
+    weights on the card in the fragment order of the GEMM kernel
+    ``policy`` routes to (as the engine's ``quantize_params`` lays them
+    out there)."""
+    import torch
+    from repro_torch.core.packing import PackedWeight, to_kernel_layout
     if isinstance(params, dict):
-        return {k: to_device(v, dev) for k, v in params.items()}
+        return {k: to_device(v, dev, policy) for k, v in params.items()}
     if isinstance(params, list):
-        return [to_device(v, dev) for v in params]
+        return [to_device(v, dev, policy) for v in params]
+    if isinstance(params, PackedWeight) and torch.device(dev).type == "cuda":
+        return to_kernel_layout(params.to(dev),
+                                "a8" if policy.int8_matmul else "a16")
     return params.to(dev)
+
 
 
 def new_cache(model, policy, kind, slots, dev):
@@ -492,7 +506,8 @@ def reference_phase(dev):
             logits = {}
             for d in ("cpu", dev):
                 cache, kw = new_cache(model, pol, kind, 1, d)
-                logits[str(d)] = teacher_forced(model, to_device(params, d),
+                logits[str(d)] = teacher_forced(model,
+                                                to_device(params, d, pol),
                                                 pol, cache, kw, stream,
                                                 chunks)
             worst[f"{name}/{kind}"] = compare_logits(
@@ -561,7 +576,7 @@ def one_shot_reference(dev):
             pol = get_policy(name)
             params = quantize_params(raw, pol)
             logits = {str(d): one_shot_teacher_forced(
-                model, to_device(params, d), pol, stream, 8,
+                model, to_device(params, d, pol), pol, stream, 8,
                 {k: v.to(d) for k, v in extra.items()}, 32, d)
                 for d in ("cpu", dev)}
             worst[f"{arch}/{name}"] = compare_logits(
@@ -845,7 +860,8 @@ def main() -> int:
     for p in libs:
         for kern, regs, spill in ptxas_report(
                 p.with_suffix(".log").read_text()):
-            print(f"  {kern}: {regs} registers, {spill} bytes spilled")
+            print(f"  {p.stem.split('-')[0]} {kern}: {regs} registers, "
+                  f"{spill} bytes spilled")
 
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     for _ in range(1000):                 # ~0.4 s of work: clocks up

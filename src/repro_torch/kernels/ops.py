@@ -39,6 +39,8 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
     K, N = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
+    if x2.data_ptr() % 16:         # the kernels copy x in 16-byte pieces
+        x2 = x2.clone()
     if policy.int8_matmul:
         xq, xs = Q.quantize_act_per_token(x2.float(), bits=8)
         y = mpgemm_int8(xq, xs, w)

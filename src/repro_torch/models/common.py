@@ -60,7 +60,10 @@ def pick_blocks(K: int, N: int):
 def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
                    min_size: int = 256 * 256):
     """Quantize+pack a 2D weight if it is large enough and tileable; small
-    or odd weights stay bf16 (embeddings, norms stay high precision)."""
+    or odd weights stay bf16 (embeddings, norms stay high precision).  The
+    CUDA GEMMs also need K % 64 == 0 (``core.packing.to_kernel_layout``):
+    a K of 32 times an odd number packs here (block_k 32), and the engine
+    then refuses it on the card at load time."""
     if policy.weights.bits == 16 or w.dim() != 2:
         return w
     K, N = w.shape

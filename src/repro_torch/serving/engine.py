@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
+from repro_torch.core.packing import PackedWeight, to_kernel_layout
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.models import common as C
 from repro_torch.models.registry import Model, build
@@ -69,7 +70,11 @@ _SKIP_KEYS = ("embed", "dec_pos", "lm_head", "conv_w", "lam", "u", "w0",
 def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     """Offline stage: pack every large 2D bf16 GEMM weight (paper §4.1);
     embeddings and norms stay bf16.  Tensors are moved to ``device`` (when
-    given) first.  Returns a new parameter structure."""
+    given) first.  On a CUDA device the packed weights are put in the
+    fragment order of the GEMM kernel the policy routes to
+    (``to_kernel_layout``), so the card holds one copy, in the layout that
+    kernel reads; the CPU keeps the JAX package's
+    tile-major bytes.  Returns a new parameter structure."""
     if isinstance(params, dict):
         return {k: quantize_params(v, policy, device, _path + (k,))
                 for k, v in params.items()}
@@ -80,7 +85,15 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     t = params if device is None else params.to(device)
     skip = any(str(k).startswith(s) for k in _path for s in _SKIP_KEYS)
     if not skip and t.dim() >= 2 and t.dtype == torch.bfloat16:
-        return C.maybe_quantize(t, policy)
+        w = C.maybe_quantize(t, policy)
+        if isinstance(w, PackedWeight) and t.device.type == "cuda":
+            try:
+                w = to_kernel_layout(w, "a8" if policy.int8_matmul
+                                     else "a16")
+            except ValueError as e:
+                raise ValueError(f"weight {'/'.join(map(str, _path))}: "
+                                 f"{e}") from e
+        return w
     return t
 
 

@@ -10,7 +10,9 @@ Tolerances:
 * GEMMs — kernel and plain version multiply the same bf16 weights (A16)
   or the same integers with exact s32 group partials (A8) and accumulate
   in f32, in different orders; after the bf16 output rounding they may
-  differ by one bf16 ulp: |Δ| ≤ 2^-7 · max|y|.
+  differ by one bf16 ulp: |Δ| ≤ 2^-7 · max|y|.  The kernels take the
+  weights in their fragment order (``to_kernel_layout``); a row's bits do
+  not depend on M (the K split is fixed by the weight's shape).
 * Attention — same rounding points, but the kernel sums its dots on the
   tensor cores and walks the tiles in eight splits (tile s in split
   s % 8) combined at the end, where the plain version walks them in one
@@ -39,7 +41,7 @@ import torch
 from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core import quantize as Q
-from repro_torch.core.packing import pack_weight
+from repro_torch.core.packing import pack_weight, to_kernel_layout
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ref
 from repro_torch.kernels.flashprefill import flash_prefill, tiles
@@ -263,10 +265,21 @@ GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
     (960, 960, 64, 96), (960, 320, 64, 64), (960, 2560, 64, 128),
     (2560, 960, 32, 96), (320, 320, 64, 64), (320, 640, 64, 128),
     (640, 320, 128, 64),
+    # recurrentgemma-2b's packed GEMMs: wq/wo/wx/wy/wa/wi, wk/wv, w1/w3, w2
+    (2560, 2560, 32, 128), (2560, 256, 32, 128), (2560, 7680, 32, 96),
+    (7680, 2560, 32, 128),
+    # whisper-tiny's: wq/wk/wv/wo (a K split of group-128 units), w1, w2
+    (384, 384, 128, 128), (384, 1536, 128, 96), (1536, 384, 32, 128),
 ]
+#: token counts: decode (1, 4), the kernels' token tiles of 8 / 16 / 32 /
+#: 128 (int8: 64) and their edges (16, 17, 37, 64), a full prefill chunk
+GEMM_MS = [1, 4, 16, 17, 37, 64, 128]
 
 
 def _gemm_inputs(shape, M, bits, dev):
+    """A packed weight in the JAX package's tile-major layout (what the
+    plain versions read here, so a wrong fragment permutation shows) and
+    x."""
     K, N, bk, bn = shape
     rng = np.random.default_rng(K + N + M + bits)
     w = torch.from_numpy(rng.standard_normal((K, N), np.float32)) / K ** 0.5
@@ -277,11 +290,11 @@ def _gemm_inputs(shape, M, bits, dev):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("M", [1, 4, 37, 128])
+@pytest.mark.parametrize("M", GEMM_MS)
 @pytest.mark.parametrize("shape", GEMM_SHAPES)
 def test_mpgemm_matches_plain(dev, shape, M, bits):
     pw, x = _gemm_inputs(shape, M, bits, dev)
-    y = mpgemm_a16(x, pw)
+    y = mpgemm_a16(x, to_kernel_layout(pw, "a16"))
     plain = ref.mpgemm_ref(x, pw)
     torch.cuda.synchronize()
     err = (y.float() - plain.float()).abs().max().item()
@@ -289,12 +302,12 @@ def test_mpgemm_matches_plain(dev, shape, M, bits):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("M", [1, 4, 37, 128])
+@pytest.mark.parametrize("M", GEMM_MS)
 @pytest.mark.parametrize("shape", GEMM_SHAPES)
 def test_mpgemm_int8_matches_plain(dev, shape, M, bits):
     pw, x = _gemm_inputs(shape, M, bits, dev)
     xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
-    y = mpgemm_int8(xq, xs, pw)
+    y = mpgemm_int8(xq, xs, to_kernel_layout(pw, "a8"))
     plain = ref.mpgemm_int8_ref(xq, xs, pw)
     torch.cuda.synchronize()
     err = (y.float() - plain.float()).abs().max().item()
@@ -302,20 +315,66 @@ def test_mpgemm_int8_matches_plain(dev, shape, M, bits):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-def test_gemms_independent_of_batch(dev, bits):
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_gemms_independent_of_batch(dev, shape, bits):
     """Row m of the output is the same bits whatever rows share the call
-    (no split-K in a varying order): what dense ≡ paged on the card needs
-    of a mixed batch."""
-    pw, x = _gemm_inputs(GEMM_SHAPES[0], 37, bits, dev)
+    (the K split and its combine order are fixed by the weight's shape,
+    whatever token tile M picks): M 4, 37 and 128 against M 1 and M 4,
+    for both kernels — what dense ≡ paged on the card needs of a mixed
+    batch."""
+    pw, x = _gemm_inputs(shape, 128, bits, dev)
     xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
-    assert torch.equal(mpgemm_a16(x, pw)[:4], mpgemm_a16(x[:4], pw))
-    assert torch.equal(mpgemm_int8(xq, xs, pw)[:4],
-                       mpgemm_int8(xq[:4], xs[:4], pw))
+    p16, p8 = to_kernel_layout(pw, "a16"), to_kernel_layout(pw, "a8")
+    runs = {"a16": lambda m: mpgemm_a16(x[:m], p16),
+            "int8": lambda m: mpgemm_int8(xq[:m], xs[:m], p8)}
+    for kern, run in runs.items():
+        few = {m: run(m) for m in (1, 4)}
+        for M in (4, 37, 128):
+            y = run(M)
+            for m, ym in few.items():
+                assert torch.equal(y[:m], ym), (kern, M, m)
+
+
+def test_tile_major_weight_rejected(dev):
+    """Each kernel takes only its own fragment layout: a tile-major weight,
+    or the other kernel's order, raises without launching (no silent
+    repack per call)."""
+    pw = pack_weight(torch.randn(64, 64, device=dev), bits=4, group=64,
+                     block_k=64, block_n=64)
+    x = torch.randn(4, 64, device=dev).to(torch.bfloat16)
+    xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+    before = (mpgemm_a16.launches, mpgemm_int8.launches)
+    for w16, w8 in ((pw, pw), (to_kernel_layout(pw, "a8"),
+                               to_kernel_layout(pw, "a16"))):
+        with pytest.raises(ValueError, match="fragment layout"):
+            mpgemm_a16(x, w16)
+        with pytest.raises(ValueError, match="fragment layout"):
+            mpgemm_int8(xq, xs, w8)
+    assert (mpgemm_a16.launches, mpgemm_int8.launches) == before
+    y = mpgemm_a16(x, to_kernel_layout(pw, "a16"))
+    plain = ref.mpgemm_ref(x, pw)
+    torch.cuda.synchronize()
+    err = (y.float() - plain.float()).abs().max().item()
+    assert err <= 2 ** -7 * plain.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("policy", ["w4a16kv8", "w4a8kv4"])
+def test_weight_without_fragment_layout_refused_at_load(dev, policy):
+    """A packed weight whose K is 32 times an odd number has no fragment
+    layout: the engine's load on the card names the weight and the K % 64
+    rule instead of keeping a copy no kernel takes."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.serving.engine import quantize_params
+    w = torch.randn(288, 256).to(torch.bfloat16)
+    with pytest.raises(ValueError, match=r"weight layers/wq: .*K % 64 == 0"):
+        quantize_params({"layers": {"wq": w}}, get_policy(policy),
+                        device=dev)
 
 
 def test_misaligned_input_rejected(dev):
-    pw = pack_weight(torch.randn(64, 64, device=dev), bits=4, group=64,
-                     block_k=64, block_n=64)
+    pw = to_kernel_layout(pack_weight(torch.randn(64, 64, device=dev),
+                                      bits=4, group=64, block_k=64,
+                                      block_n=64), "a16")
     buf = torch.zeros(4 * 64 + 1, device=dev, dtype=torch.bfloat16)
     x = buf[1:].view(4, 64)                   # 2-byte storage offset
     with pytest.raises(ValueError, match="misaligned"):
@@ -325,13 +384,14 @@ def test_misaligned_input_rejected(dev):
 def test_wrappers_count_launches(dev):
     pw = pack_weight(torch.randn(64, 64, device=dev), bits=4, group=64,
                      block_k=64, block_n=64)
+    p16, p8 = to_kernel_layout(pw, "a16"), to_kernel_layout(pw, "a8")
     x = torch.randn(4, 64, device=dev).to(torch.bfloat16)
     xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
     before = (mpgemm_a16.launches, mpgemm_int8.launches)
-    mpgemm_a16(x, pw)
-    mpgemm_a16(x.cpu(), pw.to("cpu"))          # plain version: not counted
-    mpgemm_int8(xq, xs, pw)
-    mpgemm_int8(xq.cpu(), xs.cpu(), pw.to("cpu"))
+    mpgemm_a16(x, p16)
+    mpgemm_a16(x.cpu(), p16.to("cpu"))         # plain version: not counted
+    mpgemm_int8(xq, xs, p8)
+    mpgemm_int8(xq.cpu(), xs.cpu(), p8.to("cpu"))
     assert (mpgemm_a16.launches, mpgemm_int8.launches) == \
         (before[0] + 1, before[1] + 1)
     layer, slab, q, posd, win, rep, nl, bs = _attn_inputs(

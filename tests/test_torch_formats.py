@@ -116,6 +116,59 @@ def test_pack_weight_bitwise(bk, bn):
         _np(JP.dequantize_packed(pj, jnp.float32)))
 
 
+def _pick_block_tiles():
+    """Every (bk, bn) ``pick_blocks`` gives a packed GEMM weight of
+    smollm-360m, recurrentgemma-2b and whisper-tiny (full widths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import pick_blocks
+    tiles = set()
+    for arch in ("smollm-360m", "recurrentgemma-2b", "whisper-tiny"):
+        c = get_config(arch)
+        d, hd = c.d_model, c.d_model // c.n_heads
+        for K, N in ((d, c.n_heads * hd), (d, c.n_kv_heads * hd),
+                     (c.n_heads * hd, d), (d, c.d_ff), (c.d_ff, d)):
+            tiles.add(pick_blocks(K, N))
+    return sorted(tiles)
+
+
+FRAG_TILES = _pick_block_tiles()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("bk,bn", FRAG_TILES)
+def test_kernel_layout_bitwise(bk, bn, bits):
+    """Both CUDA kernels' fragment orders are exact permutations: each
+    round-trips (tile-major → fragment order → values equal the JAX
+    package's ``unpack_weight`` and ``dequantize_packed`` bit for bit)."""
+    w = _bf16(np.random.default_rng(bk * bn + bits), (256, 2 * bn), 0.05)
+    pj = JP.pack_weight(jnp.asarray(w), bits=bits, group=bk, block_k=bk,
+                        block_n=bn)
+    pt = TP.pack_weight(torch.from_numpy(w), bits=bits, group=bk,
+                        block_k=bk, block_n=bn)
+    for kernel in ("a16", "a8"):
+        pf = TP.to_kernel_layout(pt, kernel)
+        assert pf.layout == f"frag_{kernel}" and tuple(pf.data.shape) == \
+            (2 * bn // 16, 256 // 64, 32, 4 * bits)
+        np.testing.assert_array_equal(_np(TP.unpack_weight(pf)),
+                                      _np(JP.unpack_weight(pj)))
+        np.testing.assert_array_equal(
+            _np(TP.dequantize_packed(pf, torch.float32)),
+            _np(JP.dequantize_packed(pj, jnp.float32)))
+
+
+@pytest.mark.parametrize("kernel", ["a16", "a8"])
+def test_kernel_layout_needs_k_multiple_of_64(kernel):
+    """A K of 32 times an odd number packs on the CPU at block_k 32 (as in
+    the JAX package), but has no fragment layout: the CUDA GEMMs read K
+    in 64-deep chunks, and the error says so."""
+    from repro_torch.models.common import maybe_quantize
+    w = torch.from_numpy(_bf16(np.random.default_rng(5), (288, 256), 0.05))
+    pt = maybe_quantize(w, TPR.get_policy("w4a16kv8"))
+    assert pt.layout == "tile" and pt.block_k == 32
+    with pytest.raises(ValueError, match=r"K % 64 == 0.*block_k 32"):
+        TP.to_kernel_layout(pt, kernel)
+
+
 @pytest.mark.parametrize("fmt", ["kv8", "kv4", "kvfp8", "kv16"])
 def test_quantize_kv_bitwise(fmt):
     x = _bf16(np.random.default_rng(3), (2, 5, 3, 64), 2.0)
