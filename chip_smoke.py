@@ -21,7 +21,10 @@ Phases, in order (any failure raises and exits nonzero):
    every launch; flash prefill is timed at every tile its wrapper can
    pick.  The dense and paged attention kernels must agree bit for bit,
    and a 32-token chunk's rows must be the bits of the same tokens fed
-   one at a time and of each slot served alone.
+   one at a time and of each slot served alone.  The same for the tiles
+   too large to stage whole, walked as sub-tiles (``SUB_TILES``: the
+   max_seq-500 slab tile, a 512-token pool block at kv16, 256-token tiles
+   at D 128).
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
@@ -47,7 +50,18 @@ Phases, in order (any failure raises and exits nonzero):
    smollm policy the dense and paged token streams must be identical.
    One request per w4a16kv8 serve is replayed teacher-forced and must
    follow its argmax.
-6. One JSON line describing each kernel, then the result line
+6. Paging serves, full-width smollm-360m w4a16kv8, counters zeroed and
+   read around each: a shared-prefix serve (``PREFIX_SERVE``) with prefix
+   caching off and on — identical streams, 96 cached tokens on every hit,
+   fewer fed tokens and a lower ``peak_live`` with caching on; a contended
+   serve (``GROWTH_SERVE``) under reservation, under block growth on a
+   pool too small for reservation-level concurrency, and under growth
+   with prefix caching — at least one preemption in each growth serve,
+   streams identical to reservation's; the dense slab at max_seq 500
+   (``DENSE_500_SERVE``: one 500-token tile, sub-tiled), every token the
+   teacher-forced argmax up to a near-tie.  Every paged serve ends with no
+   live block.
+7. One JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits nonzero with no result when there is no CUDA device or when the
@@ -95,6 +109,19 @@ FLASH_REL_TOL = 2 ** -6
 #: against other running maxima than the plain walk's single order)
 ATTN_REL_TOL = 2 ** -6
 KV_FORMATS = ("kv8", "kv4", "kvfp8", "kv16")
+#: attention tiles too large to stage whole in a block's 227 KB of shared
+#: memory, walked as sub-tiles: (format, B, Hkv, rep, D, tile, tiles per
+#: slot, T, first positions), cut into 64-token sub-tiles.  The
+#: max_seq-500 slab tile of smollm-360m (D 64 kv8: 7 x 64 + a ragged 52),
+#: two such tiles with a chunk crossing from the first into the second, a
+#: 512-token pool block at D 64 kv16, and 256-token tiles at D 128 kv8, 32
+#: heads on 8 KV heads; the pool's blocks are the slab's tiles, so dense ≡
+#: paged holds
+SUB_TILES = [("kv8", 4, 5, 3, 64, 500, 1, 1, [450, 130, 300, 20]),
+             ("kv8", 4, 5, 3, 64, 500, 1, 32, [400, 0, 256, 96]),
+             ("kv8", 4, 5, 3, 64, 500, 2, 32, [600, 0, 480, 96]),
+             ("kv16", 4, 5, 3, 64, 512, 2, 1, [900, 130, 511, 512]),
+             ("kv8", 4, 8, 4, 128, 256, 2, 1, [400, 130, 255, 256])]
 #: (policy, requests, prompt length, new tokens) of the serve phase
 SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
           ("w8a8kvfp8", 4, 32, 16), ("w8a16kv16", 4, 32, 16)]
@@ -107,6 +134,18 @@ SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
 #: 8 flash-prefill launches (8 attention blocks; 4 encoder + 4 decoder).
 ONE_SHOT_SERVES = [("recurrentgemma-2b", 512, 4, 128, 16, 200, 200),
                    ("whisper-tiny", 256, 4, 16, 16, 64, 32)]
+#: the paging serves, smollm-360m w4a16kv8 on the paged pool (4 slots,
+#: block 16, prefill_chunk 32): requests, shared prefix and distinct tail
+#: tokens, new tokens — caching off and on
+PREFIX_SERVE = (8, 96, 32, 16)
+#: the same, plus the pool's blocks for growth: each request grows from 4
+#: to 7 blocks, 4 running want 28 of the 20 (reservation holds 7 a
+#: request: 2 at a time); served by reservation on the default pool,
+#: growth, and growth with prefix caching
+GROWTH_SERVE = (8, 32, 32, 48, 20)
+#: the dense slab at max_seq 500 (block_size 16 does not divide it: one
+#: 500-token tile): requests, prompt tokens, new tokens, max_seq
+DENSE_500_SERVE = (4, 64, 16, 500)
 FLASH_PER_PREFILL = 8
 #: logits tolerance, relative to max |logit|: A8 policies re-quantize
 #: every GEMM input per token, which turns one-ulp differences of sum
@@ -245,9 +284,13 @@ def kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx):
     return pool, slab
 
 
-def attn_phase(dev, flush):
-    """Paged and dense-slab attention against their plain versions in
-    every KV format, at the serve shapes (S 256, block 16)."""
+def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
+              chunk_checks):
+    """One attention case: paged and dense-slab kernels against their
+    plain versions (``bs``-token tiles: the pool's blocks and the slab's
+    ``block_s``), dense ≡ paged bit for bit, each timed beside SDPA.  With
+    ``chunk_checks`` a chunk's rows must be the bits of its tokens fed one
+    at a time and of each slot served alone.  Appends to ``rows``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import paged_kvcache as PKV
@@ -258,95 +301,99 @@ def attn_phase(dev, flush):
     from repro_torch.kernels.paged_kvattn import paged_kvattn
     from repro_torch.kernels.ref import (NO_WINDOW, kvattn_ref,
                                          paged_kvattn_ref)
-    B, Hkv, rep, D, bs, bps = 4, 5, 3, 64, 16, 16
+    spec = get_policy(f"w4a16{fmt}").kv
     S = bps * bs
+    ctx = [p + T for p in pos]
+    pool, slab = kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx)
+    R = T * rep
+    # peaked: scores of std 4, so a few keys carry each row and a dropped
+    # tile or split moves the output by O(1)
+    q = (4 * torch.randn(B, Hkv, R, D, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    posd = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n_live = PKV.blocks_needed(max(ctx), bs)
+    pargs = (q, pool.k, pool.k_scale, pool.v, pool.v_scale,
+             pool.block_table, posd, NO_WINDOW, rep, n_live)
+    dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd,
+             NO_WINDOW, rep)
+    # yardstick: SDPA over the slab's live prefix, dequantized bf16
+    Sl = n_live * bs
+    kd, vd = (dequantize_kv(t[:, :Sl], sc[:, :Sl, :, None], spec)
+              .permute(0, 2, 1, 3).contiguous()
+              for t, sc in ((slab.k, slab.k_scale), (slab.v, slab.v_scale)))
+    qh = q.reshape(B, Hkv, T, rep, D).permute(0, 1, 3, 2, 4) \
+        .reshape(B, Hkv * rep, T, D).contiguous()
+    qpos = posd.long()[:, None] + torch.arange(T, device=dev)
+    mask = (torch.arange(Sl, device=dev)[None, None] <=
+            qpos[:, :, None])[:, None]
+    sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
+        qh, kd, vd, attn_mask=mask, enable_gqa=True)
+    check(torch.isfinite(sdpa().float()).all().item(), "SDPA not finite")
+    # bytes the data needs: each slot's live keys (stored K and V + two
+    # f32 scales), q and out, positions (+ the table rows)
+    rb = store_dim(D, spec) * spec.dtype.itemsize
+    keys = sum(ctx)
+    ops = sum(4 * D * Hkv * (p + r // rep + 1) for p in pos for r in range(R))
+    shape = (f"{fmt} B={B} Hkv={Hkv} rep={rep} D={D} T={T} R={R} bs={bs} "
+             f"n_live={n_live} S={S}")
+    outs = {}
+    for kern, fn, args, plain, extra in (
+            ("paged_kvattn", paged_kvattn, pargs + (spec,),
+             lambda: paged_kvattn_ref(*pargs), B * n_live * 4),
+            ("kvattn", kvattn, dargs + (bs, spec),
+             lambda: kvattn_ref(*dargs, bs), 0)):
+        out, ref = fn(*args), plain()
+        torch.cuda.synchronize()
+        check(torch.isfinite(out.float()).all().item(),
+              f"{kern} {shape} not finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = ATTN_REL_TOL * ref.float().abs().max().item()
+        check(err <= tol, f"{kern} {shape}: |Δ|={err} > {tol}")
+        outs[kern] = out
+        nbytes = keys * Hkv * (2 * rb + 8) + 2 * B * Hkv * R * D * 2 + \
+            B * 4 + extra
+        b, by = bound_ms(nbytes, ops)
+        rows[kern].append(dict(
+            shape=shape, max_abs_err=err, tol=tol,
+            ms=time_ms(lambda: fn(*args), flush),
+            plain_ms=time_ms(plain, flush),
+            library_ms=time_ms(sdpa, flush),
+            bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
+            ops_per_s=BF16_OPS_PER_S))
+    check(torch.equal(outs["kvattn"], outs["paged_kvattn"]),
+          f"dense and paged attention differ ({shape})")
+    if chunk_checks:
+        for t in (0, T // 2, T - 1):
+            qt = q[:, :, t * rep:(t + 1) * rep].contiguous()
+            one = kvattn(qt, *dargs[1:5], posd + t, NO_WINDOW, rep, bs, spec)
+            check(torch.equal(one, outs["kvattn"][:, :, t * rep:(t + 1) * rep]),
+                  f"kvattn {shape}: token {t} of a chunk differs from its "
+                  "T 1 row")
+        for b in range(B):
+            one = kvattn(q[b:b + 1].contiguous(), slab.k[b:b + 1],
+                         slab.k_scale[b:b + 1], slab.v[b:b + 1],
+                         slab.v_scale[b:b + 1], posd[b:b + 1], NO_WINDOW,
+                         rep, bs, spec)
+            check(torch.equal(one, outs["kvattn"][b:b + 1]),
+                  f"kvattn {shape}: slot {b} alone differs from its batch "
+                  "row")
+
+
+def attn_phase(dev, flush):
+    """Paged and dense-slab attention against their plain versions in
+    every KV format at the serve shapes (S 256, block 16), then the tiles
+    too large to stage whole, walked as sub-tiles (``SUB_TILES``)."""
+    import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     rows = {"paged_kvattn": [], "kvattn": []}
     for fmt in KV_FORMATS:
-        spec = get_policy(f"w4a16{fmt}").kv
         for T, pos in ((1, [95, 36, 70, 0]), (32, [32, 0, 64, 96])):
-            ctx = [p + T for p in pos]
-            pool, slab = kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx)
-            R = T * rep
-            # peaked: scores of std 4, so a few keys carry each row and a
-            # dropped tile or split moves the output by O(1)
-            q = (4 * torch.randn(B, Hkv, R, D, generator=gen, device=dev)).to(
-                torch.bfloat16)
-            posd = torch.tensor(pos, dtype=torch.int32, device=dev)
-            n_live = PKV.blocks_needed(max(ctx), bs)
-            pargs = (q, pool.k, pool.k_scale, pool.v, pool.v_scale,
-                     pool.block_table, posd, NO_WINDOW, rep, n_live)
-            dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd,
-                     NO_WINDOW, rep)
-            # yardstick: SDPA over the slab's live prefix, dequantized bf16
-            Sl = n_live * bs
-            kd, vd = (dequantize_kv(t[:, :Sl], sc[:, :Sl, :, None], spec)
-                      .permute(0, 2, 1, 3).contiguous()
-                      for t, sc in ((slab.k, slab.k_scale),
-                                    (slab.v, slab.v_scale)))
-            qh = q.reshape(B, Hkv, T, rep, D).permute(0, 1, 3, 2, 4) \
-                .reshape(B, Hkv * rep, T, D).contiguous()
-            qpos = posd.long()[:, None] + torch.arange(T, device=dev)
-            mask = (torch.arange(Sl, device=dev)[None, None] <=
-                    qpos[:, :, None])[:, None]
-            sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                qh, kd, vd, attn_mask=mask, enable_gqa=True)
-            check(torch.isfinite(sdpa().float()).all().item(),
-                  "SDPA not finite")
-            # bytes the data needs: each slot's live keys (stored K and V
-            # + two f32 scales), q and out, positions (+ the table rows)
-            rb = store_dim(D, spec) * spec.dtype.itemsize
-            keys = sum(ctx)
-            ops = sum(4 * D * Hkv * (p + r // rep + 1) for p in pos
-                      for r in range(R))
-            outs = {}
-            for kern, fn, args, plain, extra in (
-                    ("paged_kvattn", paged_kvattn, pargs + (spec,),
-                     lambda: paged_kvattn_ref(*pargs), B * n_live * 4),
-                    ("kvattn", kvattn, dargs + (bs, spec),
-                     lambda: kvattn_ref(*dargs, bs), 0)):
-                out, ref = fn(*args), plain()
-                torch.cuda.synchronize()
-                check(torch.isfinite(out.float()).all().item(),
-                      f"{kern} {fmt} not finite")
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = ATTN_REL_TOL * ref.float().abs().max().item()
-                check(err <= tol, f"{kern} {fmt} T={T}: |Δ|={err} > {tol}")
-                outs[kern] = out
-                nbytes = keys * Hkv * (2 * rb + 8) + \
-                    2 * B * Hkv * R * D * 2 + B * 4 + extra
-                b, by = bound_ms(nbytes, ops)
-                rows[kern].append(dict(
-                    shape=f"{fmt} B={B} Hkv={Hkv} rep={rep} D={D} T={T} "
-                          f"R={R} bs={bs} n_live={n_live} S={S}",
-                    max_abs_err=err, tol=tol,
-                    ms=time_ms(lambda: fn(*args), flush),
-                    plain_ms=time_ms(plain, flush),
-                    library_ms=time_ms(sdpa, flush),
-                    bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
-                    ops_per_s=BF16_OPS_PER_S))
-            check(torch.equal(outs["kvattn"], outs["paged_kvattn"]),
-                  f"dense and paged attention differ ({fmt}, T={T})")
-            if T > 1:
-                # a chunk's rows are the bits of its tokens fed one at a
-                # time, and of each slot served alone
-                for t in (0, T // 2, T - 1):
-                    qt = q[:, :, t * rep:(t + 1) * rep].contiguous()
-                    one = kvattn(qt, *dargs[1:5], posd + t, NO_WINDOW, rep,
-                                 bs, spec)
-                    check(torch.equal(one, outs["kvattn"][
-                        :, :, t * rep:(t + 1) * rep]),
-                        f"kvattn {fmt}: token {t} of a chunk differs from "
-                        "its T 1 row")
-                for b in range(B):
-                    one = kvattn(q[b:b + 1].contiguous(), slab.k[b:b + 1],
-                                 slab.k_scale[b:b + 1], slab.v[b:b + 1],
-                                 slab.v_scale[b:b + 1], posd[b:b + 1],
-                                 NO_WINDOW, rep, bs, spec)
-                    check(torch.equal(one, outs["kvattn"][b:b + 1]),
-                          f"kvattn {fmt}: slot {b} alone differs from its "
-                          "batch row")
+            attn_rows(dev, flush, gen, fmt, 4, 5, 3, 64, 16, 16, T, pos,
+                      rows, T > 1)
+    for fmt, B, Hkv, rep, D, bs, bps, T, pos in SUB_TILES:
+        attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos,
+                  rows, T > 1)
     return rows
 
 
@@ -447,14 +494,15 @@ def to_device(params, dev, policy):
 
 
 
-def new_cache(model, policy, kind, slots, dev):
-    """A fresh 256-token-per-slot cache of ``kind`` (paged: 16-token
-    blocks, slot b's table row mapping its own blocks in shuffled order)
-    and the decode_step keywords the engine passes with it."""
+def new_cache(model, policy, kind, slots, dev, max_seq=256, block_s=16):
+    """A fresh cache of ``kind`` (dense: ``max_seq`` tokens a slot walked
+    in ``block_s`` tiles; paged: 256 tokens a slot in 16-token blocks,
+    slot b's table row mapping its own blocks in shuffled order) and the
+    decode_step keywords the engine passes with it."""
     import torch
     if kind == "dense":
-        return model.init_cache(policy, slots, 256, dev), \
-            lambda p: dict(attn_block_s=16)
+        return model.init_cache(policy, slots, max_seq, dev), \
+            lambda p: dict(attn_block_s=block_s)
     cache = model.init_paged_cache(policy, slots, 16 * slots, 16, 16, dev)
     perm = torch.randperm(16 * slots, generator=torch.Generator()
                           .manual_seed(slots)).to(torch.int32)
@@ -624,76 +672,108 @@ def launch_counters():
             "flash_prefill": flash_prefill}
 
 
-def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
-    """Serve full-width smollm-360m once; check the kernels carried every
-    GEMM and attention call.  Adds the run's launches to ``totals``."""
-    import numpy as np
+def smollm_engine(dev, **kw):
+    """Full-width smollm-360m (seeded random weights) on the card: 4
+    slots, max_seq 256, block_size 16, prefill_chunk 32 unless ``kw``
+    says otherwise.  Returns the engine and its set-up seconds."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serving import (Engine, EngineConfig, SamplingParams,
-                                     percentile_stats)
-    cfg = get_config("smollm-360m")
+    from repro_torch.serving import Engine, EngineConfig
+    args = dict(model=get_config("smollm-360m"), n_slots=4, max_seq=256,
+                block_size=16, prefill_chunk=32, seed=0, device=dev)
+    args.update(kw)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = Engine(EngineConfig(model=cfg, policy=policy, cache_kind=kind,
-                              n_slots=4, max_seq=256, block_size=16,
-                              prefill_chunk=32, seed=0, device=dev))
+    eng = Engine(EngineConfig(**args))
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(1, cfg.vocab, (n_req, prompt_len)).tolist()
-    sp = SamplingParams(max_new_tokens=new_tokens)
-    eng.generate(prompts[:1], SamplingParams(max_new_tokens=2))   # warm-up
+    return eng, time.perf_counter() - t0
 
+
+def run_serve(eng, label, prompts, new_tokens, warm, totals):
+    """Serve ``prompts`` greedily through ``Engine.generate`` after a
+    warm-up request ``warm``; the launch counters are zeroed just before
+    and read just after.  Checks that every request produced its tokens,
+    that each GEMM went through the kernel the policy routes to (7 per
+    layer and step) and each attention call through the backend's kernel
+    (1 per layer and step), and that a paged engine holds no block at the
+    end.  Adds the run's launches to ``totals``; returns the run's numbers
+    and the finished outputs."""
+    import torch
+    from repro_torch.serving import SamplingParams, percentile_stats
+    eng.generate([warm], SamplingParams(max_new_tokens=2))
     counters = launch_counters()
     for f in counters.values():
         f.launches = 0
-    steps0 = eng.model_steps
+    steps0, fed0 = eng.model_steps, eng.fed_tokens
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, sp)
+    outs = eng.generate(prompts, SamplingParams(max_new_tokens=new_tokens))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     steps = eng.model_steps - steps0
     for k, n in launches.items():
         totals[k] += n
-    L = cfg.n_layers
-    gemm = "mpgemm_int8" if eng.policy.int8_matmul else "mpgemm_a16"
-    attn = "kvattn" if kind == "dense" else "paged_kvattn"
+    cfg, L = eng.model_cfg, eng.model_cfg.n_layers
+    n_req = len(prompts)
     check(len(outs) == n_req and all(
         len(o.output_token_ids) == new_tokens for o in outs),
-        f"{policy}/{kind}: not every request produced its tokens")
+        f"{label}: not every request produced its tokens")
     check(all(0 <= t < cfg.vocab for o in outs for t in o.output_token_ids),
-          f"{policy}/{kind}: token outside the vocabulary")
+          f"{label}: token outside the vocabulary")
+    gemm = "mpgemm_int8" if eng.policy.int8_matmul else "mpgemm_a16"
+    attn = "paged_kvattn" if eng.cache_kind == "paged" else "kvattn"
     want = {k: 0 for k in launches}
     want[gemm], want[attn] = 7 * L * steps, L * steps
-    check(launches == want, f"{policy}/{kind}: launches {launches} != "
-                            f"{want} (L={L}, steps={steps})")
-    if kind == "paged":
-        check(eng.allocator.live_count == 0, "KV blocks leaked")
-
-    res = dict(policy=policy, cache_kind=kind, requests=n_req,
-               prompt_len=prompt_len, new_tokens=new_tokens,
-               model_steps=steps, wall_s=wall,
-               tokens_per_s=n_req * new_tokens / wall,
+    check(launches == want, f"{label}: launches {launches} != {want} "
+                            f"(L={L}, steps={steps})")
+    if eng.allocator is not None:
+        check(eng.allocator.live_count == 0, f"{label}: KV blocks leaked")
+    res = dict(serve=label, policy=eng.policy.name,
+               cache_kind=eng.cache_kind, requests=n_req,
+               prompt_len=len(prompts[0]), new_tokens=new_tokens,
+               model_steps=steps, fed_tokens=eng.fed_tokens - fed0,
+               wall_s=wall, tokens_per_s=n_req * new_tokens / wall,
                ms_per_step=wall / steps * 1e3,
                ttft_p50_s=percentile_stats([o.ttft for o in outs])["p50"],
                latency_p50_s=percentile_stats([o.latency for o in outs])["p50"],
-               setup_s=setup_s, launches=launches,
-               kv_resident_bytes=eng.kv_resident_bytes())
+               launches=launches, kv_resident_bytes=eng.kv_resident_bytes())
+    return res, outs
+
+
+def teacher_forced_check(eng, kind, prompt, out_tokens, label, max_seq=256,
+                         block_s=16):
+    """Feed ``prompt`` + the served tokens through decode_step on the card
+    (32-token chunks, then one token at a time): each served token must be
+    the argmax of its logits up to a near-tie (``TOL``)."""
+    cache, kw = new_cache(eng.model, eng.policy, kind, 1, eng.device,
+                          max_seq, block_s)
+    n = len(prompt)
+    chunks = [32] * (n // 32) + [1] * (len(out_tokens) - 1)
+    tf = teacher_forced(eng.model, eng.params, eng.policy, cache, kw,
+                        prompt + out_tokens, chunks)
+    for lg, tok in zip(tf[n // 32 - 1:], out_tokens):
+        check(lg[tok].item() >= lg.max().item() - TOL * lg.abs().max().item(),
+              f"{label}: served token is not the teacher-forced argmax")
+
+
+def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
+    """Serve full-width smollm-360m once; check the kernels carried every
+    GEMM and attention call.  Adds the run's launches to ``totals``."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import SamplingParams
+    eng, setup_s = smollm_engine(dev, policy=policy, cache_kind=kind)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, eng.model_cfg.vocab,
+                           (n_req, prompt_len)).tolist()
+    res, outs = run_serve(eng, f"{policy}/{kind}", prompts, new_tokens,
+                          prompts[0], totals)
+    res["setup_s"] = setup_s
     if policy == "w4a16kv8":
         # request 0, teacher-forced on the card: each emitted token must
         # be the argmax of decode_step's logits up to a near-tie
-        stream = prompts[0] + outs[0].output_token_ids
-        cache, kw = new_cache(eng.model, eng.policy, kind, 1, dev)
-        chunks = [32] * (prompt_len // 32) + [1] * (new_tokens - 1)
-        tf = teacher_forced(eng.model, eng.params, eng.policy, cache, kw,
-                            stream, chunks)
-        for lg, tok in zip(tf[prompt_len // 32 - 1:],
-                           outs[0].output_token_ids):
-            check(lg[tok].item() >= lg.max().item() - TOL *
-                  lg.abs().max().item(),
-                  f"{kind}: served token is not the teacher-forced argmax")
+        teacher_forced_check(eng, kind, prompts[0], outs[0].output_token_ids,
+                             kind)
         res["profile"] = profile_window(eng, prompts[:4], SamplingParams(
             max_new_tokens=8))
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -701,6 +781,107 @@ def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
     del eng
     torch.cuda.empty_cache()
     return res, streams
+
+
+def paged_serve(dev, label, prompts, new_tokens, warm, totals, **kw):
+    """One full-width smollm-360m w4a16kv8 serve on the paged pool with
+    the engine options ``kw``; returns its numbers (with the per-request
+    prefix and preemption counters and the pool's high-water mark) and its
+    token streams."""
+    import torch
+    eng, setup_s = smollm_engine(dev, policy="w4a16kv8", cache_kind="paged",
+                                 **kw)
+    res, outs = run_serve(eng, label, prompts, new_tokens, warm, totals)
+    res.update(setup_s=setup_s, n_blocks=eng.n_blocks,
+               peak_live=eng.allocator.peak_live,
+               cached_tokens=[o.cached_tokens for o in outs],
+               num_preemptions=[o.num_preemptions for o in outs],
+               replay_iterations=[o.replay_iterations for o in outs],
+               recovery_time_s=[o.recovery_time for o in outs],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print("serve:", json.dumps(res))
+    del eng
+    torch.cuda.empty_cache()
+    return res, [o.output_token_ids for o in outs]
+
+
+def paging_phase(dev, totals):
+    """Prefix sharing, block growth with preemption, and the sub-tiled
+    dense tile, each served at full width (``PREFIX_SERVE``,
+    ``GROWTH_SERVE``, ``DENSE_500_SERVE``) with its streams checked."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    runs = []
+    vocab = get_config("smollm-360m").vocab
+    # shared prefix: caching off, then on; the warm-up request shares
+    # the prefix (not the distinct tail), so every counted request hits
+    n_req, shared, distinct, new = PREFIX_SERVE
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(1, vocab, shared).tolist()
+    prompts = [prefix + rng.integers(1, vocab, distinct).tolist()
+               for _ in range(n_req + 1)]
+    got = {}
+    for on in (False, True):
+        res, got[on] = paged_serve(dev, f"prefix caching {'on' if on else 'off'}",
+                                   prompts[1:], new, prompts[0], totals,
+                                   enable_prefix_caching=on)
+        runs.append(res)
+    off, on = runs[-2], runs[-1]
+    check(got[True] == got[False],
+          "prefix caching on and off served different streams")
+    check(off["cached_tokens"] == [0] * n_req, "caching off reported hits")
+    check(on["cached_tokens"] == [shared] * n_req,
+          f"prefix hits cached {on['cached_tokens']}, not {shared} each")
+    check(on["fed_tokens"] < off["fed_tokens"] and
+          on["peak_live"] < off["peak_live"],
+          "prefix caching staged no fewer tokens or blocks")
+
+    # contended growth: a pool too small for reservation-level
+    # concurrency, against the reservation engine on the default pool
+    n_req, shared, distinct, new, n_blocks = GROWTH_SERVE
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(1, vocab, shared).tolist()
+    prompts = [prefix + rng.integers(1, vocab, distinct).tolist()
+               for _ in range(n_req + 1)]
+    streams = {}
+    for label, kw in (("reservation", {}),
+                      ("growth", dict(enable_block_growth=True,
+                                      n_blocks=n_blocks)),
+                      ("growth + prefix caching",
+                       dict(enable_block_growth=True, n_blocks=n_blocks,
+                            enable_prefix_caching=True))):
+        res, streams[label] = paged_serve(dev, label, prompts[1:], new,
+                                          prompts[0], totals, **kw)
+        runs.append(res)
+        if label != "reservation":
+            check(sum(res["num_preemptions"]) > 0,
+                  f"{label}: no request was preempted: the serve proves "
+                  "nothing")
+            check(streams[label] == streams["reservation"],
+                  f"{label}: streams differ from the reservation engine's")
+    check(sum(runs[-1]["cached_tokens"]) > 0,
+          "growth + prefix caching: no prefix hit")
+
+    # dense slab at max_seq 500: one 500-token tile, walked as sub-tiles
+    n_req, plen, new, max_seq = DENSE_500_SERVE
+    eng, setup_s = smollm_engine(dev, policy="w4a16kv8", max_seq=max_seq)
+    check(eng.attn_block_s == max_seq, "max_seq 500 is not one tile")
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(1, vocab, (n_req + 1, plen)).tolist()
+    res, outs = run_serve(eng, f"dense max_seq {max_seq}", prompts[1:], new,
+                          prompts[0], totals)
+    for i in range(n_req):
+        teacher_forced_check(eng, "dense", prompts[1 + i],
+                             outs[i].output_token_ids, res["serve"],
+                             max_seq=max_seq, block_s=max_seq)
+    res.update(setup_s=setup_s, attn_block_s=eng.attn_block_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print("serve:", json.dumps(res))
+    runs.append(res)
+    del eng
+    torch.cuda.empty_cache()
+    return runs
 
 
 def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
@@ -795,6 +976,7 @@ def serve_phase(dev):
         res = serve_one_shot(dev, *serve, totals)
         runs.append(res)
         print("serve:", json.dumps(res))
+    runs += paging_phase(dev, totals)
     for k, n in totals.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
     return runs, totals
@@ -803,13 +985,14 @@ def serve_phase(dev):
 def ptxas_report(log):
     """(kernel<template ints>, registers, spill-store bytes) of every entry
     function in an ``nvcc -Xptxas -v`` log (kernels are templated on the
-    KV format code and the head dim, or on GEMM tile constants)."""
+    KV format code, the head dim and whether it walks sub-tiles, or on
+    GEMM tile constants)."""
     out, name, spill = [], "?", 0
     for line in log.splitlines():
         m = re.search(r"entry function '_Z\w*?\d+([A-Za-z]\w*?_kernel)I"
                       r"(\w*?)EEv", line)
         if m:
-            args = re.findall(r"(?:Li|E)(\d+)", m.group(2))
+            args = re.findall(r"(?:Li|Lb|E)(\d+)", m.group(2))
             # anonymous-namespace names carry a file tag ending in digits
             name = f"{re.sub(r'^.*\d', '', m.group(1))}<{', '.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", line)

@@ -1,7 +1,10 @@
 """Paged quantized KV cache: block-pool storage + per-slot block tables.
 
-Port of the parts of ``repro.core.paged_kvcache`` the reservation engine
-uses.  Layout differences from the JAX package, all deliberate:
+Port of ``repro.core.paged_kvcache`` for the kernel engines: the pool, the
+refcounted allocator with its FREE / LIVE / CACHED lifecycle, the
+content-addressed :class:`PrefixIndex` and the copy-on-write
+:func:`copy_block` of prefix sharing.  Layout differences from the JAX
+package, all deliberate:
 
 * **One stacked pool.**  ``k``/``v`` are ``(L, n_blocks, block_size, H,
   Dstore)`` and the scales ``(L, n_blocks, block_size, H)`` f32 (the JAX
@@ -15,15 +18,19 @@ uses.  Layout differences from the JAX package, all deliberate:
   (JAX arrays are immutable; here the pool is the engine's resident state).
 * No advisory ``length`` counter: the engine's host-side positions are the
   frontier, and attention masks by position.
+* :func:`copy_block` copies in place, over every layer of the stack.
 
-``PrefixIndex``, ``copy_block``, ``gather_view`` and the allocator's
-CACHED/shared states come with prefix sharing (ROADMAP queue 1 item 3).
+``gather_view`` / ``live_ctx`` (the gathered-view attention opt-out) come
+with ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import hashlib
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .kvcache import scatter_rows, store_dim
@@ -84,27 +91,52 @@ class OutOfBlocksError(RuntimeError):
 class BlockAllocator:
     """Host-side refcounted free-list allocator over ``n_blocks`` blocks.
 
-    The reservation engine's subset of the JAX allocator: blocks are FREE
-    or LIVE (refcount >= 1).  Same invariants — a block is never handed out
-    twice while LIVE, ``free`` rejects double frees, ``alloc`` raises
-    :class:`OutOfBlocksError` rather than over-commit — and the same
-    hand-out order (lowest block id first).
+    Every pool block is in exactly one of three states:
+
+    * **FREE** — on the free list, content meaningless.
+    * **LIVE** — refcount >= 1: mapped into one or more slots' block
+      tables.  ``alloc`` creates a LIVE block with one reference;
+      ``share`` takes another (prefix sharing maps one physical block into
+      several tables); ``free`` drops one.
+    * **CACHED** — refcount 0 but retained: the block was marked cacheable
+      (its content is published in a :class:`PrefixIndex`), so the last
+      ``free`` parked it on an LRU list instead of the free list.
+      ``share`` revives it (a prefix hit); ``alloc`` evicts from the LRU
+      head when the free list runs dry, calling ``on_evict`` so the index
+      drops the dead entry.
+
+    The JAX allocator's invariants and hand-out order, step for step: a
+    block is never handed out twice while LIVE or CACHED, ``free`` rejects
+    double frees, ``alloc`` raises :class:`OutOfBlocksError` rather than
+    over-commit (taking nothing), eviction touches only CACHED blocks, and
+    the free list hands out the lowest block id first.
     """
 
-    def __init__(self, n_blocks: int):
+    def __init__(self, n_blocks: int,
+                 on_evict: Optional[Callable[[int], None]] = None):
+        """An all-free pool; ``on_evict(block)`` is called when a CACHED
+        block is evicted to satisfy an ``alloc``."""
         self.n_blocks = int(n_blocks)
+        self.on_evict = on_evict
         self.reset()
 
     def reset(self) -> None:
-        """Return every block to the FREE state."""
+        """Return every block to the FREE state and clear all refcounts."""
         self._free: List[int] = list(range(self.n_blocks - 1, -1, -1))
         self._ref: Dict[int, int] = {}
+        self._cacheable: set = set()
+        self._cached: "OrderedDict[int, None]" = OrderedDict()
         self._peak_live: int = 0
 
     @property
     def free_count(self) -> int:
-        """Blocks on the free list."""
+        """Strictly free blocks (CACHED ones excluded)."""
         return len(self._free)
+
+    @property
+    def cached_count(self) -> int:
+        """Refcount-0 blocks retained for prefix reuse (evictable)."""
+        return len(self._cached)
 
     @property
     def live_count(self) -> int:
@@ -118,38 +150,148 @@ class BlockAllocator:
 
     @property
     def available(self) -> int:
-        """Blocks an ``alloc`` could hand out."""
-        return len(self._free)
+        """Blocks an ``alloc`` could hand out: FREE plus evictable."""
+        return len(self._free) + len(self._cached)
 
     def can_alloc(self, n: int) -> bool:
-        """True when ``alloc(n)`` would succeed."""
+        """True when ``alloc(n)`` would succeed (possibly by eviction)."""
         return n <= self.available
 
     def refcount(self, block: int) -> int:
-        """Current reference count of ``block`` (0 when free)."""
+        """Current reference count of ``block`` (0 when FREE or CACHED)."""
         return self._ref.get(block, 0)
 
     def alloc(self, n: int) -> List[int]:
-        """Hand out ``n`` private blocks, each at refcount 1."""
+        """Hand out ``n`` private blocks, each at refcount 1: the free list
+        first, then the least recently used CACHED blocks (``on_evict``
+        called for each)."""
         if n > self.available:
             raise OutOfBlocksError(
-                f"requested {n} blocks, {len(self._free)} free of "
-                f"{self.n_blocks}")
-        blocks = [self._free.pop() for _ in range(n)]
-        for b in blocks:
+                f"requested {n} blocks, {len(self._free)} free + "
+                f"{len(self._cached)} cached of {self.n_blocks}")
+        blocks = []
+        for _ in range(n):
+            if self._free:
+                b = self._free.pop()
+            else:
+                b, _ = self._cached.popitem(last=False)     # LRU eviction
+                self._cacheable.discard(b)
+                if self.on_evict is not None:
+                    self.on_evict(b)
             self._ref[b] = 1
+            blocks.append(b)
         self._peak_live = max(self._peak_live, len(self._ref))
         return blocks
 
+    def share(self, block: int) -> None:
+        """One more reference on a LIVE block, or revive a CACHED block to
+        LIVE (refcount 1).  Raises ``ValueError`` for a FREE block."""
+        if block in self._ref:
+            self._ref[block] += 1
+        elif block in self._cached:
+            del self._cached[block]
+            self._ref[block] = 1
+            self._peak_live = max(self._peak_live, len(self._ref))
+        else:
+            raise ValueError(
+                f"block {block} is neither live nor cached (share of a "
+                "free block?)")
+
+    def set_cacheable(self, block: int) -> None:
+        """Mark a LIVE block prefix-cacheable: at refcount 0 it parks on
+        the CACHED LRU instead of the free list."""
+        if block not in self._ref:
+            raise ValueError(f"block {block} is not live")
+        self._cacheable.add(block)
+
     def free(self, blocks: Sequence[int]) -> None:
-        """Drop one reference per block; refcount-0 blocks return FREE."""
+        """Drop one reference per block; at refcount 0 a cacheable block
+        parks on the CACHED LRU (most recently used end), any other
+        returns FREE.  Rejects blocks that are not LIVE (double free)."""
         for b in blocks:
             if b not in self._ref:
                 raise ValueError(f"block {b} is not allocated (double free?)")
             self._ref[b] -= 1
             if self._ref[b] == 0:
                 del self._ref[b]
-                self._free.append(b)
+                if b in self._cacheable:
+                    self._cached[b] = None
+                else:
+                    self._free.append(b)
+
+
+class PrefixIndex:
+    """Content-addressed index of immutable, block-aligned prefix KV.
+
+    Maps the chain hash of ``(salt, token ids of blocks 0..j)`` to the pool
+    block holding block ``j``'s KV.  Block ``j``'s hash folds in block
+    ``j - 1``'s, so an entry identifies the whole prefix; matching walks the
+    chain and stops at the first miss.  The hash is the JAX package's, byte
+    for byte: SHA-256 chained from ``sha256(salt)``, each block's token ids
+    as little-endian int64.
+
+    ``salt`` binds what besides the token ids fixes a block's bytes (the KV
+    format, the layer set and head geometry a pool block spans).  The
+    index holds host-side ids only; the allocator owns block lifetime, and
+    :meth:`drop_block` is its ``on_evict`` callback.
+    """
+
+    def __init__(self, block_size: int, salt: str = ""):
+        """Index full blocks of ``block_size`` tokens under ``salt``."""
+        self.block_size = int(block_size)
+        self._salt = hashlib.sha256(salt.encode()).digest()
+        self._by_hash: Dict[bytes, int] = {}
+        self._by_block: Dict[int, bytes] = {}
+
+    def __len__(self) -> int:
+        """Number of indexed blocks."""
+        return len(self._by_hash)
+
+    def chain_hashes(self, tokens: Sequence[int]) -> List[bytes]:
+        """Chain hash of every full block-aligned prefix of ``tokens``:
+        entry ``j`` keys tokens ``[0, (j + 1) * block_size)``."""
+        bs = self.block_size
+        out, h = [], self._salt
+        for j in range(len(tokens) // bs):
+            m = hashlib.sha256(h)
+            m.update(np.asarray(tokens[j * bs:(j + 1) * bs],
+                                "<i8").tobytes())
+            h = m.digest()
+            out.append(h)
+        return out
+
+    def match(self, tokens: Sequence[int]) -> List[int]:
+        """Pool blocks of the longest indexed chain covering a
+        block-aligned prefix of ``tokens``, in logical order (possibly
+        empty).  Refcounts are untouched: callers pin with ``share``."""
+        return self.match_chain(self.chain_hashes(tokens))
+
+    def match_chain(self, hashes: Sequence[bytes]) -> List[int]:
+        """:meth:`match` over precomputed :meth:`chain_hashes`."""
+        blocks = []
+        for h in hashes:
+            b = self._by_hash.get(h)
+            if b is None:
+                break
+            blocks.append(b)
+        return blocks
+
+    def register(self, chain_hash: bytes, block: int) -> bool:
+        """Publish ``block`` as the holder of ``chain_hash``'s KV.  False
+        (a no-op) when the hash is already served — first writer wins, the
+        duplicate stays private — or the block already serves a hash."""
+        if chain_hash in self._by_hash or block in self._by_block:
+            return False
+        self._by_hash[chain_hash] = block
+        self._by_block[block] = chain_hash
+        return True
+
+    def drop_block(self, block: int) -> None:
+        """Forget ``block`` (the allocator's eviction callback);
+        idempotent."""
+        h = self._by_block.pop(block, None)
+        if h is not None:
+            del self._by_hash[h]
 
 
 def blocks_needed(n_tokens: int, block_size: int) -> int:
@@ -235,3 +377,21 @@ def append_paged(cache: PagedKVCache, k_new: torch.Tensor,
     scatter_rows(cache, k_new, v_new, spec, *rows)
     return cache
 
+
+
+def copy_block(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
+    """Copy pool block ``src``'s K/V bytes and both scales to ``dst``, in
+    place, on every layer of a stacked cache (or one per-layer view).
+
+    The device half of copy-on-write: a slot that would append into a
+    shared block gets a private ``dst`` holding the shared block's
+    already-quantized bytes — no requantization, so the copy is bitwise a
+    cold prefill's.  Tables are untouched.  Plain tensor indexing, as the
+    JAX package's is XLA outside any kernel."""
+    for t, axis in ((cache.k, -4), (cache.v, -4), (cache.k_scale, -3),
+                    (cache.v_scale, -3)):
+        if t.dtype in (torch.float8_e5m2, torch.float8_e4m3fn):
+            t = t.view(torch.uint8)
+        ax = t.dim() + axis
+        t.select(ax, int(dst)).copy_(t.select(ax, int(src)))
+    return cache

@@ -42,6 +42,16 @@
 //   * Asynchronous copies.  The stored K/V bytes and scales come through a
 //     two-stage cp.async ring: tile i + 8's bytes are in flight while tile
 //     i is dequantized and multiplied.
+//   * Sub-tiles.  A bs-token tile whose staging needs more than the 227 KB
+//     a block may use is walked as sub-tiles of sub_rows(D, ROW_BYTES, bs)
+//     = 64 tokens (one softmax slice; the last one of a tile ragged), so
+//     a large tile spreads over all eight splits; a sub-tile never
+//     straddles a tile, so never a pool block.  The walk, the frontier
+//     skip, the ring and the split (sub-tile u -> u % 8) then run in
+//     sub-tile units.  The cut is a fixed function of (D, format, bs), so
+//     a row's bits still depend on its frontier and bs alone.  The kernel
+//     is instantiated twice (SUB): a tile that fits runs the whole-tile
+//     walk, its own single sub-tile with the unit arithmetic folded away.
 // Every thread of the block calls decode_rows; it synchronises internally
 // and all blocks of a cluster reach both cluster barriers.
 #pragma once
@@ -90,30 +100,31 @@ __device__ __forceinline__ float load_elem(const uint8_t* row, int c) {
 
 constexpr int ROW_TILE = 64;       // query rows per block: 4 warps x 16
 constexpr int THREADS = 128;       // threads per block
-constexpr int SPLITS = 8;          // blocks per cluster; tile s -> s % 8
+constexpr int SPLITS = 8;          // blocks per cluster; sub-tile u -> u % 8
 constexpr int STAGES = 2;          // cp.async ring depth
 constexpr int KSL = 64;            // keys per online-softmax update
 constexpr int PAD = 8;             // bf16 padding per shared-memory row
 constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
-constexpr int ERR_SMEM = -1;       // launch refused: the tile needs more
+constexpr int ERR_SMEM = -1;       // launch refused: not even 16 tokens fit
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
 }
 
 // Shared-memory layout for D-wide heads stored in `rb` bytes per token
-// row and bs-token tiles: a STAGES-deep ring of stored tiles (K rows, V
-// rows, K scales, V scales), the dequantized bf16 K and V (bs rounded up to
-// 16 rows, the padding rows zero) and the Q tile, rows padded by PAD.
-// After the walk the partial (m, l, acc) of the 64 rows alias offset 0.
+// row and sub-token (sub-)tiles: a STAGES-deep ring of stored sub-tiles (K
+// rows, V rows, K scales, V scales), the dequantized bf16 K and V (sub
+// rounded up to 16 rows, the padding rows zero) and the Q tile, rows padded
+// by PAD.  After the walk the partial (m, l, acc) of the 64 rows alias
+// offset 0.
 struct Smem {
   size_t stage, kd, vd, q, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int D, int rb, int bs) {
-  const size_t n16 = size_t(bs + 15) / 16 * 16;
+__host__ __device__ inline Smem smem_layout(int D, int rb, int sub) {
+  const size_t n16 = size_t(sub + 15) / 16 * 16;
   Smem o;
-  o.stage = align16(2 * size_t(bs) * rb + 2 * sizeof(float) * bs);
+  o.stage = align16(2 * size_t(sub) * rb + 2 * sizeof(float) * sub);
   o.kd = STAGES * o.stage;
   o.vd = o.kd + align16(n16 * (D + PAD) * sizeof(bf16));
   o.q = o.vd + align16(n16 * (D + PAD) * sizeof(bf16));
@@ -123,16 +134,29 @@ __host__ __device__ inline Smem smem_layout(int D, int rb, int bs) {
   return o;
 }
 
+// Tokens per sub-tile of a bs-token tile: bs when its layout fits in
+// MAX_SMEM; else the largest of 64, 48, 32, 16 that fits (the last
+// sub-tile of a tile is ragged), 0 when none does.  Every format at D <=
+// 128 fits 64: e.g. the 500-token tile at D 64 kv8 is 7 x 64 + 52.
+__host__ __device__ inline int sub_rows(int D, int rb, int bs) {
+  if (smem_layout(D, rb, bs).total <= size_t(MAX_SMEM)) return bs;
+  for (int sub = KSL; sub >= 16; sub -= 16)
+    if (smem_layout(D, rb, sub).total <= size_t(MAX_SMEM)) return sub;
+  return 0;
+}
+
 // Block (c, h, z) of the grid: query rows [row0, row0 + 64) of slot b =
 // z / ceil(R / 64), kv-head h, split c, against the KV tiles s < n_tiles of
 // bs tokens.  Tile s sits at logical positions s * bs + j and at flat
 // token rows tile_tok0(b, s) + j of the store k/v (tokens, Hkv, ROW_BYTES),
 // scales (tokens, Hkv): a dense slab (B * S tokens) and a paged pool
 // (n_blocks * bs tokens) flatten alike, so the two kernels differ only in
-// tile_tok0 and n_tiles.  Rows are token-major (r = t * rep + g): row r's
-// frontier is pos[b] + r / rep.  Stored rows are copied as 16-byte words
-// (ROW_BYTES is a multiple of 16 for every format at D in {32, 64, 128}).
-template <Fmt F, int D, class TileTok>
+// tile_tok0 and n_tiles.  With SUB the walk visits the tiles' sub-tiles
+// (sub_rows): sub-tile u is tokens [j0, j0 + len) of tile u / nsub, j0 =
+// (u % nsub) * sub; without it (the tile fits) u is the tile itself.  Rows are token-major (r = t * rep + g): row r's frontier is pos[b]
+// + r / rep.  Stored rows are copied as 16-byte words (ROW_BYTES is a
+// multiple of 16 for every format at D in {32, 64, 128}).
+template <Fmt F, int D, bool SUB, class TileTok>
 __device__ void decode_rows(const bf16* __restrict__ q,
                             const uint8_t* __restrict__ k,
                             const float* __restrict__ k_scale,
@@ -148,8 +172,9 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   constexpr int NT = D / 8;              // n8 tiles of an output row
   constexpr int NJ = KSL / 8;            // n8 score tiles of a slice
   extern __shared__ __align__(16) unsigned char smem[];
-  const Smem L = smem_layout(D, RB, bs);
-  const int n16 = (bs + 15) / 16 * 16;
+  const int sub = SUB ? sub_rows(D, RB, bs) : bs;   // > 0: launch_rows
+  const int nsub = SUB ? (bs + sub - 1) / sub : 1;    // sub-tiles a tile
+  const Smem L = smem_layout(D, RB, sub);
   bf16* kd = reinterpret_cast<bf16*>(smem + L.kd);
   bf16* vd = reinterpret_cast<bf16*>(smem + L.vd);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
@@ -165,26 +190,31 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   const size_t q_off = (size_t(b) * Hkv + h) * R + row0;   // in rows
   const int p0 = pos[b];
 
-  // tiles that can hold a kept key of rows [row0, row0 + rows), and the
-  // first of them that belongs to split c
+  // sub-tiles that can hold a kept key of rows [row0, row0 + rows), and
+  // the first of them that belongs to split c
   const int f_lo = p0 + row0 / rep, f_hi = p0 + (row0 + rows - 1) / rep;
-  const int s_lo = max(0, f_lo - window + 1) / bs;
-  const int s_hi = min(n_tiles - 1, f_hi / bs);
-  const int s_first = s_lo + ((c - s_lo % SPLITS) + SPLITS) % SPLITS;
+  auto unit_of = [&](int key) {
+    return SUB ? key / bs * nsub + key % bs / sub : key / bs;
+  };
+  const int u_lo = unit_of(max(0, f_lo - window + 1));
+  const int u_hi = min(n_tiles * nsub - 1, unit_of(f_hi));
+  const int u_first = u_lo + ((c - u_lo % SPLITS) + SPLITS) % SPLITS;
 
-  auto load_tile = [&](int s, int stage) {
+  auto load_tile = [&](int u, int stage) {
     unsigned char* base = smem + stage * L.stage;
-    float* ks = reinterpret_cast<float*>(base + 2 * bs * RB);
-    const size_t tok0 = tile_tok0(b, s);
-    for (int i = threadIdx.x; i < bs * VEC; i += THREADS) {
+    float* ks = reinterpret_cast<float*>(base + 2 * sub * RB);
+    const int j0 = SUB ? u % nsub * sub : 0;
+    const int len = SUB ? min(sub, bs - j0) : bs;
+    const size_t tok0 = tile_tok0(b, SUB ? u / nsub : u) + j0;
+    for (int i = threadIdx.x; i < len * VEC; i += THREADS) {
       const int j = i / VEC, w = i % VEC;
       const size_t off = ((tok0 + j) * Hkv + h) * RB + w * 16;
       ptx::cp_async16(base + i * 16, k + off);
-      ptx::cp_async16(base + bs * RB + i * 16, v + off);
+      ptx::cp_async16(base + sub * RB + i * 16, v + off);
     }
-    for (int j = threadIdx.x; j < bs; j += THREADS) {
+    for (int j = threadIdx.x; j < len; j += THREADS) {
       ptx::cp_async4(ks + j, k_scale + (tok0 + j) * Hkv + h);
-      ptx::cp_async4(ks + bs + j, v_scale + (tok0 + j) * Hkv + h);
+      ptx::cp_async4(ks + sub + j, v_scale + (tok0 + j) * Hkv + h);
     }
   };
 
@@ -196,12 +226,13 @@ __device__ void decode_rows(const bf16* __restrict__ q,
                     ok ? 16 : 0);
   }
   ptx::cp_commit();
-  if (s_first <= s_hi) load_tile(s_first, 0);
+  if (u_first <= u_hi) load_tile(u_first, 0);
   ptx::cp_commit();
   const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int i = threadIdx.x; i < (n16 - bs) * LD; i += THREADS) {
-    kd[bs * LD + i] = zero;                // padding keys: zero and masked
-    vd[bs * LD + i] = zero;
+  const int n16 = (sub + 15) / 16 * 16;
+  for (int i = threadIdx.x; i < (n16 - sub) * LD; i += THREADS) {
+    kd[sub * LD + i] = zero;               // padding keys: zero and masked
+    vd[sub * LD + i] = zero;
   }
   ptx::cp_wait<1>();                       // Q has arrived
   __syncthreads();
@@ -226,27 +257,36 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
   int stage = 0;
-  for (int s = s_first; s <= s_hi; s += SPLITS) {
-    if (s + SPLITS <= s_hi) load_tile(s + SPLITS, stage ^ 1);
+  for (int u = u_first; u <= u_hi; u += SPLITS) {
+    if (u + SPLITS <= u_hi) load_tile(u + SPLITS, stage ^ 1);
     ptx::cp_commit();
-    ptx::cp_wait<1>();                     // tile s has arrived
+    ptx::cp_wait<1>();                     // sub-tile u has arrived
     __syncthreads();                       // ... for every thread; kd/vd free
+
+    // tokens [j0, j0 + len) of tile u / nsub; a ragged last sub-tile's
+    // rows [len, len16) are zeroed here (a full one's were zeroed above)
+    const int j0 = SUB ? u % nsub * sub : 0;
+    const int len = SUB ? min(sub, bs - j0) : bs;
+    const int len16 = len == sub ? n16 : (len + 15) / 16 * 16;
+    const int dq_rows = len == sub ? len : len16;
 
     // _dequant_tile: bf16(float(q) * scale), 8 elements a thread-step
     const unsigned char* base = smem + stage * L.stage;
-    const float* ks = reinterpret_cast<const float*>(base + 2 * bs * RB);
-    for (int i = threadIdx.x; i < bs * (D / 8); i += THREADS) {
+    const float* ks = reinterpret_cast<const float*>(base + 2 * sub * RB);
+    for (int i = threadIdx.x; i < dq_rows * (D / 8); i += THREADS) {
       const int j = i / (D / 8), c0 = (i % (D / 8)) * 8;
-      const uint8_t* kr = base + j * RB;
-      const uint8_t* vr = base + bs * RB + j * RB;
-      const float sk = ks[j], sv = ks[bs + j];
-      uint32_t kw[4], vw[4];
+      uint32_t kw[4] = {0u, 0u, 0u, 0u}, vw[4] = {0u, 0u, 0u, 0u};
+      if (!SUB || j < len) {
+        const uint8_t* kr = base + j * RB;
+        const uint8_t* vr = base + sub * RB + j * RB;
+        const float sk = ks[j], sv = ks[sub + j];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        kw[e] = ptx::pack_bf16(load_elem<F>(kr, c0 + 2 * e) * sk,
-                               load_elem<F>(kr, c0 + 2 * e + 1) * sk);
-        vw[e] = ptx::pack_bf16(load_elem<F>(vr, c0 + 2 * e) * sv,
-                               load_elem<F>(vr, c0 + 2 * e + 1) * sv);
+        for (int e = 0; e < 4; ++e) {
+          kw[e] = ptx::pack_bf16(load_elem<F>(kr, c0 + 2 * e) * sk,
+                                 load_elem<F>(kr, c0 + 2 * e + 1) * sk);
+          vw[e] = ptx::pack_bf16(load_elem<F>(vr, c0 + 2 * e) * sv,
+                                 load_elem<F>(vr, c0 + 2 * e + 1) * sv);
+        }
       }
       *reinterpret_cast<uint4*>(kd + j * LD + c0) =
           make_uint4(kw[0], kw[1], kw[2], kw[3]);
@@ -256,8 +296,8 @@ __device__ void decode_rows(const bf16* __restrict__ q,
     __syncthreads();
 
     if (active) {
-      for (int k0 = 0; k0 < n16; k0 += KSL) {
-        const int nk = min(KSL, n16 - k0) / 16;     // k16 steps of the slice
+      for (int k0 = 0; k0 < len16; k0 += KSL) {
+        const int nk = min(KSL, len16 - k0) / 16;   // k16 steps of the slice
         float sc[NJ][4];
 #pragma unroll
         for (int j = 0; j < NJ; ++j)
@@ -273,14 +313,14 @@ __device__ void decode_rows(const bf16* __restrict__ q,
             ptx::mma_bf16(sc[2 * j], qf[kk], bf);
             ptx::mma_bf16(sc[2 * j + 1], qf[kk], bf + 2);
           }
-        const int kbase = s * bs + k0;               // logical key of column 0
+        const int kbase = (SUB ? u / nsub : u) * bs + j0 + k0;   // column 0
         ptx::softmax_update<NJ, NT>(
             sc, inv_sqrt_d,
             [&](int j, int i) {
               const int col = k0 + 8 * j + 2 * t + (i & 1);
               const int kpos = kbase + 8 * j + 2 * t + (i & 1);
               const int qp = i < 2 ? qa : qb;
-              return col < bs && kpos <= qp && kpos > qp - window;
+              return col < len && kpos <= qp && kpos > qp - window;
             },
             m, l, acc);
         ptx::pv_update<NJ, NT>(sc, vd + k0 * LD, LD, lane, nk, acc);
@@ -334,16 +374,19 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   cluster.sync();                          // partials read by every block
 }
 
-// Launch `kern` on a (SPLITS, Hkv, B * ceil(R / ROW_TILE)) grid in
-// clusters of SPLITS blocks along x, with the shared memory of (D,
-// ROW_BYTES, bs).  Returns ERR_SMEM when that exceeds what a block may
-// use, else the CUDA error of the launch (0 on success; a refused cluster
-// launch returns its error).
+// Launch `whole` (a bs-token tile fits) or `subtiled` (decode_rows with
+// SUB) on a (SPLITS, Hkv, B * ceil(R / ROW_TILE)) grid in clusters of
+// SPLITS blocks along x, with the shared memory of (D, ROW_BYTES)
+// (sub-)tiles.  Returns ERR_SMEM when not even a 16-token sub-tile fits
+// (no head dim the kernels take), else the CUDA error of the launch (0 on
+// success; a refused cluster launch returns its error).
 template <Fmt F, int D, class... KArgs, class... Args>
-int launch_rows(void (*kern)(KArgs...), int B, int Hkv, int R, int bs,
-                cudaStream_t st, Args... args) {
-  const Smem L = smem_layout(D, row_bytes<F>(D), bs);
-  if (L.total > size_t(MAX_SMEM)) return ERR_SMEM;
+int launch_rows(void (*whole)(KArgs...), void (*subtiled)(KArgs...), int B,
+                int Hkv, int R, int bs, cudaStream_t st, Args... args) {
+  const int sub = sub_rows(D, row_bytes<F>(D), bs);
+  if (sub == 0) return ERR_SMEM;
+  void (*kern)(KArgs...) = sub == bs ? whole : subtiled;
+  const Smem L = smem_layout(D, row_bytes<F>(D), sub);
   if (L.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L.total));

@@ -19,9 +19,11 @@
 // paged backends give bitwise equal outputs on the same logical contents
 // when block_s equals the pool's block_size.
 //
-// Shared memory grows with block_s: at D = 128 a 256-token tile needs more
-// than the 227 KB a block may use, and the launch is refused with
-// flash::ERR_SMEM (the wrapper raises) rather than split.
+// Shared memory grows with block_s: a tile that needs more than the 227 KB
+// a block may use (at D 64 kv8 past 397 tokens: the engine's one
+// whole-sequence tile when block_size does not divide max_seq) is walked
+// as sub-tiles that fit (flash::sub_rows), a fixed cut of (D, format,
+// block_s), so dense ≡ paged holds at any tile height.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,14 +33,14 @@ namespace {
 
 using flash::Fmt;
 
-template <Fmt F, int D>
+template <Fmt F, int D, bool SUB>
 __global__ void __launch_bounds__(flash::THREADS)
 kvattn_kernel(const __nv_bfloat16* __restrict__ q,
               const uint8_t* __restrict__ k, const float* __restrict__ k_scale,
               const uint8_t* __restrict__ v, const float* __restrict__ v_scale,
               const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
               int Hkv, int R, int rep, int S, int bs, int window) {
-  flash::decode_rows<F, D>(
+  flash::decode_rows<F, D, SUB>(
       q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep, bs, S / bs, window,
       [=](int b, int s) { return size_t(b) * S + size_t(s) * bs; });
 }
@@ -52,7 +54,8 @@ struct Launch {
   template <Fmt F, int D>
   int run() const {
     return flash::launch_rows<F, D>(
-        kvattn_kernel<F, D>, B, Hkv, R, bs, stream,
+        kvattn_kernel<F, D, false>, kvattn_kernel<F, D, true>, B, Hkv, R,
+        bs, stream,
         static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
         static_cast<const float*>(ks), static_cast<const uint8_t*>(v),
         static_cast<const float*>(vs), static_cast<const int*>(pos),
@@ -65,8 +68,8 @@ struct Launch {
 // fmt: 0 kv8, 1 kv4, 2 kvfp8, 3 kv16 (flash::Fmt).  q (B, Hkv, R, D) bf16;
 // k/v (B, S, Hkv, ROW_BYTES) stored; scales (B, S, Hkv) f32; pos (B,)
 // int32; out (B, Hkv, R, D) bf16; bs divides S.  Returns the CUDA error of
-// the launch (0 on success), or flash::ERR_SMEM when a bs-token tile does
-// not fit in shared memory.
+// the launch (0 on success), or flash::ERR_SMEM when not even a 16-token
+// sub-tile fits in shared memory.
 extern "C" int kvattn(const void* q, const void* k, const void* ks,
                       const void* v, const void* vs, const void* pos,
                       void* out, int fmt, int B, int Hkv, int R, int D,

@@ -33,7 +33,7 @@ namespace {
 
 using flash::Fmt;
 
-template <Fmt F, int D>
+template <Fmt F, int D, bool SUB>
 __global__ void __launch_bounds__(flash::THREADS)
 paged_kvattn_kernel(const __nv_bfloat16* __restrict__ q,
                     const uint8_t* __restrict__ k,
@@ -43,7 +43,7 @@ paged_kvattn_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ tbl, const int* __restrict__ pos,
                     __nv_bfloat16* __restrict__ out, int Hkv, int R, int rep,
                     int nb, int bs, int bps, int n_live, int window) {
-  flash::decode_rows<F, D>(
+  flash::decode_rows<F, D, SUB>(
       q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep, bs, n_live, window,
       [=](int b, int s) {
         int blk = tbl[size_t(b) * bps + s];
@@ -61,7 +61,8 @@ struct Launch {
   template <Fmt F, int D>
   int run() const {
     return flash::launch_rows<F, D>(
-        paged_kvattn_kernel<F, D>, B, Hkv, R, bs, stream,
+        paged_kvattn_kernel<F, D, false>, paged_kvattn_kernel<F, D, true>, B,
+        Hkv, R, bs, stream,
         static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
         static_cast<const float*>(ks), static_cast<const uint8_t*>(v),
         static_cast<const float*>(vs), static_cast<const int*>(tbl),
@@ -75,8 +76,9 @@ struct Launch {
 // fmt: 0 kv8, 1 kv4, 2 kvfp8, 3 kv16 (flash::Fmt).  q (B, Hkv, R, D) bf16;
 // k/v (nb, bs, Hkv, ROW_BYTES) stored; scales (nb, bs, Hkv) f32;
 // tbl (B, bps) int32; pos (B,) int32; out (B, Hkv, R, D) bf16.  Returns
-// the CUDA error of the launch (0 on success), or flash::ERR_SMEM when a
-// bs-token tile does not fit in shared memory.
+// the CUDA error of the launch (0 on success), or flash::ERR_SMEM when not
+// even a 16-token sub-tile fits in shared memory.  A pool block too large
+// to stage whole is walked as sub-tiles (flash::sub_rows).
 extern "C" int paged_kvattn(const void* q, const void* k, const void* ks,
                             const void* v, const void* vs, const void* tbl,
                             const void* pos, void* out, int fmt, int B,

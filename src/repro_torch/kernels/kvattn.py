@@ -21,8 +21,10 @@ from .ref import kvattn_ref
 HEAD_DIMS = (32, 64, 128)
 #: the kernels' KV format codes (``flash::Fmt`` in csrc/flash_block.cuh)
 FORMAT_CODES = {"kv8": 0, "kv4": 1, "kvfp8": 2, "kv16": 3}
-#: returned by the attention kernels when a tile does not fit in the
-#: 227 KB of shared memory a block may use (``flash::ERR_SMEM``)
+#: returned by the attention kernels when not even a 16-token sub-tile
+#: fits in the 227 KB of shared memory a block may use (``flash::ERR_SMEM``;
+#: no head dim of ``HEAD_DIMS`` is like that — a larger tile is walked as
+#: sub-tiles, ``flash::sub_rows``)
 ERR_SMEM = -1
 
 
@@ -42,8 +44,9 @@ def raise_on_error(name: str, err: int, D: int, bs: int) -> None:
     """Turn an attention kernel's return code into an exception."""
     if err == ERR_SMEM:
         raise ValueError(
-            f"{name}: a {bs}-token tile at head_dim {D} needs more shared "
-            "memory than a block may use (227 KB); use a smaller block")
+            f"{name}: not even a 16-token sub-tile of a {bs}-token tile at "
+            f"head_dim {D} fits in the 227 KB of shared memory a block may "
+            "use")
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 

@@ -4,7 +4,10 @@ Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
 Reports throughput and TTFT / latency percentiles.  ``--arch`` takes the
 ported architectures (smollm-360m, recurrentgemma-2b, whisper-tiny),
 REDUCED unless ``--full``.  The KV store is the dense slab unless
-``--cache-kind paged`` (dense family only); ``--policy`` takes any
+``--cache-kind paged`` (dense family only), where
+``--enable-prefix-caching`` shares full prompt-prefix blocks and
+``--enable-block-growth`` (with ``--reserve-headroom-blocks``) admits on
+prompt blocks and preempts when the pool runs dry; ``--policy`` takes any
 ``WxAyKVz`` name.
 
 Usage:
@@ -13,6 +16,8 @@ Usage:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --full \
         --max-seq 512 --prompt-len 128
     python -m repro_torch.launch.serve --arch whisper-tiny --device cpu
+    python -m repro_torch.launch.serve --full --cache-kind paged \
+        --enable-prefix-caching --enable-block-growth --n-blocks 32
 """
 import argparse
 import sys
@@ -76,6 +81,12 @@ def main(argv=None) -> int:
     print("latency percentiles (s):",
           {k: round(v, 4) for k, v in percentile_stats(
               [o.latency for o in finished]).items()})
+    if config.enable_prefix_caching or config.enable_block_growth:
+        print(f"prefix-cached tokens {sum(o.cached_tokens for o in finished)}"
+              f", preemptions {sum(o.num_preemptions for o in finished)}, "
+              f"replay iterations "
+              f"{sum(o.replay_iterations for o in finished)}, peak live "
+              f"blocks {eng.allocator.peak_live} of {eng.n_blocks}")
     return 0
 
 

@@ -1,11 +1,12 @@
 """Engine configuration: one validated dataclass.
 
-Port of ``repro.serving.config`` for the dense-slab and paged reservation
-engines of the dense family and the one-shot-prefill engines of the hybrid
-and audio families.  Every knob of the JAX ``EngineConfig`` is here, with
-its rules; the ones whose feature is not ported yet raise
-:class:`EngineError` naming the ROADMAP item that ports it, instead of
-silently doing something else.  New knob: ``device``
+Port of ``repro.serving.config`` for the dense-slab and paged engines of
+the dense family (reservation or block growth with preemption, with or
+without prefix caching) and the one-shot-prefill engines of the hybrid and
+audio families.  Every knob of the JAX ``EngineConfig`` is here, with its
+rules; the ones whose feature is not ported yet (``attn_impl="xla"``)
+raise :class:`EngineError` naming the ROADMAP item that ports it, instead
+of silently doing something else.  New knob: ``device``
 (``"cuda"`` by default; the CPU only when asked for — a missing card is an
 error, never a fallback).
 """
@@ -47,6 +48,11 @@ class EngineConfig:
     the dense kernel's tile height when it divides ``max_seq`` (so both
     backends walk the same tiles); ``n_blocks`` (paged only) is the pool
     size (default: ``n_slots * max_seq / block_size``).
+    ``enable_prefix_caching`` (paged) shares full prompt-prefix blocks
+    between requests; ``enable_block_growth`` (paged) reserves only the
+    prompt's blocks (+ ``reserve_headroom_blocks``) at admission, grows a
+    block per boundary crossing and preempts the youngest request when the
+    pool runs dry.
     """
 
     model: ModelConfig
@@ -128,12 +134,6 @@ class EngineConfig:
                     "kernel prefill (chunks are written straight into pool "
                     f"blocks); try --prefill-chunk "
                     f"{max(lo, self.block_size)} or {lo + self.block_size}")
-            if self.enable_prefix_caching:
-                raise _not_ported("enable_prefix_caching",
-                                  "item 3 (prefix sharing)")
-            if self.enable_block_growth:
-                raise _not_ported("enable_block_growth",
-                                  "item 4 (growth and preemption)")
         else:
             if self.enable_prefix_caching:
                 # prefix sharing maps one physical block into several
@@ -197,7 +197,9 @@ class EngineConfig:
         d = dict(arch="smollm-360m", policy="w4a16kv8", slots=4,
                  max_seq=256, max_prompt=None, seed=0, cache_kind="dense",
                  block_size=16, n_blocks=None, prefill_chunk=32,
-                 attn_impl="kernel", device="cuda")
+                 attn_impl="kernel", enable_prefix_caching=False,
+                 enable_block_growth=False, reserve_headroom_blocks=0,
+                 device="cuda")
         d.update(defaults)
         ap.add_argument("--arch", default=d["arch"], choices=ARCHS)
         ap.add_argument("--reduced", action="store_true", default=True)
@@ -223,6 +225,21 @@ class EngineConfig:
                              "or be a multiple of --block-size)")
         ap.add_argument("--attn-impl", choices=("kernel", "xla"),
                         default=d["attn_impl"])
+        ap.add_argument("--enable-prefix-caching", action="store_true",
+                        default=d["enable_prefix_caching"],
+                        help="share full prompt-prefix KV blocks across "
+                             "requests (paged only; copy-on-write, "
+                             "byte-identical streams)")
+        ap.add_argument("--enable-block-growth", action="store_true",
+                        default=d["enable_block_growth"],
+                        help="reserve only prompt blocks at admission and "
+                             "grow on demand, preempting the youngest "
+                             "request when the pool runs dry (paged only; "
+                             "byte-exact recovery)")
+        ap.add_argument("--reserve-headroom-blocks", type=int,
+                        default=d["reserve_headroom_blocks"],
+                        help="extra blocks reserved per request at "
+                             "admission under block growth")
         ap.add_argument("--device", default=d["device"],
                         help="cuda (default) or cpu")
         return ap
@@ -242,4 +259,8 @@ class EngineConfig:
                    seed=args.seed, cache_kind=args.cache_kind,
                    block_size=args.block_size, n_blocks=args.n_blocks,
                    prefill_chunk=args.prefill_chunk,
-                   attn_impl=args.attn_impl, device=args.device)
+                   attn_impl=args.attn_impl,
+                   enable_prefix_caching=args.enable_prefix_caching,
+                   enable_block_growth=args.enable_block_growth,
+                   reserve_headroom_blocks=args.reserve_headroom_blocks,
+                   device=args.device)

@@ -1,9 +1,10 @@
 """Serving engine: continuous batching over the mixed-precision model.
 
 Port of ``repro.serving.engine`` for the dense family on the dense slab
-and on the paged backend with reservation admission, and for the hybrid
-and audio families with their one-shot prefill, under every ``WxAyKVz``
-policy.  The public surface is the JAX engine's:
+and on the paged backend (reservation or block growth with preemption,
+prefix caching on or off), and for the hybrid and audio families with
+their one-shot prefill, under every ``WxAyKVz`` policy.  The public surface
+is the JAX engine's:
 
 * :class:`~repro_torch.serving.config.EngineConfig` — validated knobs;
 * ``submit(prompt, params) -> rid``, ``step() -> List[RequestOutput]``,
@@ -16,6 +17,23 @@ is a pool of ``n_blocks`` blocks of ``block_size`` tokens with one block
 table and a host-side :class:`BlockAllocator`: admission reserves a
 request's worst case (``prompt + max_new_tokens`` blocks), so a running
 request never stalls, and its blocks return to the pool when it retires.
+
+``enable_block_growth`` reserves only the prompt's blocks (+
+``reserve_headroom_blocks``); ``step()`` maps one more block whenever a
+slot's next append crosses a block boundary, and when the pool runs dry
+preempts the youngest running request: its blocks are released, it
+requeues at the front (``Status.PREEMPTED``), and on re-admission its
+whole stream — prompt and produced tokens — is re-fed in forced
+``prefill_chunk`` chunks through the ordinary step, nothing re-emitted,
+so it recovers byte-exactly in O(stream / prefill_chunk) iterations.
+``enable_prefix_caching`` publishes a prompt's full blocks in a
+content-addressed :class:`PrefixIndex` once they are written; a request
+whose prompt matches maps the same physical blocks (refcounted) and
+starts its feed at the shared extent, reported as ``cached_tokens``.  A
+matched block the slot would append into (the one holding the prompt's
+last token) is copied to a private block first (copy-on-write).  Released
+published blocks park on the allocator's CACHED LRU, which also softens a
+preempted request's recompute.
 
 Every iteration is one mixed prefill/decode step: prompt + produced output
 form one token stream per request, ``Scheduler.plan`` picks the step width
@@ -146,15 +164,31 @@ class Engine:
         self.max_prompt = config.max_prompt
         self.cache_kind = config.cache_kind
         self._paged = config.cache_kind == "paged"
+        #: on-demand growth + preemption (EngineConfig allows it on paged
+        #: engines only)
+        self._growth = self._paged and config.enable_block_growth
         self.allocator: Optional[PKV.BlockAllocator] = None
+        self.prefix_index: Optional[PKV.PrefixIndex] = None
         if self._paged:
             self.blocks_per_slot = config.blocks_per_slot
             self.n_blocks = config.pool_blocks
             self.allocator = PKV.BlockAllocator(self.n_blocks)
             self._block_map: Dict[int, List[int]] = {}
+            #: rid → (shared source, private destination) of a pending
+            #: copy-on-write (prefix caching)
+            self._cow_map: Dict[int, tuple] = {}
             self.cache = self.model.init_paged_cache(
                 self.policy, self.n_slots, self.n_blocks, self.block_size,
                 self.blocks_per_slot, self.device)
+            if config.enable_prefix_caching:
+                # the salt binds what besides token ids fixes a block's
+                # bytes: the model, the layer set and head geometry a pool
+                # block spans, and the KV format
+                self.prefix_index = PKV.PrefixIndex(
+                    self.block_size,
+                    salt=f"{cfg.name}|L{cfg.n_layers}|Hkv{cfg.n_kv_heads}"
+                         f"|hd{cfg.hd}|{self.policy.kv.name}")
+                self.allocator.on_evict = self.prefix_index.drop_block
         else:
             self.cache = self.model.init_cache(self.policy, self.n_slots,
                                                self.max_seq, self.device)
@@ -177,6 +211,9 @@ class Engine:
         self.t0 = time.perf_counter()
         #: batched model steps run (one decode_step call each)
         self.model_steps = 0
+        #: stream tokens fed through those steps (prompt chunks, replay
+        #: and decode rows; a prefix hit's shared extent is not fed)
+        self.fed_tokens = 0
 
     # -- the batched step ---------------------------------------------------
 
@@ -237,12 +274,13 @@ class Engine:
 
     def abort(self, rid: int) -> Optional[RequestOutput]:
         """Cancel a request (idempotent).  A running request frees its
-        slot (and, paged, returns its KV blocks to the pool) immediately.
-        Returns the final ``finish_reason="abort"`` output, or None."""
+        slot (and, paged, drops its references on its KV blocks)
+        immediately; a waiting or preempted one holds no blocks.  Returns
+        the final ``finish_reason="abort"`` output, or None."""
         req = self._requests.get(rid)
         if req is None:
             return None
-        if req.status == Status.WAITING:
+        if req.status in (Status.WAITING, Status.PREEMPTED):
             self.scheduler.remove_waiting(req)
             req.status = Status.FINISHED
             req.finish_time = self.now()
@@ -264,31 +302,133 @@ class Engine:
 
     def _blocks_for(self, req: Request) -> int:
         """Worst-case KV blocks: prompt minus the last token plus every
-        potential output token, clipped to the context limit."""
+        potential output token, clipped to the context limit.  Reserved
+        whole at admission without growth; with growth only the
+        feasibility ceiling (``submit``'s rejection, the headroom clip)."""
         toks = min(len(req.prompt) - 1 + req.params.max_new_tokens,
                    self.max_seq)
         return PKV.blocks_needed(max(toks, 1), self.block_size)
 
+    def _admission_blocks(self, req: Request) -> int:
+        """Blocks pinned at admission: the worst case without growth;
+        with growth the effective stream (prompt plus any tokens produced
+        before a preemption, which the replay rewrites) plus headroom,
+        never more than the worst case."""
+        if not self._growth:
+            return self._blocks_for(req)
+        eff = min(len(req.prompt) + len(req.output), self.max_seq)
+        need = PKV.blocks_needed(max(eff, 1), self.block_size)
+        return min(need + self.config.reserve_headroom_blocks,
+                   self._blocks_for(req))
+
+    def _match_prefix(self, req: Request):
+        """``(shared, cow_src)``: the matched full blocks strictly below
+        the decode frontier ``n - 1`` (never written again, so mapped
+        shared), and the matched block holding position ``n - 1`` when the
+        prompt is block-aligned (the slot would write it: copied, never
+        mapped shared), or None."""
+        if self.prefix_index is None:
+            return [], None
+        req.prefix_hashes = self.prefix_index.chain_hashes(req.prompt)
+        matched = self.prefix_index.match_chain(req.prefix_hashes)
+        ro = (len(req.prompt) - 1) // self.block_size
+        return matched[:ro], (matched[ro] if len(matched) > ro else None)
+
     def _admit_gate(self, req: Request) -> bool:
-        """Reservation: admit only if the worst case fits, and allocate it."""
-        need = self._blocks_for(req)
-        if not self.allocator.can_alloc(need):
+        """Admission with reservation semantics: True also allocates the
+        request's blocks, so one scheduler pass never over-commits.
+
+        Prefix hits are mapped shared (one more reference) and only the
+        rest is allocated.  The COW source is pinned until ``_admit`` has
+        copied it; when that transient extra block does not fit, the tail
+        degrades to a recomputed miss rather than defer a request the
+        unshared engine would admit."""
+        need = self._admission_blocks(req)
+        shared, cow_src = self._match_prefix(req)
+        pinned = shared + ([cow_src] if cow_src is not None else [])
+        for b in pinned:
+            self.allocator.share(b)
+        if cow_src is not None and \
+                not self.allocator.can_alloc(need - len(shared)):
+            self.allocator.free([cow_src])
+            cow_src = None
+            pinned = shared
+        if not self.allocator.can_alloc(need - len(shared)):
+            self.allocator.free(pinned)      # unpin: admission deferred
             return False
-        self._block_map[req.rid] = self.allocator.alloc(need)
+        fresh = self.allocator.alloc(need - len(shared))
+        self._block_map[req.rid] = shared + fresh
+        if self.prefix_index is not None:
+            bs = self.block_size
+            if cow_src is not None:
+                # the COW destination is the first fresh block: logical
+                # block len(shared), the one holding position n - 1
+                self._cow_map[req.rid] = (cow_src, fresh[0])
+                req.prefix_skip = len(req.prompt) - 1
+                # the re-fed last prompt token is honest recompute
+                req.cached_tokens = len(shared) * bs + (bs - 1)
+            else:
+                req.prefix_skip = req.cached_tokens = len(shared) * bs
         return True
 
     def _map_slot_blocks(self, slot: int, blocks: List[int]) -> None:
+        """Write the slot's whole table row (sentinels past ``blocks``)."""
         row = torch.full((self.blocks_per_slot,), self.n_blocks,
                          dtype=torch.int32)
         if blocks:
             row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
         self.cache.block_table[slot].copy_(row)
 
+    def _register_prefix(self, req: Request) -> None:
+        """Publish the slot's full prompt blocks below the decode frontier
+        ``n - 1``: written by the prompt's feed and never again.  Blocks
+        mapped from the index re-register as no-ops; a duplicate of a
+        block published first stays private."""
+        nb = (len(req.prompt) - 1) // self.block_size
+        for h, b in zip(req.prefix_hashes[:nb],
+                        self._block_map[req.rid][:nb]):
+            if self.prefix_index.register(h, b):
+                self.allocator.set_cacheable(b)
+
     def _reclaim(self, req: Request) -> None:
-        """Release the request's blocks; its table row goes back to
-        sentinels (writes through it are dropped)."""
+        """Drop the request's block references (blocks other slots map
+        stay live; published ones park CACHED); its table row goes back
+        to sentinels (writes through it are dropped)."""
         self.allocator.free(self._block_map.pop(req.rid))
         self._map_slot_blocks(req.slot, [])
+
+    def _preempt(self, req: Request) -> None:
+        """Evict a running request (growth): release its blocks, requeue
+        it at the front as ``PREEMPTED``, keep its produced tokens for the
+        replay, and open its recovery window."""
+        req.num_preemptions += 1
+        if req.recovery_started is None:
+            req.recovery_started = self.now()
+        self._reclaim(req)            # while req.slot is still valid
+        self.scheduler.preempt(req)
+
+    def _grow_for_step(self, running: List[Request],
+                       valids: Dict[int, int]) -> List[Request]:
+        """Map a block for every boundary the next appends (positions
+        ``pos .. pos + valid - 1``) cross, oldest request first; when the
+        pool cannot cover one, preempt the youngest running request
+        (possibly the requester) until it fits.  Oldest-first growth and
+        youngest-first eviction keep the oldest request progressing.  Each
+        new block is one element written into the device table.  Returns
+        the surviving running set."""
+        bs = self.block_size
+        for req in sorted(running, key=lambda r: r.rid):
+            end = req.pos + valids[req.rid]   # one past the last write
+            while (req.status == Status.RUNNING
+                   and end > len(self._block_map[req.rid]) * bs):
+                if self.allocator.can_alloc(1):
+                    blocks = self._block_map[req.rid]
+                    [b] = self.allocator.alloc(1)
+                    self.cache.block_table[req.slot, len(blocks)] = b
+                    blocks.append(b)
+                else:
+                    self._preempt(self.scheduler.victim())
+        return self.scheduler.running()
 
     def _live_bucket(self, running) -> int:
         """Live-context bound for the attention kernel's walk: the batch's
@@ -301,10 +441,12 @@ class Engine:
         return min(nb, self.blocks_per_slot) * self.block_size
 
     def _admit(self, req: Request) -> None:
-        """Map the reserved blocks into the slot (paged) and seed its feed
-        cursor; a chunked engine's prompt is fed by ``step()``.  A dense
-        slot is not cleared: cells past the frontier are masked by
-        position.
+        """Map the reserved blocks into the slot (paged; a pending
+        copy-on-write tail is copied first and its pinned source
+        released) and seed its feed cursor at the prefix skip; a chunked
+        engine's stream — prompt, and after a preemption the produced
+        tokens — is fed by ``step()``.  A dense slot is not cleared:
+        cells past the frontier are masked by position.
 
         One-shot families prefill the prompt minus its last token
         (at least one token, so an audio request always builds its
@@ -313,8 +455,14 @@ class Engine:
         state instead (stale state is masked by no causal mask)."""
         if self._paged:
             self._map_slot_blocks(req.slot, self._block_map[req.rid])
+            cow = self._cow_map.pop(req.rid, None)
+            if cow is not None:
+                src, dst = cow
+                PKV.copy_block(self.cache, src, dst)
+                self.allocator.free([src])     # unpin the COW source
         if self._chunked:
-            req.pos = 0
+            req.pos = req.prefix_skip
+            req.needs_register = self.prefix_index is not None
             return
         n = len(req.prompt)
         if n > 1 or self._has_extra:
@@ -335,13 +483,13 @@ class Engine:
 
     def _has_room(self, req: Request) -> bool:
         """True while the slot can absorb another decode append: the
-        context limit binds both backends; a paged slot's next write must
-        also land in its reserved blocks (which never binds before
-        ``max_new_tokens`` does, so the backends retire requests on the
-        same iterations)."""
+        context limit binds both backends; a reserving paged slot's next
+        write must also land in its reserved blocks (which never binds
+        before ``max_new_tokens`` does, so the backends retire requests on
+        the same iterations); a growing one maps more on demand."""
         if req.pos >= self.max_seq - 1:
             return False
-        if self._paged:
+        if self._paged and not self._growth:
             return req.pos < len(self._block_map[req.rid]) * self.block_size
         return True
 
@@ -358,17 +506,27 @@ class Engine:
         return reason
 
     def step(self) -> List[RequestOutput]:
-        """One engine iteration: admit waiting requests, feed every running
-        slot its next stream tokens through one batched model step, retire
-        finished requests.  Returns one :class:`RequestOutput` per emitting
-        request."""
+        """One engine iteration: admit waiting requests, (growth) map the
+        blocks the step's appends need, preempting if the pool runs dry,
+        feed every running slot its next stream tokens through one
+        batched model step, retire finished requests.  Iterations that
+        re-feed already-streamed tokens after a preemption emit nothing
+        and count as ``replay_iterations``.  Returns one
+        :class:`RequestOutput` per emitting request."""
         for req in self.scheduler.admit():
             self._admit(req)
         running = self.scheduler.running()
         if not running:
             return []
-        t_step, valids = self.scheduler.plan(
-            self.prefill_chunk if self._chunked else 1)
+        chunk = self.prefill_chunk if self._chunked else 1
+        t_step, valids = self.scheduler.plan(chunk)
+        if self._growth:
+            # before the step, so every surviving slot's appends land in
+            # mapped blocks; preemption shrinks the batch: re-plan
+            running = self._grow_for_step(running, valids)
+            if not running:
+                return []
+            t_step, valids = self.scheduler.plan(chunk)
 
         # idle slots feed token 0 at position 0 with valid == 0: their
         # writes are dropped and their logits discarded
@@ -385,6 +543,7 @@ class Engine:
             tokens[r.slot, :v] = stream[r.pos:r.pos + v]
             pos[r.slot] = r.pos
             valid[r.slot] = v
+            self.fed_tokens += v
             temp[r.slot] = r.params.temperature
             top_k[r.slot] = r.params.top_k
             seeds[r.slot] = r.seed
@@ -399,10 +558,22 @@ class Engine:
         for r in running:
             r.pos += valids[r.rid]
             if r.pos < len(r.prompt) + len(r.output):
-                continue                  # prompt still prefilling
+                # the prompt is still prefilling, or a preempted request
+                # re-feeds tokens it already streamed (forced, not sampled)
+                if r.pos > len(r.prompt):
+                    r.replay_iterations += 1
+                continue
             tok = int(nxt[r.slot])
             if r.first_token_time is None:
                 r.first_token_time = t
+            if r.recovery_started is not None:
+                # eviction → this emission: the stream has caught up
+                r.recovery_time += t - r.recovery_started
+                r.recovery_started = None
+            if r.needs_register:
+                # every block below the frontier is written now
+                self._register_prefix(r)
+                r.needs_register = False
             r.output.append(tok)
             reason = self._finish_reason(r, tok)
             if reason is not None:

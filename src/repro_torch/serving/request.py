@@ -1,9 +1,8 @@
 """Request objects, sampling parameters, and streamed outputs.
 
-Port of ``repro.serving.request`` for the reservation engine.  The public
-output type is :class:`RequestOutput`, an immutable per-iteration snapshot;
-the prefix-cache and preemption counters of the JAX ``RequestOutput`` come
-with those features.
+Port of ``repro.serving.request``.  The public output type is
+:class:`RequestOutput`, an immutable per-iteration snapshot carrying the
+JAX package's prefix-cache and preemption counters.
 """
 from __future__ import annotations
 
@@ -19,6 +18,10 @@ class Status(enum.Enum):
 
     WAITING = "waiting"
     RUNNING = "running"
+    #: evicted by the block-growth engine (pool exhausted): at the front
+    #: of the waiting queue, holding no blocks, its stream re-fed on
+    #: re-admission
+    PREEMPTED = "preempted"
     FINISHED = "finished"
 
 
@@ -83,7 +86,16 @@ class SamplingParams:
 class RequestOutput:
     """One streamed increment of a request's output: ``new_token_ids``
     produced this iteration, ``output_token_ids`` so far; the finished
-    output carries ``finish_reason`` and the timing metrics."""
+    output carries ``finish_reason`` and the timing metrics.
+
+    ``cached_tokens``: prompt tokens served from the prefix cache instead
+    of recomputed (0 unless ``enable_prefix_caching``).
+    ``num_preemptions``: times the block-growth engine evicted and
+    recovered the request (the stream is unaffected).
+    ``replay_iterations``: non-emitting iterations spent re-feeding
+    already-produced tokens after preemptions, O(produced /
+    prefill_chunk) per preemption.  ``recovery_time``: total seconds
+    from each eviction to the request's next emission."""
 
     rid: int
     prompt_len: int
@@ -91,6 +103,10 @@ class RequestOutput:
     output_token_ids: List[int]
     finished: bool = False
     finish_reason: Optional[FinishReason] = None
+    cached_tokens: int = 0
+    num_preemptions: int = 0
+    replay_iterations: int = 0
+    recovery_time: float = 0.0
     ttft: Optional[float] = None        # first-token latency (s)
     latency: Optional[float] = None     # end-to-end latency (s)
 
@@ -113,6 +129,26 @@ class Request:
     finish_reason: Optional[FinishReason] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    #: prompt tokens served from the prefix cache (reported on outputs)
+    cached_tokens: int = 0
+    #: where the feed starts on admission: the block-aligned shared
+    #: extent of a prefix hit, or ``prompt_len - 1`` after a copy-on-write
+    #: tail (engine-internal)
+    prefix_skip: int = 0
+    #: chain hashes of the prompt's full blocks, computed once at the
+    #: admission gate and reused for registration (engine-internal)
+    prefix_hashes: List[bytes] = dataclasses.field(default_factory=list)
+    #: times this request was preempted by the block-growth engine
+    num_preemptions: int = 0
+    #: non-emitting iterations spent re-feeding produced tokens
+    replay_iterations: int = 0
+    #: cumulative eviction → next-emission seconds
+    recovery_time: float = 0.0
+    #: set at eviction, closed at the next emission (engine-internal)
+    recovery_started: Optional[float] = None
+    #: the prompt's full blocks are still to be published in the prefix
+    #: index, at the first emission, once they are written (engine-internal)
+    needs_register: bool = False
 
     @property
     def ttft(self) -> Optional[float]:
@@ -141,5 +177,9 @@ class Request:
             new_token_ids=list(new_tokens),
             output_token_ids=list(self.output),
             finished=done, finish_reason=self.finish_reason if done else None,
+            cached_tokens=self.cached_tokens,
+            num_preemptions=self.num_preemptions,
+            replay_iterations=self.replay_iterations,
+            recovery_time=self.recovery_time,
             ttft=self.ttft if done else None,
             latency=self.latency if done else None)

@@ -1,9 +1,12 @@
 """Continuous-batching scheduler (Orca-style iteration-level scheduling).
 
-Port of ``repro.serving.scheduler`` without preemption (it comes with block
-growth).  FCFS admission into a fixed pool of decode slots, additionally
-gated on KV blocks by the engine's ``admit_gate``; if the queue head does
-not fit, younger requests wait behind it (no starvation).
+Port of ``repro.serving.scheduler``.  FCFS admission into a fixed pool of
+decode slots, additionally gated on KV blocks by the engine's
+``admit_gate``; if the queue head does not fit, younger requests wait
+behind it (no starvation).  With block growth the engine preempts the
+youngest running request (:meth:`Scheduler.victim`) when the pool runs
+dry, and :meth:`Scheduler.preempt` requeues it at the front, so the oldest
+request always progresses.
 """
 from __future__ import annotations
 
@@ -72,6 +75,23 @@ class Scheduler:
                 for r in self.running()}
         t_step = chunk if any(n > 1 for n in need.values()) else 1
         return t_step, {rid: min(t_step, n) for rid, n in need.items()}
+
+    def victim(self) -> Optional[Request]:
+        """The youngest running request (highest rid; a preempted request
+        keeps its rid, so its age survives re-admission), or None."""
+        running = self.running()
+        if not running:
+            return None
+        return max(running, key=lambda r: r.rid)
+
+    def preempt(self, req: Request) -> None:
+        """Free a running request's slot and requeue it at the *front* of
+        the queue as ``PREEMPTED``.  The engine releases its blocks first,
+        while ``req.slot`` is still valid."""
+        req.status = Status.PREEMPTED
+        self.slots[req.slot] = None
+        req.slot = -1
+        self.waiting.appendleft(req)
 
     def finish(self, req: Request, t: float) -> None:
         """Retire a running request at time ``t`` and free its slot."""

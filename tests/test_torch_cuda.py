@@ -82,11 +82,12 @@ def _tokens(rng, n, Hkv, D, device):
                             ).to(device, torch.bfloat16)
 
 
-def paged_case(seed, fmt, B, Hkv, D, bs, bps, lengths, device):
+def paged_case(seed, fmt, B, Hkv, D, bs, bps, lengths, device, k_shift=0.0):
     """A per-layer pool holding ``lengths[b]`` random tokens for slot b
-    through a shuffled block table (sentinel tail), every other pool cell
-    filled with finite garbage; and the same tokens, written the same way,
-    in a dense slab of ``bps * bs`` tokens per slot."""
+    (keys offset by ``k_shift``) through a shuffled block table (sentinel
+    tail), every other pool cell filled with finite garbage; and the same
+    tokens, written the same way, in a dense slab of ``bps * bs`` tokens
+    per slot."""
     spec = spec_of(fmt)
     rng = np.random.default_rng(seed)
     nb = B * bps + 3
@@ -105,7 +106,8 @@ def paged_case(seed, fmt, B, Hkv, D, bs, bps, lengths, device):
     layer.block_table.copy_(torch.from_numpy(tbl))
     zero = torch.zeros(1, dtype=torch.int32, device=device)
     for b, n in enumerate(lengths):
-        k, v = _tokens(rng, n, Hkv, D, device), _tokens(rng, n, Hkv, D, device)
+        k = _tokens(rng, n, Hkv, D, device) + k_shift
+        v = _tokens(rng, n, Hkv, D, device)
         row = dataclasses.replace(layer, block_table=layer.block_table[b:b + 1])
         PKV.append_paged(row, k, v, zero, spec)
         KV.append_per_slot(KV.KVCache(slab.k[b:b + 1], slab.v[b:b + 1],
@@ -136,15 +138,16 @@ ATTN_CASES = [
 ATTN_REL_TOL = 2 ** -6
 
 
-def _attn_inputs(case, fmt, dev):
+def _attn_inputs(case, fmt, dev, shift=0.0):
     """Peaked inputs: q ~ 4 N(0, 1) against keys of unit variance (scores
-    of std 4), so a few keys carry each row."""
+    of std 4), so a few keys carry each row.  ``shift`` offsets q by
+    -shift and the keys by +shift in every element."""
     B, Hkv, rep, D, bs, bps, pos, T, window, n_live = case
     layer, slab = paged_case(0, fmt, B, Hkv, D, bs, bps,
-                             [p + T for p in pos], dev)
+                             [p + T for p in pos], dev, k_shift=shift)
     rng = np.random.default_rng(1)
     q = torch.from_numpy(4 * rng.standard_normal(
-        (B, Hkv, T * rep, D), np.float32)).to(dev, torch.bfloat16)
+        (B, Hkv, T * rep, D), np.float32) - shift).to(dev, torch.bfloat16)
     posd = torch.tensor(pos, dtype=torch.int32, device=dev)
     win = ref.NO_WINDOW if window is None else window
     nl = bps if n_live is None else n_live
@@ -238,18 +241,53 @@ def test_attention_rows_independent_of_chunking(dev, fmt):
         assert torch.equal(paged, want), t
 
 
-def test_kvattn_tile_too_large_raises(dev):
-    """block_s = 256 at D = 128 needs more than 227 KB of shared memory:
-    the wrapper raises instead of launching (no plain-version fallback)."""
-    kv8 = spec_of("kv8")
-    slab = KV.init_cache(1, 256, 1, 128, kv8, device=dev).layer(0)
-    q = torch.zeros((1, 1, 2, 128), dtype=torch.bfloat16, device=dev)
-    pos = torch.zeros(1, dtype=torch.int32, device=dev)
-    before = kvattn.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, pos,
-               ref.NO_WINDOW, 2, 256, kv8)
-    assert kvattn.launches == before
+#: tiles whose staging needs more than the 227 KB of shared memory a block
+#: may use, walked as sub-tiles (``flash::sub_rows``): (format, case) with
+#: the case laid out as in ATTN_CASES
+SUB_TILE_CASES = [
+    ("kv8", (2, 2, 2, 128, 256, 2, [300, 17], 4, None, None)),   # 2 x 128
+    ("kv8", (2, 2, 2, 128, 256, 3, [600, 200], 1, 100, None)),   # window
+    #                               edge inside a sub-tile, decode rows
+    ("kv8", (2, 5, 3, 64, 500, 1, [490, 255], 4, None, None)),   # the
+    #                               max_seq 500 slab tile: 7 x 64 + 52
+    ("kv8", (2, 5, 3, 64, 500, 2, [700, 490], 16, None, None)),  # a ragged
+    #                               sub-tile followed by the next tile: its
+    #                               padding rows' positions are live keys
+    ("kv16", (2, 5, 3, 64, 512, 2, [700, 300], 4, None, None)),  # 2 x 256
+]
+
+
+@pytest.mark.parametrize("fmt,case", SUB_TILE_CASES)
+def test_sub_tiled_attention_matches_plain(dev, fmt, case):
+    """A tile too large to stage whole (block_s 256 at D 128 kv8, the
+    500-token slab tile at D 64 kv8, a 512-token pool block at D 64 kv16)
+    is walked as sub-tiles: both kernels against their plain versions,
+    dense ≡ paged bit for bit at block_s == block_size, and a chunk's rows
+    the bits of the same tokens fed one at a time.  q and the keys carry
+    opposite offsets that put every real score ~20 under the 0 an
+    unmasked zero padding row of a ragged sub-tile would score."""
+    D = case[3]
+    layer, slab, q, posd, win, rep, nl, bs = _attn_inputs(
+        case, fmt, dev, shift=(20 / D ** 0.5) ** 0.5)
+    spec = spec_of(fmt)
+    dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win, rep)
+    pargs = (q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+             layer.block_table, posd, win, rep, nl)
+    before = (kvattn.launches, paged_kvattn.launches)
+    out = kvattn(*dargs, bs, spec)
+    paged = paged_kvattn(*pargs, spec)
+    torch.cuda.synchronize()
+    assert (kvattn.launches, paged_kvattn.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.isfinite(out.float()).all()
+    _close(out, ref.kvattn_ref(*dargs, bs))
+    _close(paged, ref.paged_kvattn_ref(*pargs))
+    assert torch.equal(out, paged)
+    T = q.shape[2] // rep
+    for t in range(T):
+        qt = q[:, :, t * rep:(t + 1) * rep].contiguous()
+        one = kvattn(qt, *dargs[1:5], posd + t, win, rep, bs, spec)
+        assert torch.equal(one, out[:, :, t * rep:(t + 1) * rep]), t
 
 
 def test_kv_format_mismatch_raises(dev):

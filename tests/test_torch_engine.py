@@ -9,8 +9,8 @@
   block boundaries, slot churn, eos) — the JAX suite's
   ``TestPagedDenseEquivalence``, inside the port.
 * ``EngineConfig`` rules: invalid values (the JAX package's dense/paged
-  rules among them) and every feature not yet ported raise
-  ``EngineError``; so does the default device when CUDA is missing.
+  rules among them) and the feature not yet ported (``attn_impl="xla"``)
+  raise ``EngineError``; so does the default device when CUDA is missing.
   Every ``WxAyKVz`` policy builds an engine that serves.
 * Lifecycle: abort returns blocks, stream() reassembles generate().
 """
@@ -135,8 +135,6 @@ def test_invalid_configs_rejected(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(enable_prefix_caching=True), "item 3"),
-    (dict(enable_block_growth=True), "item 4"),
     (dict(attn_impl="xla"), "item 5"),
 ])
 def test_unported_features_raise(kw, item):
@@ -149,11 +147,13 @@ def test_unported_features_raise(kw, item):
 
 @pytest.mark.parametrize("kw", [
     dict(cache_kind="dense"), dict(policy="w8a16kv8"),
-    dict(policy="w4a16kv4"),
+    dict(policy="w4a16kv4"), dict(enable_prefix_caching=True),
+    dict(enable_block_growth=True),
 ])
 def test_formerly_unported_configs_serve(kw):
-    """The dense backend and the policies beyond w4a16kv8 build and serve
-    (they raised "not yet ported" before the dense family was complete)."""
+    """The dense backend, the policies beyond w4a16kv8, and the paged
+    pool's prefix caching and block growth build and serve (they raised
+    "not yet ported" before their slices landed)."""
     args = dict(KW)
     args.update(kw)
     eng = Engine(EngineConfig(**args))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the GEMM kernels and the serves' GEMM device time of several trees
-of this repository on one card, one tree after another in one run.
+"""Time the kernels and the serves' GEMM device time of several trees of
+this repository on one card, one tree after another in one run.
 
     python3 tools/compare_trees.py OLD NEW NEW OLD
         [--phases gemm,serve] [--out chiprun_out/compare.json]
@@ -11,6 +11,9 @@ its own ``build/`` directory, through its own ``chip_smoke.py``:
 
 * ``gemm``: ``chip_smoke.gemm_phase`` — each GEMM row's kernel, plain and
   ``torch.matmul`` times (CUDA events, L2 flushed before every launch).
+* ``attn`` (name it in ``--phases``): ``chip_smoke.attn_phase`` — the
+  same for the decode-attention kernels (SDPA the yardstick); rows of
+  equal shape compare across trees.
 * ``serve``: full-width serves on the dense slab with 4 slots, each after
   a warm-up request, under ``torch.profiler``: recurrentgemma-2b w4a16kv8
   (4 requests of 128-token prompts, 8 new tokens), whisper-tiny w4a16kv8
@@ -89,12 +92,16 @@ def worker(tree, phases):
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     out = dict(tree=str(tree))
-    if "gemm" in phases:
+    kernel_phases = {"gemm": chip_smoke.gemm_phase,
+                     "attn": chip_smoke.attn_phase}
+    if kernel_phases.keys() & set(phases):
         flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
         for _ in range(1000):                 # clocks up
             flush.zero_()
         torch.cuda.synchronize()
-        out["gemm"] = chip_smoke.gemm_phase(torch.device("cuda"), flush)
+        for name, phase in kernel_phases.items():
+            if name in phases:
+                out[name] = phase(torch.device("cuda"), flush)
         del flush
     if "serve" in phases:
         out["serve"] = [
@@ -135,10 +142,11 @@ def main():
         res["card"] = smi
         runs.append(res)
         print(json.dumps({"tree": tree, "serve": res.get("serve")}))
-        for kern, rows in res.get("gemm", {}).items():
+        kern_rows = {**res.get("gemm", {}), **res.get("attn", {})}
+        for kern, rows in kern_rows.items():
             for r in rows:
                 lib = r["library_ms"]
-                print(f"  {tree[-24:]:24s} {kern:11s} {r['shape']:58s} "
+                print(f"  {tree[-24:]:24s} {kern:12s} {r['shape']:58s} "
                       f"{r['ms'] * 1e3:7.1f} us  lib "
                       f"{'-' if lib is None else f'{lib * 1e3:.1f}'}  "
                       f"bound {r['bound_ms'] * 1e3:.2f}")
