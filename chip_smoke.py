@@ -24,12 +24,17 @@ Phases, in order (any failure raises and exits nonzero):
    one at a time and of each slot served alone.  The same for the tiles
    too large to stage whole, walked as sub-tiles (``SUB_TILES``: the
    max_seq-500 slab tile, a 512-token pool block at kv16, 256-token tiles
-   at D 128).
+   at D 128), and for gemma3-1b's head dim 288 (``D288_CASES``: every
+   format, T 1 and T 32 against window 1024, a global layer, a sub-tiled
+   kv16 block).  Both GEMMs also run at the widths of gemma3-1b,
+   chatglm3-6b and mistral-large-123b (``DENSE_GEMM_SHAPES``).
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
    recurrentgemma-2b and whisper-tiny REDUCED, one-shot ``prefill`` then
-   teacher-forced ``decode_step``, under w4a16kv8 and w16a16kv16; logits
+   teacher-forced ``decode_step``, under w4a16kv8 and w16a16kv16;
+   chatglm3-6b, mistral-large-123b and gemma3-1b (at head dim 288)
+   REDUCED on both backends under w4a16kv8 (``DENSE_REDUCED``); logits
    must agree.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
@@ -61,12 +66,21 @@ Phases, in order (any failure raises and exits nonzero):
    (``DENSE_500_SERVE``: one 500-token tile, sub-tiled), every token the
    teacher-forced argmax up to a near-tie.  Every paged serve ends with no
    live block.
-7. One JSON line describing each kernel, then the result line
+7. The other dense configs (``DENSE_SERVES``), w4a16kv8, on the dense slab
+   and the paged pool: gemma3-1b (26 layers, 1100-token prompts past the
+   local layers' window of 1024), chatglm3-6b (28 layers) and
+   mistral-large-123b at full width and 4 of its 88 layers; launches
+   counted as in 5, dense ≡ paged streams, request 0 the teacher-forced
+   argmax; gemma3 once more on the slab by ``attn_impl="xla"``, its
+   logits, the kernel route's and exact attention's pairwise within
+   ``TOL_ROUTES``.
+8. One JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Exits nonzero with no result when there is no CUDA device or when the
 port's sources are not beside this script.
 """
+import contextlib
 import json
 import re
 import statistics
@@ -90,6 +104,22 @@ RG_GEMM_SHAPES = [
 WH_GEMM_SHAPES = [
     ("wq/wk/wv/wo", 384, 384, 128, 128), ("w1", 384, 1536, 128, 96),
     ("w2", 1536, 384, 32, 128)]
+#: the packed GEMMs of the three other dense configs (gemma3-1b,
+#: chatglm3-6b, mistral-large-123b), as ``models.common.pick_blocks``
+#: tiles them
+DENSE_GEMM_SHAPES = [
+    ("gemma3 wq/wo", 1152, 1152, 128, 128),
+    ("gemma3 wk/wv", 1152, 288, 128, 96),
+    ("gemma3 w1/w3", 1152, 6912, 128, 128),
+    ("gemma3 w2", 6912, 1152, 128, 128),
+    ("chatglm3 wq/wo", 4096, 4096, 128, 128),
+    ("chatglm3 wk/wv", 4096, 256, 128, 128),
+    ("chatglm3 w1/w3", 4096, 13696, 128, 128),
+    ("chatglm3 w2", 13696, 4096, 128, 128),
+    ("mistral wq/wo", 12288, 12288, 128, 128),
+    ("mistral wk/wv", 12288, 1024, 128, 64),
+    ("mistral w1/w3", 12288, 28672, 128, 128),
+    ("mistral w2", 28672, 12288, 128, 128)]
 GEMM_MS = (4, 128)           # n_slots x t_step at decode and at prefill
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
@@ -122,6 +152,19 @@ SUB_TILES = [("kv8", 4, 5, 3, 64, 500, 1, 1, [450, 130, 300, 20]),
              ("kv8", 4, 5, 3, 64, 500, 2, 32, [600, 0, 480, 96]),
              ("kv16", 4, 5, 3, 64, 512, 2, 1, [900, 130, 511, 512]),
              ("kv8", 4, 8, 4, 128, 256, 2, 1, [400, 130, 255, 256])]
+#: decode attention at gemma3-1b's heads (D 288, 4 query heads on 1 KV
+#: head), window 1024 with contexts of 37-1500 (1536-token slots of 16-token
+#: blocks): (format, B, Hkv, rep, D, tile, tiles per slot, T, first
+#: positions, window).  Every format at T 1 and at T 32 (chunks whose rows
+#: straddle the window's lower edge), a global layer, and a kv16 64-token
+#: block walked as sub-tiles (48 + 16)
+D288_CASES = (
+    [(fmt, 4, 1, 4, 288, 16, 96, 1, [1100, 1030, 1499, 37], 1024)
+     for fmt in KV_FORMATS] +
+    [(fmt, 4, 1, 4, 288, 16, 96, 32, [1010, 0, 1400, 1020], 1024)
+     for fmt in KV_FORMATS] +
+    [("kv8", 4, 1, 4, 288, 16, 96, 1, [1100, 1030, 1499, 37], None),
+     ("kv16", 4, 1, 4, 288, 64, 24, 1, [1100, 1030, 1499, 37], 1024)])
 #: (policy, requests, prompt length, new tokens) of the serve phase
 SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
           ("w8a8kvfp8", 4, 32, 16), ("w8a16kv16", 4, 32, 16)]
@@ -146,11 +189,31 @@ GROWTH_SERVE = (8, 32, 32, 48, 20)
 #: the dense slab at max_seq 500 (block_size 16 does not divide it: one
 #: 500-token tile): requests, prompt tokens, new tokens, max_seq
 DENSE_500_SERVE = (4, 64, 16, 500)
+#: the other dense configs' serves, w4a16kv8 on both backends (4 slots,
+#: block 16), dense ≡ paged streams: (arch, layers served (None: all),
+#: max_seq, requests, prompt tokens, new tokens, prefill_chunk).  gemma3's
+#: 1100-token prompts put keys before every local layer's window of 1024;
+#: mistral-large-123b at full width and 4 of its 88 layers (its bf16
+#: weights, ~246 GB, are drawn on the card before packing)
+DENSE_SERVES = [("gemma3-1b", None, 1536, 4, 1100, 16, 128),
+                ("chatglm3-6b", None, 256, 4, 64, 16, 32),
+                ("mistral-large-123b", 4, 256, 4, 64, 16, 32)]
+#: REDUCED models of the dense configs held card vs CPU: (arch, head dim
+#: override) — gemma3 at its full width's 288
+DENSE_REDUCED = [("chatglm3-6b", None), ("mistral-large-123b", None),
+                 ("gemma3-1b", 288)]
 FLASH_PER_PREFILL = 8
 #: logits tolerance, relative to max |logit|: A8 policies re-quantize
 #: every GEMM input per token, which turns one-ulp differences of sum
 #: order into int8 rounding flips (tests/test_torch_model.py)
 TOL, TOL_A8 = 2e-2, 1e-1
+#: gemma3-1b's two attention routes (kernels; the xla opt-out) against each
+#: other and each against exact attention (f64, no bf16 rounding inside
+#: attention), teacher-forced through all 26 layers: each route sits up to
+#: ~2.3e-2 · max |logit| from exact attention there — bf16 rounding
+#: through a deep network, a few bf16 ulps of logits near 3 — so the
+#: routes are held at 3e-2, and to exact attention at the same bar
+TOL_ROUTES = 3e-2
 
 
 def check(cond, msg):
@@ -189,8 +252,9 @@ def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
 
 def gemm_phase(dev, flush):
     """Both GEMM kernels against their plain versions at smollm-360m's,
-    recurrentgemma-2b's and whisper-tiny's packed shapes, bits 4 and 8,
-    the weights in the kernels' fragment order."""
+    recurrentgemma-2b's, whisper-tiny's and the three other dense configs'
+    packed shapes, bits 4 and 8, the weights in the kernels' fragment
+    order."""
     import torch
     from repro_torch.core.packing import (dequantize_packed, pack_weight,
                                           to_kernel_layout)
@@ -202,7 +266,8 @@ def gemm_phase(dev, flush):
     rows = {"mpgemm_a16": [], "mpgemm_int8": []}
     shapes = [(f"smollm {n}", *shape) for n, *shape in GEMM_SHAPES] + \
         [(f"recurrentgemma {n}", *shape) for n, *shape in RG_GEMM_SHAPES] + \
-        [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES]
+        [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES] + \
+        DENSE_GEMM_SHAPES
     for name, K, N, bk, bn in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
         for bits in (4, 8):
@@ -284,13 +349,33 @@ def kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx):
     return pool, slab
 
 
+def sdpa_backend(fn):
+    """Which SDPA implementation PyTorch ran for ``fn``, from the device
+    kernels of one profiled call: flash, efficient (cutlass fmha), cudnn,
+    or math (no fused kernel: separate matmul and softmax kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.name.lower() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    for key, name in (("flash", "flash"), ("fmha", "efficient"),
+                      ("cudnn", "cudnn")):
+        if key in names:
+            return name
+    return "math"
+
+
 def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
-              chunk_checks):
+              chunk_checks, window=None):
     """One attention case: paged and dense-slab kernels against their
     plain versions (``bs``-token tiles: the pool's blocks and the slab's
-    ``block_s``), dense ≡ paged bit for bit, each timed beside SDPA.  With
-    ``chunk_checks`` a chunk's rows must be the bits of its tokens fed one
-    at a time and of each slot served alone.  Appends to ``rows``."""
+    ``block_s``), dense ≡ paged bit for bit, each timed beside SDPA (the
+    same mask).  With ``chunk_checks`` a chunk's rows must be the bits of
+    its tokens fed one at a time and of each slot served alone.  Appends
+    to ``rows``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import paged_kvcache as PKV
@@ -304,6 +389,7 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     spec = get_policy(f"w4a16{fmt}").kv
     S = bps * bs
     ctx = [p + T for p in pos]
+    win = NO_WINDOW if window is None else window
     pool, slab = kv_stores(dev, gen, spec, B, Hkv, D, bs, bps, ctx)
     R = T * rep
     # peaked: scores of std 4, so a few keys carry each row and a dropped
@@ -313,9 +399,8 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     posd = torch.tensor(pos, dtype=torch.int32, device=dev)
     n_live = PKV.blocks_needed(max(ctx), bs)
     pargs = (q, pool.k, pool.k_scale, pool.v, pool.v_scale,
-             pool.block_table, posd, NO_WINDOW, rep, n_live)
-    dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd,
-             NO_WINDOW, rep)
+             pool.block_table, posd, win, rep, n_live)
+    dargs = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win, rep)
     # yardstick: SDPA over the slab's live prefix, dequantized bf16
     Sl = n_live * bs
     kd, vd = (dequantize_kv(t[:, :Sl], sc[:, :Sl, :, None], spec)
@@ -324,18 +409,22 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     qh = q.reshape(B, Hkv, T, rep, D).permute(0, 1, 3, 2, 4) \
         .reshape(B, Hkv * rep, T, D).contiguous()
     qpos = posd.long()[:, None] + torch.arange(T, device=dev)
-    mask = (torch.arange(Sl, device=dev)[None, None] <=
-            qpos[:, :, None])[:, None]
+    kpos = torch.arange(Sl, device=dev)[None, None]
+    mask = ((kpos <= qpos[:, :, None]) &
+            (kpos > qpos[:, :, None] - win))[:, None]
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         qh, kd, vd, attn_mask=mask, enable_gqa=True)
     check(torch.isfinite(sdpa().float()).all().item(), "SDPA not finite")
-    # bytes the data needs: each slot's live keys (stored K and V + two
-    # f32 scales), q and out, positions (+ the table rows)
+    # bytes the data needs: each slot's keys inside some row's window
+    # (stored K and V + two f32 scales), q and out, positions (+ the table
+    # rows); ops: each row's kept keys
     rb = store_dim(D, spec) * spec.dtype.itemsize
-    keys = sum(ctx)
-    ops = sum(4 * D * Hkv * (p + r // rep + 1) for p in pos for r in range(R))
+    keys = sum(c - max(0, p - win + 1) for p, c in zip(pos, ctx))
+    ops = sum(4 * D * Hkv * min(p + r // rep + 1, win) for p in pos
+              for r in range(R))
     shape = (f"{fmt} B={B} Hkv={Hkv} rep={rep} D={D} T={T} R={R} bs={bs} "
-             f"n_live={n_live} S={S}")
+             f"n_live={n_live} S={S}" +
+             ("" if window is None else f" window={window}"))
     outs = {}
     for kern, fn, args, plain, extra in (
             ("paged_kvattn", paged_kvattn, pargs + (spec,),
@@ -356,8 +445,8 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
         rows[kern].append(dict(
             shape=shape, max_abs_err=err, tol=tol,
             ms=time_ms(lambda: fn(*args), flush),
-            plain_ms=time_ms(plain, flush),
-            library_ms=time_ms(sdpa, flush),
+            plain_ms=time_ms(plain, flush, iters=5),
+            library_ms=time_ms(sdpa, flush), library=sdpa_backend(sdpa),
             bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
             ops_per_s=BF16_OPS_PER_S))
     check(torch.equal(outs["kvattn"], outs["paged_kvattn"]),
@@ -365,15 +454,15 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     if chunk_checks:
         for t in (0, T // 2, T - 1):
             qt = q[:, :, t * rep:(t + 1) * rep].contiguous()
-            one = kvattn(qt, *dargs[1:5], posd + t, NO_WINDOW, rep, bs, spec)
+            one = kvattn(qt, *dargs[1:5], posd + t, win, rep, bs, spec)
             check(torch.equal(one, outs["kvattn"][:, :, t * rep:(t + 1) * rep]),
                   f"kvattn {shape}: token {t} of a chunk differs from its "
                   "T 1 row")
         for b in range(B):
             one = kvattn(q[b:b + 1].contiguous(), slab.k[b:b + 1],
                          slab.k_scale[b:b + 1], slab.v[b:b + 1],
-                         slab.v_scale[b:b + 1], posd[b:b + 1], NO_WINDOW,
-                         rep, bs, spec)
+                         slab.v_scale[b:b + 1], posd[b:b + 1], win, rep, bs,
+                         spec)
             check(torch.equal(one, outs["kvattn"][b:b + 1]),
                   f"kvattn {shape}: slot {b} alone differs from its batch "
                   "row")
@@ -382,7 +471,8 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
 def attn_phase(dev, flush):
     """Paged and dense-slab attention against their plain versions in
     every KV format at the serve shapes (S 256, block 16), then the tiles
-    too large to stage whole, walked as sub-tiles (``SUB_TILES``)."""
+    too large to stage whole, walked as sub-tiles (``SUB_TILES``), then
+    gemma3-1b's D 288 (``D288_CASES``)."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -394,6 +484,9 @@ def attn_phase(dev, flush):
     for fmt, B, Hkv, rep, D, bs, bps, T, pos in SUB_TILES:
         attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos,
                   rows, T > 1)
+    for fmt, B, Hkv, rep, D, bs, bps, T, pos, window in D288_CASES:
+        attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos,
+                  rows, T > 1, window)
     return rows
 
 
@@ -494,24 +587,27 @@ def to_device(params, dev, policy):
 
 
 
-def new_cache(model, policy, kind, slots, dev, max_seq=256, block_s=16):
+def new_cache(model, policy, kind, slots, dev, max_seq=256, block_s=16,
+              attn_impl="kernel"):
     """A fresh cache of ``kind`` (dense: ``max_seq`` tokens a slot walked
-    in ``block_s`` tiles; paged: 256 tokens a slot in 16-token blocks,
-    slot b's table row mapping its own blocks in shuffled order) and the
-    decode_step keywords the engine passes with it."""
+    in ``block_s`` tiles; paged: ``max_seq`` tokens a slot in 16-token
+    blocks, slot b's table row mapping its own blocks in shuffled order)
+    and the decode_step keywords the engine passes with it."""
     import torch
     if kind == "dense":
         return model.init_cache(policy, slots, max_seq, dev), \
-            lambda p: dict(attn_block_s=block_s)
-    cache = model.init_paged_cache(policy, slots, 16 * slots, 16, 16, dev)
-    perm = torch.randperm(16 * slots, generator=torch.Generator()
+            lambda p: dict(attn_block_s=block_s, attn_impl=attn_impl)
+    bps = max_seq // 16
+    cache = model.init_paged_cache(policy, slots, bps * slots, 16, bps, dev)
+    perm = torch.randperm(bps * slots, generator=torch.Generator()
                           .manual_seed(slots)).to(torch.int32)
-    cache.block_table.copy_(perm.reshape(slots, 16))
+    cache.block_table.copy_(perm.reshape(slots, bps))
 
     def live(p):
         from repro_torch.core.paged_kvcache import blocks_needed
         return dict(max_live=min(1 << (blocks_needed(p + 1, 16) - 1)
-                                 .bit_length(), 16) * 16)
+                                 .bit_length(), bps) * 16,
+                    attn_impl=attn_impl)
     return cache, live
 
 
@@ -563,6 +659,40 @@ def reference_phase(dev):
     return worst
 
 
+def dense_reference(dev):
+    """REDUCED chatglm3, mistral and gemma3 at head dim 288 under
+    w4a16kv8: the kernels on the card against the plain versions on the
+    CPU, teacher-forced over 44 tokens (past gemma3 REDUCED's window of
+    32), same packed weights, both backends."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    pol = get_policy("w4a16kv8")
+    worst = {}
+    for arch, hd in DENSE_REDUCED:
+        cfg = get_reduced(arch)
+        if hd is not None:
+            cfg = dataclasses.replace(cfg, head_dim=hd)
+        model = build(cfg)
+        params = quantize_params(model.init_params(0, "cpu"), pol)
+        stream = torch.randint(1, cfg.vocab, (44,), generator=torch
+                               .Generator().manual_seed(7)).tolist()
+        for kind in ("dense", "paged"):
+            logits = {}
+            for d in ("cpu", dev):
+                cache, kw = new_cache(model, pol, kind, 1, d)
+                logits[str(d)] = teacher_forced(
+                    model, to_device(params, d, pol), pol, cache, kw, stream,
+                    [16, 16, 8, 1, 1, 1, 1])
+            worst[f"{cfg.name} hd{cfg.hd}/{kind}"] = compare_logits(
+                logits["cpu"], logits[str(dev)], TOL, f"{arch} {kind}")
+    return worst
+
+
 def one_shot_teacher_forced(model, params, policy, stream, P, extra,
                             max_seq, dev):
     """Prefill ``stream[:P]`` into a fresh B=1 cache, then feed the rest
@@ -594,8 +724,8 @@ def compare_logits(ref, got, tol, what):
         scale = lc.abs().max().item()
         rel = (lg - lc).abs().max().item() / scale
         rel_max = max(rel_max, rel)
-        check(rel <= tol, f"REDUCED {what}: card vs CPU rel err {rel} > "
-                          f"{tol}")
+        check(rel <= tol, f"{what}: rel err {rel} > {tol} (logits against "
+                          "their reference)")
         top2 = lc.topk(2).values
         if (top2[0] - top2[1]).item() > tol * scale:
             check(lg.argmax().item() == lc.argmax().item(),
@@ -723,7 +853,9 @@ def run_serve(eng, label, prompts, new_tokens, warm, totals):
     gemm = "mpgemm_int8" if eng.policy.int8_matmul else "mpgemm_a16"
     attn = "paged_kvattn" if eng.cache_kind == "paged" else "kvattn"
     want = {k: 0 for k in launches}
-    want[gemm], want[attn] = 7 * L * steps, L * steps
+    want[gemm] = 7 * L * steps
+    if eng.config.attn_impl == "kernel":     # "xla": plain attention
+        want[attn] = L * steps
     check(launches == want, f"{label}: launches {launches} != {want} "
                             f"(L={L}, steps={steps})")
     if eng.allocator is not None:
@@ -740,20 +872,66 @@ def run_serve(eng, label, prompts, new_tokens, warm, totals):
     return res, outs
 
 
-def teacher_forced_check(eng, kind, prompt, out_tokens, label, max_seq=256,
-                         block_s=16):
+def route_logits(eng, kind, prompt, out_tokens, max_seq=256, block_s=16,
+                 chunk=32, attn_impl="kernel"):
     """Feed ``prompt`` + the served tokens through decode_step on the card
-    (32-token chunks, then one token at a time): each served token must be
-    the argmax of its logits up to a near-tie (``TOL``)."""
+    (``chunk``-token chunks, then one token at a time) by the attention
+    route ``attn_impl``; returns the logits of every step from the
+    prompt's last on (the step that predicts each served token)."""
     cache, kw = new_cache(eng.model, eng.policy, kind, 1, eng.device,
-                          max_seq, block_s)
+                          max_seq, block_s, attn_impl)
     n = len(prompt)
-    chunks = [32] * (n // 32) + [1] * (len(out_tokens) - 1)
-    tf = teacher_forced(eng.model, eng.params, eng.policy, cache, kw,
-                        prompt + out_tokens, chunks)
-    for lg, tok in zip(tf[n // 32 - 1:], out_tokens):
+    pre = [chunk] * (n // chunk) + ([n % chunk] if n % chunk else [])
+    return teacher_forced(eng.model, eng.params, eng.policy, cache, kw,
+                          prompt + out_tokens,
+                          pre + [1] * (len(out_tokens) - 1))[len(pre) - 1:]
+
+
+@contextlib.contextmanager
+def exact_attention():
+    """Within the block, the ``attn_impl="xla"`` route computes decode
+    attention exactly: K/V dequantized in f64, scores, softmax and the PV
+    product in f64, the output rounded once to q's dtype."""
+    from repro_torch.core import quantize as Q
+    from repro_torch.models import common as MC
+    fused = MC.A.decode_attention
+
+    def exact(q, cache, spec, pos, window=None, impl="fused"):
+        import torch
+        B, T, H, D = q.shape
+        S, Hkv = cache.k.shape[1], cache.k.shape[2]
+        kv = [(Q.unpack_int4(t, dim=t.dim() - 1) if spec.packed else t)
+              .double() * sc.double()[..., None]
+              for t, sc in ((cache.k, cache.k_scale),
+                            (cache.v, cache.v_scale))]
+        qg = q.reshape(B, T, Hkv, H // Hkv, D).double()
+        scores = torch.einsum("bthrd,bshd->bhrts", qg, kv[0]) / D ** 0.5
+        qpos = pos.long()[:, None] + torch.arange(T, device=q.device)
+        kpos = torch.arange(S, device=q.device)[None, None]
+        keep = kpos <= qpos[..., None]
+        if window is not None:
+            keep &= kpos > qpos[..., None] - window
+        scores = scores.masked_fill(~keep[:, None, None], float("-inf"))
+        out = torch.einsum("bhrts,bshd->bthrd", scores.softmax(-1), kv[1])
+        return out.to(q.dtype).reshape(B, T, H, D)
+
+    MC.A.decode_attention = exact
+    try:
+        yield
+    finally:
+        MC.A.decode_attention = fused
+
+
+def teacher_forced_check(eng, kind, prompt, out_tokens, label, max_seq=256,
+                         block_s=16, chunk=32, attn_impl="kernel"):
+    """:func:`route_logits`, and each served token must be the argmax of
+    its logits up to a near-tie (``TOL``).  Returns the logits."""
+    tf = route_logits(eng, kind, prompt, out_tokens, max_seq, block_s, chunk,
+                      attn_impl)
+    for lg, tok in zip(tf, out_tokens):
         check(lg[tok].item() >= lg.max().item() - TOL * lg.abs().max().item(),
               f"{label}: served token is not the teacher-forced argmax")
+    return tf
 
 
 def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
@@ -956,6 +1134,78 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
     return res
 
 
+def dense_config_serves(dev, totals):
+    """The other dense configs (``DENSE_SERVES``) served at full width on
+    the dense slab and the paged pool (the packed weights built once):
+    every GEMM and attention call on its kernel, dense ≡ paged streams,
+    request 0's tokens the teacher-forced argmax up to a near-tie.
+    gemma3 is also served on the slab by the ``attn_impl="xla"`` opt-out
+    (plain attention, no attention kernel launched): at every
+    teacher-forced step of its request 0 the opt-out's logits, the kernel
+    route's and those of exact attention agree pairwise within
+    ``TOL_ROUTES`` · max |logit| (the routes put the KV scales in
+    different places, so not bitwise)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, EngineConfig
+    runs = []
+    for arch, layers, max_seq, n_req, plen, new, chunk in DENSE_SERVES:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        rng = np.random.default_rng(21)
+        prompts = rng.integers(1, cfg.vocab, (n_req, plen)).tolist()
+        warm = prompts[0][:64]
+        params, streams = None, {}
+        routes = [("dense", "kernel"), ("paged", "kernel")]
+        if arch == "gemma3-1b":
+            routes.append(("dense", "xla"))
+        for kind, impl in routes:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng = Engine(EngineConfig(
+                model=cfg, policy="w4a16kv8", n_slots=4, max_seq=max_seq,
+                block_size=16, prefill_chunk=chunk, cache_kind=kind,
+                attn_impl=impl, seed=0, device=dev), params=params)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            params = eng.params
+            label = f"{arch} L{cfg.n_layers} {kind}/{impl}"
+            res, outs = run_serve(eng, label, prompts, new, warm, totals)
+            streams[kind, impl] = [o.output_token_ids for o in outs]
+            tf = teacher_forced_check(eng, kind, prompts[0],
+                                      streams[kind, impl][0], label,
+                                      max_seq=max_seq, chunk=chunk,
+                                      attn_impl=impl)
+            if impl == "xla":        # the same stream by the kernel route
+                kw = dict(max_seq=max_seq, chunk=chunk)
+                ref = teacher_forced_check(
+                    eng, kind, prompts[0], streams[kind, impl][0],
+                    f"{label} (kernel route)", **kw)
+                with exact_attention():
+                    exact = route_logits(eng, kind, prompts[0],
+                                         streams[kind, impl][0],
+                                         attn_impl="xla", **kw)
+                res["rel_err"] = {name: compare_logits(
+                    a, b, TOL_ROUTES, f"{arch} {name}") for name, a, b in (
+                        ("xla vs kernel route", ref, tf),
+                        ("kernel route vs exact", exact, ref),
+                        ("xla route vs exact", exact, tf))}
+            res.update(arch=arch, n_layers=cfg.n_layers, setup_s=setup_s,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() /
+                       2 ** 30)
+            print("serve:", json.dumps(res))
+            runs.append(res)
+            del eng
+            torch.cuda.empty_cache()
+        check(streams["dense", "kernel"] == streams["paged", "kernel"],
+              f"{arch}: dense and paged token streams differ on the card")
+    return runs
+
+
 def serve_phase(dev):
     """Every serve of ``SERVES`` on both backends (dense and paged streams
     must be identical per policy), then the one-shot serves of
@@ -977,6 +1227,7 @@ def serve_phase(dev):
         runs.append(res)
         print("serve:", json.dumps(res))
     runs += paging_phase(dev, totals)
+    runs += dense_config_serves(dev, totals)
     for k, n in totals.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
     return runs, totals
@@ -1067,7 +1318,8 @@ def main() -> int:
                                      r["tile_sweep_ms"].items()}, "us")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    worst = {**reference_phase(dev), **one_shot_reference(dev)}
+    worst = {**reference_phase(dev), **one_shot_reference(dev),
+             **dense_reference(dev)}
     print(f"reference: REDUCED logits, card vs CPU, max rel err "
           f"{json.dumps(worst)} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()

@@ -9,13 +9,17 @@ from __future__ import annotations
 
 from typing import List
 
-from . import recurrentgemma_2b, smollm_360m, whisper_tiny
+from . import (chatglm3_6b, gemma3_1b, mistral_large_123b, recurrentgemma_2b,
+               smollm_360m, whisper_tiny)
 from .base import ModelConfig
 
-#: architectures the port runs, in the JAX registry's id spelling
-ARCHS: List[str] = ["whisper-tiny", "smollm-360m", "recurrentgemma-2b"]
+#: architectures the port runs, in the JAX registry's id spelling and order
+ARCHS: List[str] = ["whisper-tiny", "chatglm3-6b", "smollm-360m",
+                    "gemma3-1b", "mistral-large-123b", "recurrentgemma-2b"]
 
-_MODULES = {"whisper-tiny": whisper_tiny, "smollm-360m": smollm_360m,
+_MODULES = {"whisper-tiny": whisper_tiny, "chatglm3-6b": chatglm3_6b,
+            "smollm-360m": smollm_360m, "gemma3-1b": gemma3_1b,
+            "mistral-large-123b": mistral_large_123b,
             "recurrentgemma-2b": recurrentgemma_2b}
 
 

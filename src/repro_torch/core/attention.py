@@ -7,15 +7,15 @@ Port of ``repro.core.attention``:
   tensors it runs the hand-written flash-prefill kernel
   (``csrc/flash_prefill.cu``); on CPU tensors its plain version, the port
   of the JAX function's ``q_chunk × kv_chunk`` online-softmax walk.
-* :func:`decode_attention` (``impl="fused"``) and :func:`cross_attention`
-  — the JAX package computes them with XLA outside any Pallas kernel; here
-  they are plain PyTorch (``einsum`` over the dequantized slab) on the
-  card and on the CPU alike.
+* :func:`decode_attention` (``impl="fused"`` and the paper's
+  ``"dequant_first"`` baseline) and :func:`cross_attention` — the JAX
+  package computes them with XLA outside any Pallas kernel; here they are
+  plain PyTorch (``einsum`` over the slab) on the card and on the CPU
+  alike.
 * :func:`prefill_attention` — the full-matrix oracle.
 
 Not ported: ``_flash_triangle`` / ``BLOCK_SKIP`` / ``SP_PREFILL`` (dry-run
-and multi-device knobs, ROADMAP queue 1 item 12) and
-``impl="dequant_first"``.
+and multi-device knobs, ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import ops
 
 from . import quantize as Q
-from .kvcache import KVCache
+from .kvcache import KVCache, dequant_k, dequant_v
 from .precision import FormatSpec
 
 NEG_INF = -1e30
@@ -89,25 +89,36 @@ def _scale_rows(scale: torch.Tensor) -> torch.Tensor:
 
 
 def _attend_slab(q: torch.Tensor, cache: KVCache, spec: FormatSpec,
-                 mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """The fused pipeline over a whole per-layer slab: scores against the
-    stored integers' cast, K scales on the scores, softmax in f32, V scales
-    folded into the probabilities, then the PV product against the cast V.
+                 mask: Optional[torch.Tensor],
+                 dequant_first: bool = False) -> torch.Tensor:
+    """Attention over a whole per-layer slab.  The fused pipeline: scores
+    against the stored integers' cast, K scales on the scores, softmax in
+    f32, V scales folded into the probabilities, then the PV product
+    against the cast V.  ``dequant_first`` (the paper's baseline): the
+    whole slab dequantized to q's dtype first, then plain attention.
     ``mask`` (B, T, S) or None (every key)."""
     B, T, H, D = q.shape
     Hkv = cache.k.shape[2]
     rep = H // Hkv
     qg = q.reshape(B, T, Hkv, rep, D).float()
-    kq = _unpack_if_needed(cache.k, spec).to(q.dtype).float()
+    if dequant_first:
+        kq = dequant_k(cache, spec, q.dtype).float()
+    else:
+        kq = _unpack_if_needed(cache.k, spec).to(q.dtype).float()
     scores = torch.einsum("bthrd,bshd->bhrts", qg, kq)
-    scores = scores * _scale_rows(cache.k_scale)
+    if not dequant_first:
+        scores = scores * _scale_rows(cache.k_scale)
     scores = scores * (1.0 / torch.sqrt(torch.tensor(float(D))))
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores,
                              torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    pv = (probs * _scale_rows(cache.v_scale)).to(q.dtype).float()
-    vq = _unpack_if_needed(cache.v, spec).to(q.dtype).float()
+    if dequant_first:
+        pv = probs.to(q.dtype).float()
+        vq = dequant_v(cache, spec, q.dtype).float()
+    else:
+        pv = (probs * _scale_rows(cache.v_scale)).to(q.dtype).float()
+        vq = _unpack_if_needed(cache.v, spec).to(q.dtype).float()
     out = torch.einsum("bhrts,bshd->bthrd", pv, vq)
     return out.to(q.dtype).reshape(B, T, H, D)
 
@@ -119,14 +130,15 @@ def decode_attention(q: torch.Tensor, cache: KVCache, spec: FormatSpec,
     over a per-layer dense slab.  q (B, T, H, D); ``pos`` a scalar or
     (B,) first query position.
 
-    ``impl="fused"`` only: K scales go on the scores and V scales on the
+    ``impl="fused"``: K scales go on the scores and V scales on the
     probabilities — the JAX XLA path's order, not the decode kernels'
-    (which scale K/V before the dots, ROADMAP queue 3).  Plain PyTorch on
-    every device, as the reference is XLA on every device."""
-    if impl != "fused":
-        raise NotImplementedError(
-            f"decode_attention impl={impl!r} is not yet ported: ROADMAP "
-            "queue 1 item 5")
+    (which scale K/V before the dots, ROADMAP "KV scales").
+    ``impl="dequant_first"``: the paper's baseline, the whole slab
+    dequantized to bf16 before the dots.  Plain PyTorch on every device,
+    as the reference is XLA on every device."""
+    if impl not in ("fused", "dequant_first"):
+        raise ValueError(f"decode_attention: unknown impl {impl!r} "
+                         "(expected 'fused' or 'dequant_first')")
     B, T = q.shape[:2]
     S = cache.max_seq
     dev = q.device
@@ -138,7 +150,7 @@ def decode_attention(q: torch.Tensor, cache: KVCache, spec: FormatSpec,
     mask = kpos[None, None, :] <= qpos[..., None]                # (B, T, S)
     if window is not None:
         mask &= kpos[None, None, :] > (qpos[..., None] - window)
-    return _attend_slab(q, cache, spec, mask)
+    return _attend_slab(q, cache, spec, mask, impl == "dequant_first")
 
 
 def cross_attention(q: torch.Tensor, cache: KVCache, spec: FormatSpec

@@ -136,3 +136,16 @@ def append_per_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         rows = write_rows(cache, pos, k_new.shape[1], valid)
     scatter_rows(cache, k_new, v_new, spec, *rows)
     return cache
+
+
+def dequant_k(cache: KVCache, spec: FormatSpec,
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """The whole K store in ``dtype``: ``(..., S, H, D)``, every value
+    ``float(q) * scale`` rounded once (kv16 is cast)."""
+    return Q.dequantize_kv(cache.k, cache.k_scale[..., None], spec, dtype)
+
+
+def dequant_v(cache: KVCache, spec: FormatSpec,
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """The whole V store in ``dtype``, as :func:`dequant_k`."""
+    return Q.dequantize_kv(cache.v, cache.v_scale[..., None], spec, dtype)

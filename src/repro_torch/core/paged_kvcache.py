@@ -20,8 +20,8 @@ package, all deliberate:
   frontier, and attention masks by position.
 * :func:`copy_block` copies in place, over every layer of the stack.
 
-``gather_view`` / ``live_ctx`` (the gathered-view attention opt-out) come
-with ROADMAP queue 1 item 5.
+:func:`gather_view` / :func:`live_ctx` build the transient dense view of
+the ``attn_impl="xla"`` opt-out (``models.common.attend_decode``).
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .kvcache import scatter_rows, store_dim
+from .kvcache import KVCache, scatter_rows, store_dim
 from .precision import FormatSpec
 
 
@@ -395,3 +395,42 @@ def copy_block(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
         ax = t.dim() + axis
         t.select(ax, int(dst)).copy_(t.select(ax, int(src)))
     return cache
+
+
+def live_ctx(cache: PagedKVCache, max_live: Optional[int] = None) -> int:
+    """Live-context bound in tokens for :func:`gather_view`: ``max_live``
+    (the engine's ``max(position) + 1`` over running slots) rounded up to
+    whole blocks and clipped to ``max_context``; without it, the whole
+    ``max_context`` (the port keeps no advisory length counter)."""
+    if max_live is None:
+        return cache.max_context
+    bs = cache.block_size
+    return min(blocks_needed(max_live, bs) * bs, cache.max_context)
+
+
+def gather_view(cache: PagedKVCache, n_ctx: Optional[int] = None) -> KVCache:
+    """A dense ``(n_slots, n_ctx, H, Dstore)`` view of every slot's first
+    ``n_ctx`` logical tokens, gathered from a per-layer pool through the
+    block table (a new tensor; the pool stays the resident state).
+    Unmapped positions and columns past the table clamp to the pool's
+    last element: finite values the caller's causal mask turns into exact
+    zeros."""
+    bs = cache.block_size
+    n_ctx = cache.max_context if n_ctx is None else n_ctx
+    if n_ctx % bs:
+        raise ValueError(f"n_ctx={n_ctx} is not a multiple of block_size={bs}")
+    nbp = min(n_ctx // bs, cache.blocks_per_slot)
+    tbl = cache.block_table[:, :nbp].long()
+    flat = (tbl[:, :, None] * bs + torch.arange(bs, device=tbl.device)
+            ).reshape(cache.n_slots, nbp * bs)
+    if nbp * bs < n_ctx:       # table shorter than the view: clamp-pad
+        flat = torch.nn.functional.pad(flat, (0, n_ctx - nbp * bs))
+    n_tok = cache.n_blocks * bs
+    flat = flat.clamp(0, n_tok - 1).reshape(-1)
+
+    def gath(pool: torch.Tensor) -> torch.Tensor:
+        rows = pool.reshape((n_tok,) + tuple(pool.shape[2:]))[flat]
+        return rows.reshape((cache.n_slots, n_ctx) + tuple(pool.shape[2:]))
+
+    return KVCache(k=gath(cache.k), v=gath(cache.v),
+                   k_scale=gath(cache.k_scale), v_scale=gath(cache.v_scale))

@@ -39,6 +39,14 @@
 //     registers) and runs S = Q K^T and O += P V with mma.sync m16n8k16,
 //     fragments by ldmatrix (.trans for V), softmax reduced in registers
 //     across the row quad.
+//   * Wide heads (D > 128, gemma3's 288).  A warp's Q fragments (D / 4
+//     registers) and output accumulator (D / 2) would not fit under the
+//     255 registers a thread may hold: two warps share each 16-row group
+//     (256 threads), each computes the same S and softmax (same
+//     instructions on the same operands: the same bits) and keeps the
+//     output of its half of D; Q fragments are re-read from shared
+//     memory by ldmatrix at every k16 step instead of held.  The rows'
+//     arithmetic is the narrow heads', so their bits follow the same rule.
 //   * Asynchronous copies.  The stored K/V bytes and scales come through a
 //     two-stage cp.async ring: tile i + 8's bytes are in flight while tile
 //     i is dequantized and multiplied.
@@ -99,13 +107,20 @@ __device__ __forceinline__ float load_elem(const uint8_t* row, int c) {
 }
 
 constexpr int ROW_TILE = 64;       // query rows per block: 4 warps x 16
-constexpr int THREADS = 128;       // threads per block
+constexpr int THREADS = 128;       // threads per block at D <= 128
 constexpr int SPLITS = 8;          // blocks per cluster; sub-tile u -> u % 8
 constexpr int STAGES = 2;          // cp.async ring depth
 constexpr int KSL = 64;            // keys per online-softmax update
 constexpr int PAD = 8;             // bf16 padding per shared-memory row
 constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
 constexpr int ERR_SMEM = -1;       // launch refused: not even 16 tokens fit
+
+// Warps sharing one 16-row group, each keeping the output of D / d_warps
+// columns, and the block's threads.
+__host__ __device__ constexpr int d_warps(int D) { return D > 128 ? 2 : 1; }
+__host__ __device__ constexpr int threads(int D) {
+  return THREADS * d_warps(D);
+}
 
 __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~size_t(15);
@@ -137,7 +152,9 @@ __host__ __device__ inline Smem smem_layout(int D, int rb, int sub) {
 // Tokens per sub-tile of a bs-token tile: bs when its layout fits in
 // MAX_SMEM; else the largest of 64, 48, 32, 16 that fits (the last
 // sub-tile of a tile is ragged), 0 when none does.  Every format at D <=
-// 128 fits 64: e.g. the 500-token tile at D 64 kv8 is 7 x 64 + 52.
+// 128 fits 64: e.g. the 500-token tile at D 64 kv8 is 7 x 64 + 52; at D
+// 288 kv16 fits 48 (a 64-token block is 48 + 16).  The combine's partial
+// (m, l, acc) area, 64 x (D + 2) f32 (74 KB at D 288), is in the total.
 __host__ __device__ inline int sub_rows(int D, int rb, int bs) {
   if (smem_layout(D, rb, bs).total <= size_t(MAX_SMEM)) return bs;
   for (int sub = KSL; sub >= 16; sub -= 16)
@@ -153,9 +170,10 @@ __host__ __device__ inline int sub_rows(int D, int rb, int bs) {
 // (n_blocks * bs tokens) flatten alike, so the two kernels differ only in
 // tile_tok0 and n_tiles.  With SUB the walk visits the tiles' sub-tiles
 // (sub_rows): sub-tile u is tokens [j0, j0 + len) of tile u / nsub, j0 =
-// (u % nsub) * sub; without it (the tile fits) u is the tile itself.  Rows are token-major (r = t * rep + g): row r's frontier is pos[b]
-// + r / rep.  Stored rows are copied as 16-byte words (ROW_BYTES is a
-// multiple of 16 for every format at D in {32, 64, 128}).
+// (u % nsub) * sub; without it (the tile fits) u is the tile itself.
+// Rows are token-major (r = t * rep + g): row r's frontier is pos[b] + r
+// / rep.  Stored rows are copied as 16-byte words (ROW_BYTES is a
+// multiple of 16 for every format at D in {32, 64, 128, 288}).
 template <Fmt F, int D, bool SUB, class TileTok>
 __device__ void decode_rows(const bf16* __restrict__ q,
                             const uint8_t* __restrict__ k,
@@ -171,6 +189,10 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   constexpr int LD = D + PAD;
   constexpr int NT = D / 8;              // n8 tiles of an output row
   constexpr int NJ = KSL / 8;            // n8 score tiles of a slice
+  constexpr int WD = d_warps(D);         // warps per 16-row group
+  constexpr int NTW = NT / WD;           // n8 output tiles a warp keeps
+  constexpr int NTHR = threads(D);
+  constexpr bool QREG = WD == 1;         // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   const int sub = SUB ? sub_rows(D, RB, bs) : bs;   // > 0: launch_rows
   const int nsub = SUB ? (bs + sub - 1) / sub : 1;    // sub-tiles a tile
@@ -186,6 +208,9 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   const int b = blockIdx.z / nz, row0 = (blockIdx.z % nz) * ROW_TILE;
   const int rows = min(ROW_TILE, R - row0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the warp's 16-row group and its part of D
+  const int wgrp = WD == 1 ? warp : warp % (ROW_TILE / 16);
+  const int dpart = WD == 1 ? 0 : warp / (ROW_TILE / 16);
   const int g = lane >> 2, t = lane & 3;
   const size_t q_off = (size_t(b) * Hkv + h) * R + row0;   // in rows
   const int p0 = pos[b];
@@ -206,20 +231,20 @@ __device__ void decode_rows(const bf16* __restrict__ q,
     const int j0 = SUB ? u % nsub * sub : 0;
     const int len = SUB ? min(sub, bs - j0) : bs;
     const size_t tok0 = tile_tok0(b, SUB ? u / nsub : u) + j0;
-    for (int i = threadIdx.x; i < len * VEC; i += THREADS) {
+    for (int i = threadIdx.x; i < len * VEC; i += NTHR) {
       const int j = i / VEC, w = i % VEC;
       const size_t off = ((tok0 + j) * Hkv + h) * RB + w * 16;
       ptx::cp_async16(base + i * 16, k + off);
       ptx::cp_async16(base + sub * RB + i * 16, v + off);
     }
-    for (int j = threadIdx.x; j < len; j += THREADS) {
+    for (int j = threadIdx.x; j < len; j += NTHR) {
       ptx::cp_async4(ks + j, k_scale + (tok0 + j) * Hkv + h);
       ptx::cp_async4(ks + sub + j, v_scale + (tok0 + j) * Hkv + h);
     }
   };
 
   // Q rows (zeros past R), then the split's first tile
-  for (int i = threadIdx.x; i < ROW_TILE * (D / 8); i += THREADS) {
+  for (int i = threadIdx.x; i < ROW_TILE * (D / 8); i += NTHR) {
     const int r = i / (D / 8), w = i % (D / 8);
     const bool ok = r < rows;
     ptx::cp_async16(qs + r * LD + w * 8, q + (q_off + (ok ? r : 0)) * D + w * 8,
@@ -230,28 +255,30 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   ptx::cp_commit();
   const bf16 zero = __float2bfloat16_rn(0.f);
   const int n16 = (sub + 15) / 16 * 16;
-  for (int i = threadIdx.x; i < (n16 - sub) * LD; i += THREADS) {
+  for (int i = threadIdx.x; i < (n16 - sub) * LD; i += NTHR) {
     kd[sub * LD + i] = zero;               // padding keys: zero and masked
     vd[sub * LD + i] = zero;
   }
   ptx::cp_wait<1>();                       // Q has arrived
   __syncthreads();
 
-  const int wrow = warp * 16;
+  const int wrow = wgrp * 16;
   const bool active = wrow < rows;         // warp-uniform
-  uint32_t qf[D / 16][4];
-  if (active) {
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
+    if (active) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ptx::load_a(qf[kk], qs + wrow * LD + kk * 16, LD, lane);
+      for (int kk = 0; kk < D / 16; ++kk)
+        ptx::load_a(qf[kk], qs + wrow * LD + kk * 16, LD, lane);
+    }
   }
   const int qa = p0 + (row0 + wrow + g) / rep;       // frontier of row g
   const int qb = p0 + (row0 + wrow + g + 8) / rep;   // and of row g + 8
   const float inv_sqrt_d = 1.0f / sqrtf(static_cast<float>(D));
 
-  float acc[NT][4];
+  float acc[NTW][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NTW; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -273,7 +300,7 @@ __device__ void decode_rows(const bf16* __restrict__ q,
     // _dequant_tile: bf16(float(q) * scale), 8 elements a thread-step
     const unsigned char* base = smem + stage * L.stage;
     const float* ks = reinterpret_cast<const float*>(base + 2 * sub * RB);
-    for (int i = threadIdx.x; i < dq_rows * (D / 8); i += THREADS) {
+    for (int i = threadIdx.x; i < dq_rows * (D / 8); i += NTHR) {
       const int j = i / (D / 8), c0 = (i % (D / 8)) * 8;
       uint32_t kw[4] = {0u, 0u, 0u, 0u}, vw[4] = {0u, 0u, 0u, 0u};
       if (!SUB || j < len) {
@@ -303,18 +330,36 @@ __device__ void decode_rows(const bf16* __restrict__ q,
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+        if constexpr (QREG) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-          for (int j = 0; j < NJ / 2; ++j) {
-            if (j >= nk) break;
-            uint32_t bf[4];
-            ptx::load_b_rows(bf, kd + (k0 + 16 * j) * LD + kk * 16, LD, lane);
-            ptx::mma_bf16(sc[2 * j], qf[kk], bf);
-            ptx::mma_bf16(sc[2 * j + 1], qf[kk], bf + 2);
+            for (int j = 0; j < NJ / 2; ++j) {
+              if (j >= nk) break;
+              uint32_t bf[4];
+              ptx::load_b_rows(bf, kd + (k0 + 16 * j) * LD + kk * 16, LD,
+                               lane);
+              ptx::mma_bf16(sc[2 * j], qf[kk], bf);
+              ptx::mma_bf16(sc[2 * j + 1], qf[kk], bf + 2);
+            }
+        } else {                           // Q fragments re-read per k16
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t qk[4];
+            ptx::load_a(qk, qs + wrow * LD + kk * 16, LD, lane);
+#pragma unroll
+            for (int j = 0; j < NJ / 2; ++j) {
+              if (j >= nk) break;
+              uint32_t bf[4];
+              ptx::load_b_rows(bf, kd + (k0 + 16 * j) * LD + kk * 16, LD,
+                               lane);
+              ptx::mma_bf16(sc[2 * j], qk, bf);
+              ptx::mma_bf16(sc[2 * j + 1], qk, bf + 2);
+            }
           }
+        }
         const int kbase = (SUB ? u / nsub : u) * bs + j0 + k0;   // column 0
-        ptx::softmax_update<NJ, NT>(
+        ptx::softmax_update<NJ, NTW>(
             sc, inv_sqrt_d,
             [&](int j, int i) {
               const int col = k0 + 8 * j + 2 * t + (i & 1);
@@ -323,7 +368,8 @@ __device__ void decode_rows(const bf16* __restrict__ q,
               return col < len && kpos <= qp && kpos > qp - window;
             },
             m, l, acc);
-        ptx::pv_update<NJ, NT>(sc, vd + k0 * LD, LD, lane, nk, acc);
+        ptx::pv_update<NJ, NTW>(sc, vd + k0 * LD + dpart * (D / WD), LD,
+                                lane, nk, acc);
       }
     }
     stage ^= 1;
@@ -337,15 +383,15 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   float* pa = pl + ROW_TILE;               // (ROW_TILE, D)
   if (active) {
     const int ra = wrow + g, rb = ra + 8;
-    if (t == 0) {
+    if (t == 0 && dpart == 0) {
       pm[ra] = m[0];
       pl[ra] = l[0];
       pm[rb] = m[1];
       pl[rb] = l[1];
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + 2 * t;
+    for (int n = 0; n < NTW; ++n) {
+      const int d = dpart * (D / WD) + n * 8 + 2 * t;
       pa[ra * D + d] = acc[n][0];
       pa[ra * D + d + 1] = acc[n][1];
       pa[rb * D + d] = acc[n][2];
@@ -354,7 +400,7 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   }
   cluster.sync();
   // block c finishes rows c, c + 8, ...: splits combined in rank order
-  for (int i = threadIdx.x; i < ROW_TILE / SPLITS * D; i += THREADS) {
+  for (int i = threadIdx.x; i < ROW_TILE / SPLITS * D; i += NTHR) {
     const int r = c + SPLITS * (i / D), d = i % D;
     if (r >= rows) continue;
     float mx = NEG_INF;
@@ -394,7 +440,7 @@ int launch_rows(void (*whole)(KArgs...), void (*subtiled)(KArgs...), int B,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(SPLITS, Hkv, B * ((R + ROW_TILE - 1) / ROW_TILE));
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads(D));
   cfg.dynamicSmemBytes = L.total;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -417,6 +463,7 @@ int dispatch_d(int D, const Fn& fn) {
     case 32: return fn.template run<F, 32>();
     case 64: return fn.template run<F, 64>();
     case 128: return fn.template run<F, 128>();
+    case 288: return fn.template run<F, 288>();
     default: return int(cudaErrorInvalidValue);
   }
 }

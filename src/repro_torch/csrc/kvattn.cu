@@ -34,7 +34,7 @@ namespace {
 using flash::Fmt;
 
 template <Fmt F, int D, bool SUB>
-__global__ void __launch_bounds__(flash::THREADS)
+__global__ void __launch_bounds__(flash::threads(D))
 kvattn_kernel(const __nv_bfloat16* __restrict__ q,
               const uint8_t* __restrict__ k, const float* __restrict__ k_scale,
               const uint8_t* __restrict__ v, const float* __restrict__ v_scale,

@@ -19,11 +19,11 @@
 // parallel and combine in rank order, the dots run on mma.sync and the
 // stored bytes come through a cp.async ring (flash_block.cuh).
 //
-// Grid: (8, Hkv, B * ceil(R / 64)), clusters of 8 along x; 128 threads;
-// the block program is flash::decode_rows.  For each logical block s <
-// n_live it visits, the block reads tbl[b, s] itself and clamps the
-// sentinel (n_blocks = unmapped) to n_blocks - 1 — its contents are
-// masked to an exact no-op by the causal test.
+// Grid: (8, Hkv, B * ceil(R / 64)), clusters of 8 along x; 128 threads
+// (256 at D 288); the block program is flash::decode_rows.  For each
+// logical block s < n_live it visits, the block reads tbl[b, s] itself and
+// clamps the sentinel (n_blocks = unmapped) to n_blocks - 1 — its contents
+// are masked to an exact no-op by the causal test.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,7 +34,7 @@ namespace {
 using flash::Fmt;
 
 template <Fmt F, int D, bool SUB>
-__global__ void __launch_bounds__(flash::THREADS)
+__global__ void __launch_bounds__(flash::threads(D))
 paged_kvattn_kernel(const __nv_bfloat16* __restrict__ q,
                     const uint8_t* __restrict__ k,
                     const float* __restrict__ k_scale,

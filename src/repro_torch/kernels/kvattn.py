@@ -18,7 +18,7 @@ from . import _build
 from .ref import kvattn_ref
 
 #: head dims the attention kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 288)
 #: the kernels' KV format codes (``flash::Fmt`` in csrc/flash_block.cuh)
 FORMAT_CODES = {"kv8": 0, "kv4": 1, "kvfp8": 2, "kv16": 3}
 #: returned by the attention kernels when not even a 16-token sub-tile

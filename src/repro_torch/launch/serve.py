@@ -2,13 +2,18 @@
 
 Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
 Reports throughput and TTFT / latency percentiles.  ``--arch`` takes the
-ported architectures (smollm-360m, recurrentgemma-2b, whisper-tiny),
-REDUCED unless ``--full``.  The KV store is the dense slab unless
+ported architectures (the dense smollm-360m, gemma3-1b, chatglm3-6b and
+mistral-large-123b, the hybrid recurrentgemma-2b, the audio
+whisper-tiny), REDUCED unless ``--full``; mistral-large-123b's full
+configuration does not fit one card (the engine draws its ~246 GB of
+bf16 weights before packing).  The KV store is the dense slab unless
 ``--cache-kind paged`` (dense family only), where
 ``--enable-prefix-caching`` shares full prompt-prefix blocks and
 ``--enable-block-growth`` (with ``--reserve-headroom-blocks``) admits on
 prompt blocks and preempts when the pool runs dry; ``--policy`` takes any
-``WxAyKVz`` name.
+``WxAyKVz`` name; ``--attn-impl xla`` swaps the decode-attention kernels
+for the reference's opt-out (plain fused attention over the slab or a
+view gathered from the pool).
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-360m --full \
@@ -16,6 +21,10 @@ Usage:
     python -m repro_torch.launch.serve --arch recurrentgemma-2b --full \
         --max-seq 512 --prompt-len 128
     python -m repro_torch.launch.serve --arch whisper-tiny --device cpu
+    python -m repro_torch.launch.serve --arch gemma3-1b --full \
+        --max-seq 1536 --prompt-len 1100 --prefill-chunk 128
+    python -m repro_torch.launch.serve --arch chatglm3-6b --device cpu \
+        --attn-impl xla --cache-kind paged
     python -m repro_torch.launch.serve --full --cache-kind paged \
         --enable-prefix-caching --enable-block-growth --n-blocks 32
 """

@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import attention as A
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.gemm import mp_matmul
 from repro_torch.core.packing import PackedWeight, pack_weight
@@ -87,17 +88,36 @@ def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
 
 def attend_decode(q: torch.Tensor, cache_l, spec: FormatSpec, pos,
                   window=None, block_s: Optional[int] = None,
-                  max_live: Optional[int] = None) -> torch.Tensor:
+                  max_live: Optional[int] = None,
+                  impl: str = "kernel") -> torch.Tensor:
     """Decode / chunked-prefill attention over a per-layer cache of either
     backend.  q: (B, T, H, D); ``pos`` is the per-slot first query
     position; token t attends causally through ``pos + t``.
 
-    A paged cache goes to the multi-query paged kernel, which resolves the
-    block table itself for any T, its walk bounded by ``max_live``; a
-    dense slab to the slab kernel at ``block_s`` (default 256, clipped to
-    the slab).  The engine sets ``block_s`` to the paged block size, so
-    both backends walk the same tiles and stay bitwise equal."""
-    if isinstance(cache_l, PKV.PagedKVCache):
+    ``impl="kernel"``: a paged cache goes to the multi-query paged kernel,
+    which resolves the block table itself for any T, its walk bounded by
+    ``max_live``; a dense slab to the slab kernel at ``block_s`` (default
+    256, clipped to the slab).  The engine sets ``block_s`` to the paged
+    block size, so both backends walk the same tiles and stay bitwise
+    equal.
+
+    ``impl="xla"`` (the reference's opt-out, plain PyTorch here): a paged
+    cache gathers a dense view of its first ``live_ctx`` tokens through
+    the block table — ``max_live`` counts the first query row's context,
+    so it is widened by the chunk's ``T - 1`` further positions — and a
+    dense slab is read whole, both by the fused attention of
+    :func:`repro_torch.core.attention.decode_attention`."""
+    if impl not in ("kernel", "xla"):
+        raise ValueError(f"attend_decode: unknown impl {impl!r} "
+                         "(expected 'kernel' or 'xla')")
+    paged = isinstance(cache_l, PKV.PagedKVCache)
+    if impl == "xla":
+        if paged:
+            ml = None if max_live is None else max_live + q.shape[1] - 1
+            cache_l = PKV.gather_view(cache_l,
+                                      n_ctx=PKV.live_ctx(cache_l, ml))
+        return A.decode_attention(q, cache_l, spec, pos, window=window)
+    if paged:
         return ops.kvattn_decode_paged(q, cache_l, spec, pos, window=window,
                                        max_live=max_live)
     return ops.kvattn_decode(q, cache_l, spec, pos, window=window,

@@ -130,6 +130,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
                 max_live: Optional[int] = None,
                 valid: Optional[torch.Tensor] = None,
                 attn_block_s: Optional[int] = None,
+                attn_impl: str = "kernel",
                 ) -> Tuple[torch.Tensor, Any]:
     """tokens: (B, T); pos: (B,) position of each slot's first new token.
 
@@ -143,7 +144,10 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     dropped, and the logits come from each slot's last valid row.
     ``max_live`` (tokens) bounds the paged kernel's walk at the batch's
     live-context high-water mark; ``attn_block_s`` is the dense kernel's
-    tile height.  Returns ((B, V) logits, the cache)."""
+    tile height; ``attn_impl`` picks the kernels (``"kernel"``) or the
+    reference's gathered-view opt-out (``"xla"``,
+    :func:`repro_torch.models.common.attend_decode`).  Returns ((B, V)
+    logits, the cache)."""
     if not cfg.use_rope:
         raise NotImplementedError(
             "sinusoidal positions are not ported yet (ROADMAP queue 1 "
@@ -172,7 +176,8 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
             KV.append_per_slot(cache_l, k, v, pos, policy.kv, rows=rows)
         attn = C.attend_decode(q, cache_l, policy.kv, pos,
                                window=layer_window(cfg, i),
-                               block_s=attn_block_s, max_live=max_live)
+                               block_s=attn_block_s, max_live=max_live,
+                               impl=attn_impl)
         x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
         h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(h2, lp, cfg, policy)

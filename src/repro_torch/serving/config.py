@@ -2,11 +2,11 @@
 
 Port of ``repro.serving.config`` for the dense-slab and paged engines of
 the dense family (reservation or block growth with preemption, with or
-without prefix caching) and the one-shot-prefill engines of the hybrid and
-audio families.  Every knob of the JAX ``EngineConfig`` is here, with its
-rules; the ones whose feature is not ported yet (``attn_impl="xla"``)
-raise :class:`EngineError` naming the ROADMAP item that ports it, instead
-of silently doing something else.  New knob: ``device``
+without prefix caching; the kernels or the ``attn_impl="xla"`` opt-out)
+and the one-shot-prefill engines of the hybrid and audio families.  Every
+knob of the JAX ``EngineConfig`` is here, with its rules; a family not
+ported yet raises :class:`EngineError` naming the ROADMAP item that ports
+it, instead of silently doing something else.  New knob: ``device``
 (``"cuda"`` by default; the CPU only when asked for — a missing card is an
 error, never a fallback).
 """
@@ -30,10 +30,6 @@ class EngineError(ValueError):
     an inadmissible request (a ``ValueError``)."""
 
 
-def _not_ported(what: str, item: str) -> EngineError:
-    return EngineError(f"{what} is not yet ported: ROADMAP queue 1 {item}")
-
-
 @dataclasses.dataclass
 class EngineConfig:
     """Validated serving-engine configuration.
@@ -52,7 +48,9 @@ class EngineConfig:
     between requests; ``enable_block_growth`` (paged) reserves only the
     prompt's blocks (+ ``reserve_headroom_blocks``) at admission, grows a
     block per boundary crossing and preempts the youngest request when the
-    pool runs dry.
+    pool runs dry.  ``attn_impl`` is ``"kernel"`` (the decode-attention
+    kernels) or ``"xla"`` (the reference's opt-out: plain fused attention
+    over the slab, or over a dense view gathered from the pool).
     """
 
     model: ModelConfig
@@ -90,10 +88,7 @@ class EngineConfig:
             raise EngineError(
                 f"unknown cache_kind {self.cache_kind!r} "
                 "(expected 'dense' or 'paged')")
-        if self.attn_impl == "xla":
-            raise _not_ported("attn_impl='xla'",
-                              "item 5 (the gathered-view attention opt-out)")
-        if self.attn_impl != "kernel":
+        if self.attn_impl not in ("kernel", "xla"):
             raise EngineError(
                 f"unknown attn_impl {self.attn_impl!r} "
                 "(expected 'kernel' or 'xla')")

@@ -41,11 +41,13 @@ form one token stream per request, ``Scheduler.plan`` picks the step width
 batched :func:`decode_step` feeds each running slot its next ``valid``
 tokens — the chunk's KV quantize-and-written straight into the slot's slab
 rows or pool blocks, attention by the multi-query slab or paged kernel
-for prefill chunks and decode alike, every packed GEMM by the A16 or int8
-kernel.  The slab kernel walks ``block_size`` tiles when that divides
-``max_seq`` (else one ``max_seq`` tile), so the two backends traverse the
-same tiles and serve byte-identical greedy streams.  A slot emits a token only
-on the iteration that consumes its last unfed stream token.
+for prefill chunks and decode alike (or, under ``attn_impl="xla"``, by
+plain fused attention over the slab or a view gathered from the pool),
+every packed GEMM by the A16 or int8 kernel.  The slab kernel walks
+``block_size`` tiles when that divides ``max_seq`` (else one ``max_seq``
+tile), so the two backends traverse the same tiles and serve
+byte-identical greedy streams.  A slot emits a token only on the
+iteration that consumes its last unfed stream token.
 
 The hybrid (recurrent state) and audio (encoder inputs) families keep the
 JAX engine's one-shot path instead: at admission the prompt minus its last
@@ -226,6 +228,7 @@ class Engine:
         kw = {}
         if self._chunked:
             kw = dict(max_live=max_live, attn_block_s=self.attn_block_s,
+                      attn_impl=self.config.attn_impl,
                       valid=torch.from_numpy(valid).to(dev))
         logits, self.cache = self.model.decode_step(
             self.params, self.policy, torch.from_numpy(tokens).to(dev),

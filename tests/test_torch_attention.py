@@ -211,10 +211,13 @@ def test_cross_attention_matches_jax(fmt):
 
 
 def test_decode_attention_other_impls_raise():
+    """``fused`` and ``dequant_first`` are the impls; any other name (the
+    JAX package's ``pallas`` is the port's kernel route, not an impl of
+    this function) raises."""
     _, ct, spec_t, _ = _slab_pair(0, "kv8", 1, 8, 1, 32, 8)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="unknown impl"):
         TA.decode_attention(torch.zeros((1, 1, 1, 32), dtype=torch.bfloat16),
-                            ct, spec_t, 0, impl="dequant_first")
+                            ct, spec_t, 0, impl="pallas")
 
 
 def test_layer_norm_matches_jax():

@@ -131,7 +131,15 @@ ATTN_CASES = [
     #                               splits 0, 2, 6 and 1 of one batch
     (2, 2, 2, 32, 8, 16, [90, 45], 4, 37, None),               # window edge
     #                               inside a split, several splits live
+    # gemma3-1b's heads (D 288, 4 query heads on 1 KV head) and window
+    (4, 1, 4, 288, 16, 96, [1100, 1030, 1499, 37], 1, 1024, None),  # the
+    #                               window cuts three of the four contexts
+    (4, 1, 4, 288, 16, 96, [1100, 1030, 1499, 37], 1, None, None),  # global
+    (4, 1, 4, 288, 16, 96, [1010, 0, 1400, 1020], 32, 1024, None),  # chunks
+    #                               whose rows straddle the window's edge
 ]
+#: the D 288 chunk case of ATTN_CASES
+WIDE_CHUNK_CASE = ATTN_CASES[-1]
 
 #: decode attention's bar against its plain version: two bf16 ulps of the
 #: largest output (see the module docstring)
@@ -241,6 +249,29 @@ def test_attention_rows_independent_of_chunking(dev, fmt):
         assert torch.equal(paged, want), t
 
 
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_wide_head_rows_independent_of_chunking(dev, fmt):
+    """At D 288 (two warps per row group, each half of D) a 32-token
+    chunk straddling the window's lower edge gives the bits of the same
+    tokens fed one at a time, on both backends."""
+    layer, slab, q, posd, win, rep, nl, bs = _attn_inputs(WIDE_CHUNK_CASE,
+                                                          fmt, dev)
+    spec = spec_of(fmt)
+    chunk = kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win,
+                   rep, bs, spec)
+    for t in (0, 13, 14, 31):      # slot 0: the window cuts from t 14
+        qt = q[:, :, t * rep:(t + 1) * rep].contiguous()
+        pt = posd + t
+        one = kvattn(qt, slab.k, slab.k_scale, slab.v, slab.v_scale, pt, win,
+                     rep, bs, spec)
+        paged = paged_kvattn(qt, layer.k, layer.k_scale, layer.v,
+                             layer.v_scale, layer.block_table, pt, win, rep,
+                             nl, spec)
+        want = chunk[:, :, t * rep:(t + 1) * rep]
+        assert torch.equal(one, want), t
+        assert torch.equal(paged, want), t
+
+
 #: tiles whose staging needs more than the 227 KB of shared memory a block
 #: may use, walked as sub-tiles (``flash::sub_rows``): (format, case) with
 #: the case laid out as in ATTN_CASES
@@ -254,6 +285,8 @@ SUB_TILE_CASES = [
     #                               sub-tile followed by the next tile: its
     #                               padding rows' positions are live keys
     ("kv16", (2, 5, 3, 64, 512, 2, [700, 300], 4, None, None)),  # 2 x 256
+    ("kv16", (2, 1, 4, 288, 64, 24, [1100, 700], 4, 1024, None)),  # D 288:
+    #                               64-token blocks as 48 + 16, window
 ]
 
 
@@ -312,6 +345,42 @@ GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
 #: token counts: decode (1, 4), the kernels' token tiles of 8 / 16 / 32 /
 #: 128 (int8: 64) and their edges (16, 17, 37, 64), a full prefill chunk
 GEMM_MS = [1, 4, 16, 17, 37, 64, 128]
+
+
+#: the packed GEMMs of gemma3-1b, chatglm3-6b and mistral-large-123b, as
+#: ``models.common.pick_blocks`` tiles them: K, N, bk, bn
+WIDE_GEMM_SHAPES = [
+    (1152, 1152, 128, 128), (1152, 288, 128, 96), (1152, 6912, 128, 128),
+    (6912, 1152, 128, 128),
+    (4096, 4096, 128, 128), (4096, 256, 128, 128), (4096, 13696, 128, 128),
+    (13696, 4096, 128, 128),
+    (12288, 12288, 128, 128), (12288, 1024, 128, 64),
+    (12288, 28672, 128, 128), (28672, 12288, 128, 128),
+]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("shape", WIDE_GEMM_SHAPES)
+def test_gemms_match_plain_at_dense_config_widths(dev, shape, M, bits):
+    """Both GEMM kernels against their plain versions at the three dense
+    configs' widths (weights drawn on the card: the largest holds 352 M
+    values)."""
+    K, N, bk, bn = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K + N + M + bits)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
+    del w
+    x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+    for y, plain in ((mpgemm_a16(x, to_kernel_layout(pw, "a16")),
+                      ref.mpgemm_ref(x, pw)),
+                     (mpgemm_int8(xq, xs, to_kernel_layout(pw, "a8")),
+                      ref.mpgemm_int8_ref(xq, xs, pw))):
+        torch.cuda.synchronize()
+        err = (y.float() - plain.float()).abs().max().item()
+        assert err <= 2 ** -7 * plain.float().abs().max().item(), err
 
 
 def _gemm_inputs(shape, M, bits, dev):

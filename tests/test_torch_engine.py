@@ -9,11 +9,14 @@
   block boundaries, slot churn, eos) — the JAX suite's
   ``TestPagedDenseEquivalence``, inside the port.
 * ``EngineConfig`` rules: invalid values (the JAX package's dense/paged
-  rules among them) and the feature not yet ported (``attn_impl="xla"``)
-  raise ``EngineError``; so does the default device when CUDA is missing.
-  Every ``WxAyKVz`` policy builds an engine that serves.
+  rules among them) and the families not yet ported (moe, vlm) raise
+  ``EngineError``; so does the default device when CUDA is missing.
+  Every ``WxAyKVz`` policy, and ``attn_impl="xla"`` on both backends,
+  builds an engine that serves.
 * Lifecycle: abort returns blocks, stream() reassembles generate().
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -135,7 +138,10 @@ def test_invalid_configs_rejected(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(attn_impl="xla"), "item 5"),
+    (dict(model=dataclasses.replace(SMOLLM, family="moe", n_experts=4,
+                                    topk=2)), "item 7"),
+    (dict(model=dataclasses.replace(SMOLLM, family="vlm",
+                                    n_img_tokens=16)), "item 7"),
 ])
 def test_unported_features_raise(kw, item):
     args = dict(KW)
@@ -148,12 +154,14 @@ def test_unported_features_raise(kw, item):
 @pytest.mark.parametrize("kw", [
     dict(cache_kind="dense"), dict(policy="w8a16kv8"),
     dict(policy="w4a16kv4"), dict(enable_prefix_caching=True),
-    dict(enable_block_growth=True),
+    dict(enable_block_growth=True), dict(attn_impl="xla"),
+    dict(attn_impl="xla", cache_kind="dense"),
 ])
 def test_formerly_unported_configs_serve(kw):
-    """The dense backend, the policies beyond w4a16kv8, and the paged
-    pool's prefix caching and block growth build and serve (they raised
-    "not yet ported" before their slices landed)."""
+    """The dense backend, the policies beyond w4a16kv8, the paged pool's
+    prefix caching and block growth, and the gathered-view attention
+    opt-out on both backends build and serve (they raised "not yet
+    ported" before their slices landed)."""
     args = dict(KW)
     args.update(kw)
     eng = Engine(EngineConfig(**args))
