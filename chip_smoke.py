@@ -27,15 +27,25 @@ Phases, in order (any failure raises and exits nonzero):
    at D 128), and for gemma3-1b's head dim 288 (``D288_CASES``: every
    format, T 1 and T 32 against window 1024, a global layer, a sub-tiled
    kv16 block).  Both GEMMs also run at the widths of gemma3-1b,
-   chatglm3-6b and mistral-large-123b (``DENSE_GEMM_SHAPES``).
+   chatglm3-6b and mistral-large-123b (``DENSE_GEMM_SHAPES``) and of
+   llama4-scout-17b-a16e, arctic-480b (its 128-wide router among them)
+   and internvl2-2b (M 319 and its img_proj at M 256,
+   ``MOE_VLM_GEMM_SHAPES``); decode attention at their heads (rep 5, 7
+   and 2 at D 128, ``MOE_VLM_ATTN``) and flash prefill at internvl2's
+   one-shot prefill (S 319, 16 heads on 8, D 128).
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
    recurrentgemma-2b and whisper-tiny REDUCED, one-shot ``prefill`` then
    teacher-forced ``decode_step``, under w4a16kv8 and w16a16kv16;
    chatglm3-6b, mistral-large-123b and gemma3-1b (at head dim 288)
-   REDUCED on both backends under w4a16kv8 (``DENSE_REDUCED``); logits
-   must agree.
+   REDUCED on both backends under w4a16kv8 (``DENSE_REDUCED``);
+   llama4-scout and arctic REDUCED on both backends under w4a16kv8 and
+   w4a8kv4, the card's routing held to the CPU's up to a near-tie
+   (``RoutingHold``, flips counted); internvl2 REDUCED one-shot with the
+   other one-shot families; logits must agree.  Then ``moe_ffn`` at
+   llama4's full width on the card: the sort dispatch ≡ the einsum one,
+   bit for bit, with ample capacity.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
    prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
@@ -44,14 +54,16 @@ Phases, in order (any failure raises and exits nonzero):
    serving 4 requests of 32-token prompts and 16 new tokens.  Then the
    one-shot-prefill families on the dense slab under w4a16kv8: full-width
    recurrentgemma-2b (26 layers, d_model 2560, vocab 256000), max_seq 512,
-   4 requests of 128-token prompts, and full-width whisper-tiny (4 + 4
-   layers, 1500 frames), max_seq 256, 4 requests of 16-token prompts, 16
-   new tokens each.  Around each serve the launch counters are zeroed just
+   4 requests of 128-token prompts, full-width whisper-tiny (4 + 4
+   layers, 1500 frames), max_seq 256, 4 requests of 16-token prompts, and
+   internvl2-2b (24 layers, 256 stub image rows before each prompt),
+   max_seq 384, 4 requests of 64-token prompts, 16 new tokens each.  Around each serve the launch counters are zeroed just
    before and read just after: every GEMM must have gone through the
    kernel its policy routes to and every attention call through its
    kernel (smollm: 7 GEMMs and 1 attention call per layer and step; the
-   one-shot families: 8 flash-prefill launches per request, and their
-   packed GEMMs per prefill and per step on the A16 kernel).  For each
+   one-shot families: 8 flash-prefill launches per request, 24 for
+   internvl2, their packed GEMMs per prefill and per step on the A16
+   kernel, and internvl2's decode attention on the slab kernel).  For each
    smollm policy the dense and paged token streams must be identical.
    One request per w4a16kv8 serve is replayed teacher-forced and must
    follow its argmax.
@@ -73,7 +85,10 @@ Phases, in order (any failure raises and exits nonzero):
    counted as in 5, dense ≡ paged streams, request 0 the teacher-forced
    argmax; gemma3 once more on the slab by ``attn_impl="xla"``, its
    logits, the kernel route's and exact attention's pairwise within
-   ``TOL_ROUTES``.
+   ``TOL_ROUTES``.  Then the moe configs (``MOE_SERVES``) the same way:
+   llama4-scout-17b-a16e at full width and 8 of 48 layers, arctic-480b at
+   full width and 1 of 35 (8 packed GEMMs a layer and step: its router is
+   one).
 8. One JSON line describing each kernel, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -121,6 +136,28 @@ DENSE_GEMM_SHAPES = [
     ("mistral w1/w3", 12288, 28672, 128, 128),
     ("mistral w2", 28672, 12288, 128, 128)]
 GEMM_MS = (4, 128)           # n_slots x t_step at decode and at prefill
+#: the packed GEMMs of the moe and vlm configs, as ``pick_blocks`` tiles
+#: them, with the token counts their serves give them (name, K, N, bk, bn,
+#: Ms): llama4-scout-17b-a16e's attention and shared expert and
+#: arctic-480b's attention, dense residual and 128-wide router at decode
+#: and a 32-token chunk of 4 slots; internvl2-2b's at decode and at the
+#: one-shot prefill of 256 image + 63 prompt rows, its img_proj at the 256
+#: image rows
+MOE_VLM_GEMM_SHAPES = [
+    ("llama4 wq/wo", 5120, 5120, 64, 64, GEMM_MS),
+    ("llama4 wk/wv", 5120, 1024, 64, 64, GEMM_MS),
+    ("llama4 ws1/ws3", 5120, 8192, 64, 128, GEMM_MS),
+    ("llama4 ws2", 8192, 5120, 128, 64, GEMM_MS),
+    ("arctic wq/wo", 7168, 7168, 64, 64, GEMM_MS),
+    ("arctic wk/wv", 7168, 1024, 64, 64, GEMM_MS),
+    ("arctic ws1/ws3", 7168, 4864, 64, 128, GEMM_MS),
+    ("arctic ws2", 4864, 7168, 128, 64, GEMM_MS),
+    ("arctic router", 7168, 128, 64, 128, GEMM_MS),
+    ("internvl2 wq/wo", 2048, 2048, 128, 128, (4, 319)),
+    ("internvl2 wk/wv", 2048, 1024, 128, 64, (4, 319)),
+    ("internvl2 w1/w3", 2048, 8192, 128, 128, (4, 319)),
+    ("internvl2 w2", 8192, 2048, 128, 128, (4, 319)),
+    ("internvl2 img_proj", 1024, 2048, 64, 128, (256,))]
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
 #: and where the window binds, whisper-tiny's encoder (not a tile multiple)
@@ -129,7 +166,8 @@ FLASH_SHAPES = [
     ("recurrentgemma S127", 1, 10, 1, 127, 256, True, 2048),
     ("recurrentgemma S4096", 1, 10, 1, 4096, 256, True, 2048),
     ("whisper encoder S1500", 1, 6, 6, 1500, 64, False, None),
-    ("whisper decoder S15", 1, 6, 6, 15, 64, True, None)]
+    ("whisper decoder S15", 1, 6, 6, 15, 64, True, None),
+    ("internvl2 S319", 1, 16, 8, 319, 128, True, None)]
 #: flash prefill's bar against its plain version: two bf16 ulps of the
 #: largest output (both round p and the output to bf16 at the same points;
 #: f32 sum order flips a rounding now and then)
@@ -165,18 +203,34 @@ D288_CASES = (
      for fmt in KV_FORMATS] +
     [("kv8", 4, 1, 4, 288, 16, 96, 1, [1100, 1030, 1499, 37], None),
      ("kv16", 4, 1, 4, 288, 64, 24, 1, [1100, 1030, 1499, 37], 1024)])
+#: decode attention at the moe and vlm serves' heads (D 128, kv8): llama4's
+#: 40 query heads on 8 KV heads (rep 5) and arctic's 56 (rep 7) at decode
+#: and at a 32-token chunk (160 and 224 rows), internvl2's 16 (rep 2) at
+#: decode over its 384-token slots: (format, B, Hkv, rep, D, tile, tiles
+#: per slot, T, first positions)
+MOE_VLM_ATTN = [("kv8", 4, 8, 5, 128, 16, 16, 1, [79, 70, 64, 95]),
+                ("kv8", 4, 8, 5, 128, 16, 16, 32, [32, 0, 0, 32]),
+                ("kv8", 4, 8, 7, 128, 16, 16, 1, [79, 70, 64, 95]),
+                ("kv8", 4, 8, 7, 128, 16, 16, 32, [32, 0, 0, 32]),
+                ("kv8", 4, 8, 2, 128, 16, 24, 1, [78, 70, 63, 79])]
 #: (policy, requests, prompt length, new tokens) of the serve phase
 SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
           ("w8a8kvfp8", 4, 32, 16), ("w8a16kv16", 4, 32, 16)]
 #: the one-shot-prefill serves: (arch, max_seq, requests, prompt length,
-#: new tokens, packed GEMMs per prefill call, per decode step), w4a16kv8 on
-#: the dense slab.  recurrentgemma: 18 recurrent blocks x 8 GEMMs (wy, wx,
-#: wa, wi, wo, w1, w3, w2) + 8 attention blocks x 7; whisper: prefill 4
-#: encoder layers x 6 + 4 cross K/V pairs + 4 decoder layers x 8 (wq, wk,
-#: wv, wo, xwq, xwo, w1, w2), a step the decoder's 32.  Every prefill runs
-#: 8 flash-prefill launches (8 attention blocks; 4 encoder + 4 decoder).
-ONE_SHOT_SERVES = [("recurrentgemma-2b", 512, 4, 128, 16, 200, 200),
-                   ("whisper-tiny", 256, 4, 16, 16, 64, 32)]
+#: new tokens, packed GEMMs per prefill call, per decode step,
+#: flash-prefill launches per prefill, decode-attention kernel launches
+#: per step), w4a16kv8 on the dense slab.  recurrentgemma: 18 recurrent
+#: blocks x 8 GEMMs (wy, wx, wa, wi, wo, w1, w3, w2) + 8 attention blocks
+#: x 7, 8 flash-prefill launches; whisper: prefill 4 encoder layers x 6 +
+#: 4 cross K/V pairs + 4 decoder layers x 8 (wq, wk, wv, wo, xwq, xwo, w1,
+#: w2), a step the decoder's 32, 4 encoder + 4 decoder flash-prefill
+#: launches; both decode attention in plain PyTorch, as the reference in
+#: XLA.  internvl2: 24 layers x 7 + img_proj per prefill (256 image rows
+#: before the 63-token prompt), 24 x 7 a step, 24 flash-prefill launches
+#: and 24 slab-kernel launches a step.
+ONE_SHOT_SERVES = [("recurrentgemma-2b", 512, 4, 128, 16, 200, 200, 8, 0),
+                   ("whisper-tiny", 256, 4, 16, 16, 64, 32, 8, 0),
+                   ("internvl2-2b", 384, 4, 64, 16, 169, 168, 24, 24)]
 #: the paging serves, smollm-360m w4a16kv8 on the paged pool (4 slots,
 #: block 16, prefill_chunk 32): requests, shared prefix and distinct tail
 #: tokens, new tokens — caching off and on
@@ -198,11 +252,27 @@ DENSE_500_SERVE = (4, 64, 16, 500)
 DENSE_SERVES = [("gemma3-1b", None, 1536, 4, 1100, 16, 128),
                 ("chatglm3-6b", None, 256, 4, 64, 16, 32),
                 ("mistral-large-123b", 4, 256, 4, 64, 16, 32)]
+#: the moe configs' serves, the same pairs: llama4-scout-17b-a16e at full
+#: width and 8 of its 48 layers, arctic-480b at full width and 1 of its 35
+#: (their bf16 weights, ~39 GB and ~28 GB, are drawn on the card before
+#: packing).  Packed GEMMs per layer and step: llama4 7 (wq, wk, wv, wo,
+#: the shared expert's three; its 16-wide router stays bf16), arctic 8
+#: (the dense residual's three and the 7168 x 128 router)
+MOE_SERVES = [("llama4-scout-17b-a16e", 8, 256, 4, 64, 16, 32),
+              ("arctic-480b", 1, 256, 4, 64, 16, 32)]
+MOE_GEMMS_PER_LAYER = {"llama4-scout-17b-a16e": 7, "arctic-480b": 8}
+#: REDUCED moe models held card vs CPU (w4a16kv8 and w4a8kv4, both
+#: backends, routing held)
+MOE_REDUCED = ("llama4-scout-17b-a16e", "arctic-480b")
+#: a routing flip card vs CPU is accepted where the card's router
+#: probabilities of its own choice and the CPU's differ by less than the
+#: logit bar times this (tests/test_torch_moe.py); the card then takes the
+#: CPU's choice, so later steps stay comparable
+FLIP_SHARE = 0.2
 #: REDUCED models of the dense configs held card vs CPU: (arch, head dim
 #: override) — gemma3 at its full width's 288
 DENSE_REDUCED = [("chatglm3-6b", None), ("mistral-large-123b", None),
                  ("gemma3-1b", 288)]
-FLASH_PER_PREFILL = 8
 #: logits tolerance, relative to max |logit|: A8 policies re-quantize
 #: every GEMM input per token, which turns one-ulp differences of sum
 #: order into int8 rounding flips (tests/test_torch_model.py)
@@ -252,9 +322,9 @@ def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
 
 def gemm_phase(dev, flush):
     """Both GEMM kernels against their plain versions at smollm-360m's,
-    recurrentgemma-2b's, whisper-tiny's and the three other dense configs'
-    packed shapes, bits 4 and 8, the weights in the kernels' fragment
-    order."""
+    recurrentgemma-2b's, whisper-tiny's, the three other dense configs'
+    and the moe and vlm configs' packed shapes, bits 4 and 8, the weights
+    in the kernels' fragment order."""
     import torch
     from repro_torch.core.packing import (dequantize_packed, pack_weight,
                                           to_kernel_layout)
@@ -268,7 +338,8 @@ def gemm_phase(dev, flush):
         [(f"recurrentgemma {n}", *shape) for n, *shape in RG_GEMM_SHAPES] + \
         [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES] + \
         DENSE_GEMM_SHAPES
-    for name, K, N, bk, bn in shapes:
+    shapes = [s + (GEMM_MS,) for s in shapes] + MOE_VLM_GEMM_SHAPES
+    for name, K, N, bk, bn, Ms in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
         for bits in (4, 8):
             # the kernels take their fragment orders; the plain versions
@@ -277,7 +348,7 @@ def gemm_phase(dev, flush):
             frag = {k: to_kernel_layout(pw, k) for k in ("a16", "a8")}
             wd = dequantize_packed(pw, torch.bfloat16)   # yardstick operand
             wbytes = K * N * bits // 8 + (K // bk) * N * 4
-            for M in GEMM_MS:
+            for M in Ms:
                 x = torch.randn(M, K, generator=gen, device=dev).to(
                     torch.bfloat16)
                 xq, xs = quantize_act_per_token(x.float(), bits=8)
@@ -472,7 +543,8 @@ def attn_phase(dev, flush):
     """Paged and dense-slab attention against their plain versions in
     every KV format at the serve shapes (S 256, block 16), then the tiles
     too large to stage whole, walked as sub-tiles (``SUB_TILES``), then
-    gemma3-1b's D 288 (``D288_CASES``)."""
+    gemma3-1b's D 288 (``D288_CASES``), then the moe and vlm heads
+    (``MOE_VLM_ATTN``)."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -487,6 +559,9 @@ def attn_phase(dev, flush):
     for fmt, B, Hkv, rep, D, bs, bps, T, pos, window in D288_CASES:
         attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos,
                   rows, T > 1, window)
+    for fmt, B, Hkv, rep, D, bs, bps, T, pos in MOE_VLM_ATTN:
+        attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos,
+                  rows, T > 1)
     return rows
 
 
@@ -571,16 +646,17 @@ def flash_phase(dev, flush):
 
 def to_device(params, dev, policy):
     """Parameter dict/list of tensors and PackedWeights → ``dev``, packed
-    weights on the card in the fragment order of the GEMM kernel
-    ``policy`` routes to (as the engine's ``quantize_params`` lays them
-    out there)."""
+    2-D weights on the card in the fragment order of the GEMM kernel
+    ``policy`` routes to, expert stacks in their tile layout (as the
+    engine's ``quantize_params`` lays them out there)."""
     import torch
     from repro_torch.core.packing import PackedWeight, to_kernel_layout
     if isinstance(params, dict):
         return {k: to_device(v, dev, policy) for k, v in params.items()}
     if isinstance(params, list):
         return [to_device(v, dev, policy) for v in params]
-    if isinstance(params, PackedWeight) and torch.device(dev).type == "cuda":
+    if isinstance(params, PackedWeight) and not params.stacked and \
+            torch.device(dev).type == "cuda":
         return to_kernel_layout(params.to(dev),
                                 "a8" if policy.int8_matmul else "a16")
     return params.to(dev)
@@ -693,11 +769,90 @@ def dense_reference(dev):
     return worst
 
 
+class RoutingHold:
+    """Within the block, ``models.moe.top_k`` records each call's choices
+    (``record``) or, replaying them, holds each call to the recorded one
+    up to a near-tie: where the choices differ, this run's router
+    probabilities of its own choice and the recorded one must be within
+    ``eps``; the recorded choice is then taken, and counted in ``flips``."""
+
+    def __init__(self):
+        self.calls, self.flips, self.replay, self.eps = [], [], False, 0.0
+
+    @contextlib.contextmanager
+    def run(self, replay, eps=0.0):
+        import torch
+        from repro_torch.models import moe as MOE
+        orig = MOE.top_k
+        self.replay, self.eps = replay, eps
+        todo = list(self.calls) if replay else []
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, k)
+            if not self.replay:
+                self.calls.append(idx.cpu())
+                return vals, idx
+            want = todo.pop(0).to(idx.device)
+            diff = (want != idx).any(-1)
+            if not diff.any().item():
+                return vals, idx
+            gap = (probs.gather(-1, idx) - probs.gather(-1, want)) \
+                .max(-1).values[diff].max().item()
+            check(gap < self.eps, f"routing differs beyond a near-tie "
+                                  f"(gap {gap} >= {self.eps})")
+            self.flips.append(gap)
+            return probs.gather(-1, want), want
+
+        MOE.top_k = top_k
+        try:
+            yield
+        finally:
+            MOE.top_k = orig
+        check(not todo, "the replay made fewer router calls")
+
+
+def moe_reference(dev):
+    """REDUCED llama4-scout and arctic under w4a16kv8 and w4a8kv4: the
+    kernels on the card against the plain versions on the CPU,
+    teacher-forced over 44 tokens, same packed weights, both backends;
+    the card's routing held to the CPU's up to a near-tie (flips
+    counted)."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    worst, flips = {}, {}
+    for arch in MOE_REDUCED:
+        cfg = get_reduced(arch)
+        model = build(cfg)
+        raw = model.init_params(0, "cpu")
+        stream = torch.randint(1, cfg.vocab, (44,), generator=torch
+                               .Generator().manual_seed(8)).tolist()
+        for name in ("w4a16kv8", "w4a8kv4"):
+            pol = get_policy(name)
+            params = quantize_params(raw, pol)
+            tol = TOL_A8 if pol.int8_matmul else TOL
+            for kind in ("dense", "paged"):
+                hold, logits = RoutingHold(), {}
+                for i, d in enumerate(("cpu", dev)):
+                    cache, kw = new_cache(model, pol, kind, 1, d)
+                    with hold.run(replay=i > 0, eps=FLIP_SHARE * tol):
+                        logits[str(d)] = teacher_forced(
+                            model, to_device(params, d, pol), pol, cache, kw,
+                            stream, [16, 16, 8, 1, 1, 1, 1])
+                key = f"{arch}/{name}/{kind}"
+                worst[key] = compare_logits(logits["cpu"], logits[str(dev)],
+                                            tol, f"{arch} {name} {kind}")
+                flips[key] = len(hold.flips)
+    return worst, flips
+
+
 def one_shot_teacher_forced(model, params, policy, stream, P, extra,
-                            max_seq, dev):
+                            max_seq, dev, **kw):
     """Prefill ``stream[:P]`` into a fresh B=1 cache, then feed the rest
-    one token at a time through decode_step; returns the float logits of
-    the prefill and of every step."""
+    one token at a time through decode_step (keywords ``kw``); returns
+    the float logits of the prefill and of every step."""
     import torch
     cache = model.init_cache(policy, 1, max_seq, dev)
     logits, cache = model.prefill(
@@ -707,7 +862,7 @@ def one_shot_teacher_forced(model, params, policy, stream, P, extra,
     for p in range(P, len(stream)):
         logits, cache = model.decode_step(
             params, policy, torch.tensor([[stream[p]]], device=dev), cache,
-            torch.tensor([p], dtype=torch.int32, device=dev))
+            torch.tensor([p], dtype=torch.int32, device=dev), **kw)
         out.append(logits[0].float().cpu())
     return out
 
@@ -734,9 +889,10 @@ def compare_logits(ref, got, tol, what):
 
 
 def one_shot_reference(dev):
-    """REDUCED recurrentgemma and whisper: one-shot prefill (the
-    flash-prefill kernel) then teacher-forced decode steps, the card
-    against the CPU's plain versions, same packed weights and frames."""
+    """REDUCED recurrentgemma, whisper and internvl2: one-shot prefill
+    (the flash-prefill kernel) then teacher-forced decode steps, the card
+    against the CPU's plain versions, same packed weights and frames or
+    image embeddings."""
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.core.precision import get_policy
@@ -819,14 +975,14 @@ def smollm_engine(dev, **kw):
     return eng, time.perf_counter() - t0
 
 
-def run_serve(eng, label, prompts, new_tokens, warm, totals):
+def run_serve(eng, label, prompts, new_tokens, warm, totals, gemms=7):
     """Serve ``prompts`` greedily through ``Engine.generate`` after a
     warm-up request ``warm``; the launch counters are zeroed just before
     and read just after.  Checks that every request produced its tokens,
-    that each GEMM went through the kernel the policy routes to (7 per
-    layer and step) and each attention call through the backend's kernel
-    (1 per layer and step), and that a paged engine holds no block at the
-    end.  Adds the run's launches to ``totals``; returns the run's numbers
+    that each GEMM went through the kernel the policy routes to (``gemms``
+    per layer and step) and each attention call through the backend's
+    kernel (1 per layer and step), and that a paged engine holds no block
+    at the end.  Adds the run's launches to ``totals``; returns the run's numbers
     and the finished outputs."""
     import torch
     from repro_torch.serving import SamplingParams, percentile_stats
@@ -853,7 +1009,7 @@ def run_serve(eng, label, prompts, new_tokens, warm, totals):
     gemm = "mpgemm_int8" if eng.policy.int8_matmul else "mpgemm_a16"
     attn = "paged_kvattn" if eng.cache_kind == "paged" else "kvattn"
     want = {k: 0 for k in launches}
-    want[gemm] = 7 * L * steps
+    want[gemm] = gemms * L * steps
     if eng.config.attn_impl == "kernel":     # "xla": plain attention
         want[attn] = L * steps
     check(launches == want, f"{label}: launches {launches} != {want} "
@@ -1063,11 +1219,13 @@ def paging_phase(dev, totals):
 
 
 def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
-                   gemm_prefill, gemm_step, totals):
+                   gemm_prefill, gemm_step, flash_prefill, attn_step,
+                   totals):
     """Serve full-width ``arch`` (a one-shot-prefill family) once on the
     dense slab under w4a16kv8; check that every prefill went through the
-    flash-prefill kernel and every packed GEMM through the A16 kernel.
-    Adds the run's launches to ``totals``."""
+    flash-prefill kernel, every packed GEMM through the A16 kernel and
+    (vlm) every decode attention call through the slab kernel.  Adds the
+    run's launches to ``totals``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1104,15 +1262,18 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
           f"{arch}: token outside the vocabulary")
     want = {k: 0 for k in launches}
     want["mpgemm_a16"] = gemm_prefill * n_req + gemm_step * steps
-    want["flash_prefill"] = FLASH_PER_PREFILL * n_req
+    want["flash_prefill"] = flash_prefill * n_req
+    want["kvattn"] = attn_step * steps
     check(launches == want, f"{arch}: launches {launches} != {want} "
                             f"({n_req} prefills, {steps} steps)")
 
     # request 0, teacher-forced on the card: each emitted token must be the
-    # argmax of decode_step's logits up to a near-tie
+    # argmax of decode_step's logits up to a near-tie (a vlm slot decodes
+    # from position n - 1 over the image rows, as in the engine)
     stream = prompts[0] + outs[0].output_token_ids[:-1]
     tf = one_shot_teacher_forced(eng.model, eng.params, eng.policy, stream,
-                                 prompt_len - 1, eng._extra, max_seq, dev)
+                                 prompt_len - 1, eng._extra, max_seq, dev,
+                                 attn_block_s=eng.attn_block_s)
     for lg, tok in zip(tf[1:], outs[0].output_token_ids):
         check(lg[tok].item() >= lg.max().item() - TOL *
               lg.abs().max().item(),
@@ -1134,9 +1295,10 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
     return res
 
 
-def dense_config_serves(dev, totals):
-    """The other dense configs (``DENSE_SERVES``) served at full width on
-    the dense slab and the paged pool (the packed weights built once):
+def dense_config_serves(dev, totals, serves=DENSE_SERVES):
+    """The other dense configs (``DENSE_SERVES``), or the moe configs
+    (``MOE_SERVES``), served at full width on the dense slab and the
+    paged pool (the packed weights built once):
     every GEMM and attention call on its kernel, dense ≡ paged streams,
     request 0's tokens the teacher-forced argmax up to a near-tie.
     gemma3 is also served on the slab by the ``attn_impl="xla"`` opt-out
@@ -1144,15 +1306,16 @@ def dense_config_serves(dev, totals):
     teacher-forced step of its request 0 the opt-out's logits, the kernel
     route's and those of exact attention agree pairwise within
     ``TOL_ROUTES`` · max |logit| (the routes put the KV scales in
-    different places, so not bitwise)."""
+    different places, so not bitwise).  A moe config's slab serve is
+    profiled (``profile_window``)."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
     runs = []
-    for arch, layers, max_seq, n_req, plen, new, chunk in DENSE_SERVES:
+    for arch, layers, max_seq, n_req, plen, new, chunk in serves:
         cfg = get_config(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
@@ -1174,12 +1337,16 @@ def dense_config_serves(dev, totals):
             setup_s = time.perf_counter() - t0
             params = eng.params
             label = f"{arch} L{cfg.n_layers} {kind}/{impl}"
-            res, outs = run_serve(eng, label, prompts, new, warm, totals)
+            res, outs = run_serve(eng, label, prompts, new, warm, totals,
+                                  MOE_GEMMS_PER_LAYER.get(arch, 7))
             streams[kind, impl] = [o.output_token_ids for o in outs]
             tf = teacher_forced_check(eng, kind, prompts[0],
                                       streams[kind, impl][0], label,
                                       max_seq=max_seq, chunk=chunk,
                                       attn_impl=impl)
+            if arch in MOE_GEMMS_PER_LAYER and kind == "dense":
+                res["profile"] = profile_window(eng, prompts, SamplingParams(
+                    max_new_tokens=8))
             if impl == "xla":        # the same stream by the kernel route
                 kw = dict(max_seq=max_seq, chunk=chunk)
                 ref = teacher_forced_check(
@@ -1206,6 +1373,60 @@ def dense_config_serves(dev, totals):
     return runs
 
 
+def moe_module_check(dev):
+    """``moe_ffn`` at llama4-scout's full width (16 experts of 5120 x 8192,
+    bf16, top-1) on the card, capacity ample: the sort dispatch against
+    the einsum one, bit for bit (top-1 gates are 1, so both combines
+    return the expert's output), for a decode step of 4 slots and a
+    32-token chunk of 4; each timed with CUDA events."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import _stack_init
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              capacity_factor=16.0)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    lp = {"router": (torch.randn(d, E, generator=gen, device=dev) * 0.02)
+          .to(torch.bfloat16),
+          "we1": _stack_init(gen, E, (d, f)),
+          "we3": _stack_init(gen, E, (d, f)),
+          "we2": _stack_init(gen, E, (f, d))}
+    res = {}
+    try:
+        for T in (1, 32):
+            x = torch.randn(4, T, d, generator=gen, device=dev).to(
+                torch.bfloat16)
+            out, ms = {}, {}
+            for impl in ("einsum", "sort"):
+                MOE.set_dispatch_impl(impl)
+                out[impl] = MOE.moe_ffn(x, lp, cfg)
+                ev = []
+                for _ in range(5):
+                    a, b = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                    a.record()
+                    MOE.moe_ffn(x, lp, cfg)
+                    b.record()
+                    ev.append((a, b))
+                torch.cuda.synchronize()
+                ms[impl] = statistics.median(a.elapsed_time(b)
+                                             for a, b in ev)
+            check(torch.isfinite(out["einsum"].float()).all().item(),
+                  "moe_ffn not finite")
+            check(torch.equal(out["einsum"], out["sort"]),
+                  f"moe_ffn T={T}: sort and einsum dispatch differ")
+            res[f"T{T}"] = ms
+    finally:
+        MOE.set_dispatch_impl("einsum")
+    del lp
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_phase(dev):
     """Every serve of ``SERVES`` on both backends (dense and paged streams
     must be identical per policy), then the one-shot serves of
@@ -1228,6 +1449,7 @@ def serve_phase(dev):
         print("serve:", json.dumps(res))
     runs += paging_phase(dev, totals)
     runs += dense_config_serves(dev, totals)
+    runs += dense_config_serves(dev, totals, MOE_SERVES)
     for k, n in totals.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
     return runs, totals
@@ -1318,10 +1540,16 @@ def main() -> int:
                                      r["tile_sweep_ms"].items()}, "us")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    moe_worst, flips = moe_reference(dev)
     worst = {**reference_phase(dev), **one_shot_reference(dev),
-             **dense_reference(dev)}
+             **dense_reference(dev), **moe_worst}
     print(f"reference: REDUCED logits, card vs CPU, max rel err "
-          f"{json.dumps(worst)} ({time.perf_counter() - t0:.1f} s)")
+          f"{json.dumps(worst)}; moe routing flips at near-ties "
+          f"{json.dumps(flips)} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    print(f"moe module: llama4 width, sort ≡ einsum, ms "
+          f"{json.dumps(moe_module_check(dev))} "
+          f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     _, totals = serve_phase(dev)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")

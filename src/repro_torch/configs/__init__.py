@@ -9,16 +9,21 @@ from __future__ import annotations
 
 from typing import List
 
-from . import (chatglm3_6b, gemma3_1b, mistral_large_123b, recurrentgemma_2b,
+from . import (arctic_480b, chatglm3_6b, gemma3_1b, internvl2_2b,
+               llama4_scout_17b_a16e, mistral_large_123b, recurrentgemma_2b,
                smollm_360m, whisper_tiny)
 from .base import ModelConfig
 
 #: architectures the port runs, in the JAX registry's id spelling and order
-ARCHS: List[str] = ["whisper-tiny", "chatglm3-6b", "smollm-360m",
+ARCHS: List[str] = ["arctic-480b", "llama4-scout-17b-a16e", "whisper-tiny",
+                    "chatglm3-6b", "internvl2-2b", "smollm-360m",
                     "gemma3-1b", "mistral-large-123b", "recurrentgemma-2b"]
 
-_MODULES = {"whisper-tiny": whisper_tiny, "chatglm3-6b": chatglm3_6b,
-            "smollm-360m": smollm_360m, "gemma3-1b": gemma3_1b,
+_MODULES = {"arctic-480b": arctic_480b,
+            "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+            "whisper-tiny": whisper_tiny, "chatglm3-6b": chatglm3_6b,
+            "internvl2-2b": internvl2_2b, "smollm-360m": smollm_360m,
+            "gemma3-1b": gemma3_1b,
             "mistral-large-123b": mistral_large_123b,
             "recurrentgemma-2b": recurrentgemma_2b}
 

@@ -13,6 +13,11 @@ model without downloading weights.
 JAX's bf16 and fp8 arrays reach numpy with an ``ml_dtypes`` dtype; they
 are recognised by name and reinterpreted through their bit pattern, so
 this module needs neither JAX nor ``ml_dtypes``.
+
+The transformer families' stacks split per layer: a moe layer's expert
+stacks (L, E, K, N) become (E, K, N) leaves, and its ``router`` and
+``ws*`` travel with the layer; the vlm family's ``img_proj`` is carried
+as it is.
 """
 from __future__ import annotations
 
@@ -23,7 +28,21 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w1", "w2", "w3")
+_ATTN_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo")
+
+
+def _required(cfg: ModelConfig):
+    """(layer keys, top-level keys) a transformer family's parameters
+    must hold."""
+    if cfg.n_experts:
+        ffn = ("router", "we1", "we2", "we3")
+        if cfg.moe_dense_residual or cfg.shared_expert:
+            ffn += ("ws1", "ws2", "ws3")
+    else:
+        ffn = ("w1", "w2", "w3")
+    top = ("embed", "final_norm") + (("img_proj",) if cfg.n_img_tokens
+                                     else ())
+    return _ATTN_KEYS + ffn, top
 
 
 #: ``ml_dtypes`` names numpy has no type for → (torch dtype, bit-pattern
@@ -62,14 +81,16 @@ def _split(stack: Mapping[str, Any], n: int, device) -> List[Dict[str, Any]]:
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """JAX parameters of a dense, hybrid or audio model (numpy leaves,
-    layers stacked along a leading axis) → the port's parameter dict on
-    ``device``."""
-    if cfg.family == "dense" and not cfg.n_experts:
+    """JAX parameters of a dense, moe, vlm, hybrid or audio model (numpy
+    leaves, layers stacked along a leading axis) → the port's parameter
+    dict on ``device``."""
+    if cfg.family in ("dense", "moe", "vlm"):
         stacks = {"layers": cfg.n_layers}
-        missing = [k for k in _LAYER_KEYS if k not in np_params["layers"]]
+        layer_keys, top_keys = _required(cfg)
+        missing = [k for k in layer_keys if k not in np_params["layers"]] \
+            + [k for k in top_keys if k not in np_params]
         if missing:
-            raise KeyError(f"JAX layer stack lacks {missing}")
+            raise KeyError(f"JAX {cfg.family} parameters lack {missing}")
     elif cfg.family == "hybrid":
         n_super = cfg.n_layers // cfg.rglru_period
         stacks = {"rec1": n_super, "rec2": n_super, "attn": n_super,

@@ -28,6 +28,13 @@ bytes then column g + 8's.  Byte b is k = 16s + 4t + b in ``frag_a8``
 2t + 8(b >> 1) + (b & 1) in ``frag_a16`` (the bf16 MMA's pairs).  Scales
 stay ``(K/group, N)``.  Every layout is an exact permutation:
 :func:`unpack_weight` and :func:`dequantize_packed` read them all.
+
+A stack of same-shape weights (a MoE layer's (E, K, N) experts) packs
+member by member (:func:`pack_stack`): the bytes ``jax.vmap(pack_weight)``
+gives, one PackedWeight with a leading E axis on ``data`` and ``scales``.
+Stacks are read only by the plain dequantizer (the MoE layer dequantizes
+the experts it routes to, as the reference does), never by the GEMM
+kernels, so they keep the tile-major layout on the card too.
 """
 from __future__ import annotations
 
@@ -51,6 +58,9 @@ class PackedWeight:
              ``layout="frag_a16"`` / ``"frag_a8"``, (N/16, K/64, 32,
              4·bits) in a CUDA kernel's fragment order (module docstring).
     scales : (K//group, N) f32 per-group scales.
+
+    A stack (:func:`pack_stack`) carries a leading E axis on both;
+    ``shape`` stays the members' (K, N) and ``p[e]`` is member e.
     """
 
     data: torch.Tensor
@@ -66,6 +76,23 @@ class PackedWeight:
         """The same packed weight with its tensors on ``device``."""
         return dataclasses.replace(self, data=self.data.to(device),
                                    scales=self.scales.to(device))
+
+    @property
+    def stacked(self) -> bool:
+        """True for a stack of weights (a leading E axis)."""
+        return self.scales.dim() == 3
+
+    @property
+    def n_members(self) -> int:
+        """Members of a stack (1 for a single weight)."""
+        return self.scales.shape[0] if self.stacked else 1
+
+    def __getitem__(self, e: int) -> "PackedWeight":
+        """Member ``e`` of a stack (views of its tensors)."""
+        if not self.stacked:
+            raise TypeError("a single packed weight has no members")
+        return dataclasses.replace(self, data=self.data[e],
+                                   scales=self.scales[e])
 
 
 def _tile(q: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
@@ -94,6 +121,18 @@ def pack_weight(w: torch.Tensor, bits: int = 4, group: int = 128,
     return PackedWeight(data=tiles.contiguous(), scales=scales.contiguous(),
                         bits=bits, group=group, block_k=block_k,
                         block_n=block_n, shape=(K, N))
+
+
+def pack_stack(w: torch.Tensor, bits: int = 4, group: int = 128,
+               block_k: int = DEFAULT_BLOCK_K,
+               block_n: int = DEFAULT_BLOCK_N) -> PackedWeight:
+    """Pack an (E, K, N) stack member by member (one (K, N) matrix's f32
+    transients at a time) into one stacked PackedWeight."""
+    members = [pack_weight(m.float(), bits=bits, group=group, block_k=block_k,
+                           block_n=block_n) for m in w.unbind(0)]
+    return dataclasses.replace(
+        members[0], data=torch.stack([m.data for m in members]),
+        scales=torch.stack([m.scales for m in members]))
 
 
 #: K depth and column width of one fragment-order block
@@ -130,6 +169,9 @@ def to_kernel_layout(p: PackedWeight, kernel: str) -> PackedWeight:
     ``kernel`` ("a16": ``mpgemm_a16``, "a8": ``mpgemm_int8``; module
     docstring), on ``p``'s device: an exact permutation of its values."""
     layout = KERNEL_LAYOUTS[kernel]
+    if p.stacked:
+        raise ValueError("stacked weights are read by the plain "
+                         "dequantizer only and keep the tile layout")
     if p.layout == layout:
         return p
     K, N = p.shape
@@ -167,7 +209,10 @@ def _unpack_frag(p: PackedWeight) -> torch.Tensor:
 
 
 def unpack_weight(p: PackedWeight) -> torch.Tensor:
-    """Inverse permutation of any layout → (K, N) int8-held values."""
+    """Inverse permutation of any layout → (K, N) int8-held values
+    ((E, K, N) for a stack)."""
+    if p.stacked:
+        return torch.stack([unpack_weight(p[e]) for e in range(p.n_members)])
     if p.layout != "tile":
         return _unpack_frag(p)
     t = p.data
@@ -177,6 +222,13 @@ def unpack_weight(p: PackedWeight) -> torch.Tensor:
 
 
 def dequantize_packed(p: PackedWeight, dtype=torch.bfloat16) -> torch.Tensor:
-    """(K, N) ``bf16(q * scale)`` values (or ``dtype``) of a packed weight."""
+    """(K, N) ``bf16(q * scale)`` values (or ``dtype``) of a packed weight;
+    (E, K, N) for a stack, dequantized member by member into one tensor."""
+    if p.stacked:
+        out = torch.empty((p.n_members,) + tuple(p.shape), dtype=dtype,
+                          device=p.data.device)
+        for e in range(p.n_members):
+            out[e] = dequantize_packed(p[e], dtype)
+        return out
     return Q.dequantize_weight_grouped(unpack_weight(p), p.scales,
                                        group=p.group, dtype=dtype)

@@ -36,6 +36,9 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
     activations are never quantized, as in the JAX package).  Ragged M
     goes to the kernels as is (the JAX wrapper's ``bm = 1`` fallback is a
     Pallas block-shape constraint the CUDA kernels lack)."""
+    if w.stacked:
+        raise ValueError("a stack of packed weights is not a GEMM operand "
+                         "(models.moe dequantizes the experts it routes to)")
     K, N = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)

@@ -3,17 +3,19 @@
 Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
 Reports throughput and TTFT / latency percentiles.  ``--arch`` takes the
 ported architectures (the dense smollm-360m, gemma3-1b, chatglm3-6b and
-mistral-large-123b, the hybrid recurrentgemma-2b, the audio
-whisper-tiny), REDUCED unless ``--full``; mistral-large-123b's full
-configuration does not fit one card (the engine draws its ~246 GB of
-bf16 weights before packing).  The KV store is the dense slab unless
-``--cache-kind paged`` (dense family only), where
+mistral-large-123b, the moe llama4-scout-17b-a16e and arctic-480b, the
+vlm internvl2-2b, the hybrid recurrentgemma-2b, the audio whisper-tiny),
+REDUCED unless ``--full``; the full configurations of mistral-large-123b,
+llama4-scout-17b-a16e and arctic-480b do not fit one card (the engine
+draws their bf16 weights before packing).  The KV store is the dense slab
+unless ``--cache-kind paged`` (dense and moe families), where
 ``--enable-prefix-caching`` shares full prompt-prefix blocks and
 ``--enable-block-growth`` (with ``--reserve-headroom-blocks``) admits on
 prompt blocks and preempts when the pool runs dry; ``--policy`` takes any
 ``WxAyKVz`` name; ``--attn-impl xla`` swaps the decode-attention kernels
 for the reference's opt-out (plain fused attention over the slab or a
-view gathered from the pool).
+view gathered from the pool).  internvl2-2b prefills 256 (REDUCED: 16)
+stub image rows before the prompt, so ``--max-seq`` must hold them.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-360m --full \
@@ -25,6 +27,10 @@ Usage:
         --max-seq 1536 --prompt-len 1100 --prefill-chunk 128
     python -m repro_torch.launch.serve --arch chatglm3-6b --device cpu \
         --attn-impl xla --cache-kind paged
+    python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \
+        --device cpu --cache-kind paged --enable-prefix-caching
+    python -m repro_torch.launch.serve --arch internvl2-2b --full \
+        --max-seq 384 --prompt-len 64
     python -m repro_torch.launch.serve --full --cache-kind paged \
         --enable-prefix-caching --enable-block-growth --n-blocks 32
 """

@@ -1,8 +1,8 @@
 """Shared model building blocks: norms, RoPE, MLPs, and a linear that is
 transparent over quantized (PackedWeight) vs dense (bf16) weights.
 
-Port of ``repro.models.common`` for the ported families (dense, hybrid,
-audio).  Plain functions over explicit parameter dicts; initializers
+Port of ``repro.models.common`` for the ported families (dense, moe, vlm,
+hybrid, audio).  Plain functions over explicit parameter dicts; initializers
 return bf16.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core import attention as A
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.gemm import mp_matmul
-from repro_torch.core.packing import PackedWeight, pack_weight
+from repro_torch.core.packing import PackedWeight, pack_stack, pack_weight
 from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 from repro_torch.kernels import ops
 
@@ -60,14 +60,19 @@ def pick_blocks(K: int, N: int):
 
 def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
                    min_size: int = 256 * 256):
-    """Quantize+pack a 2D weight if it is large enough and tileable; small
-    or odd weights stay bf16 (embeddings, norms stay high precision).  The
-    CUDA GEMMs also need K % 64 == 0 (``core.packing.to_kernel_layout``):
-    a K of 32 times an odd number packs here (block_k 32), and the engine
-    then refuses it on the card at load time."""
-    if policy.weights.bits == 16 or w.dim() != 2:
+    """Quantize+pack a 2D weight, or an (E, K, N) stack over its trailing
+    (K, N) (a MoE layer's experts, :func:`core.packing.pack_stack`), if
+    it is large enough and tileable; small or odd weights stay bf16
+    (embeddings, norms stay high precision).  The CUDA GEMMs also need
+    K % 64 == 0 (``core.packing.to_kernel_layout``): a K of 32 times an
+    odd number packs here (block_k 32), and the engine then refuses it on
+    the card at load time."""
+    if policy.weights.bits == 16 or w.dim() < 2:
         return w
-    K, N = w.shape
+    if w.dim() > 3:
+        raise ValueError(f"maybe_quantize packs (K, N) weights and (E, K, "
+                         f"N) stacks, got shape {tuple(w.shape)}")
+    K, N = w.shape[-2:]
     if K * N < min_size:
         return w
     bk, bn = pick_blocks(K, N)
@@ -77,6 +82,9 @@ def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
     if bk % group:
         group = bk
     bits = 8 if policy.weights.is_float else policy.weights.bits
+    if w.dim() == 3:     # member by member: one member's f32 at a time
+        return pack_stack(w, bits=bits, group=group, block_k=bk,
+                          block_n=bn)
     return pack_weight(w.float(), bits=bits, group=group, block_k=bk,
                        block_n=bn)
 

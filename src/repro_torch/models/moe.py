@@ -1,0 +1,211 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch.
+
+Port of ``repro.models.moe``.  The reference runs the router through the
+quantization-transparent linear and the experts as XLA einsums on
+dequantized bf16 expert weights, outside any Pallas kernel; here a
+packed router goes through :func:`repro_torch.models.common.linear` (the
+mixed-precision GEMM kernels on the card), a bf16 one is a plain
+f32-accumulated product, and the experts are plain PyTorch matmuls on the
+dequantized members of the packed stack.
+
+Two dispatch implementations, as in the reference, with its capacities,
+priority orders and rounding points:
+
+* ``einsum`` (the default) — Switch-style: each batch row is a group; an
+  expert's buffer holds :func:`_capacity` tokens of its row, filled
+  k-major (every row position's first choice before any second choice),
+  then in row order; assignments past the buffer are dropped.  The
+  combine is the reference's ``einsum`` against a bf16 combine tensor:
+  f32 sums of ``bf16(gate) · out`` over the kept choices, rounded once.
+* ``sort`` — MegaBlocks-style: one buffer per expert sized from the whole
+  call's ``B·S·K`` assignments, filled in flattened (row, position,
+  choice) order; the combine adds ``bf16(out · bf16(gate))`` into a bf16
+  output, rounding after each add.
+
+The reference's one-hot dispatch is an exact gather (one nonzero term
+per buffer slot), so both are computed here by indexing.  Every expert's
+FFN runs only on the tokens it kept: an expert that keeps none is skipped
+and its weights are not dequantized (its contribution in the reference is
+an exact zero), and the padding slots of a buffer are not computed
+(their rows are zero and nothing reads them).
+
+Capacity is per call (``_capacity(cfg, S)`` from the call's S), so a
+prompt chunk can drop tokens that a one-token step would keep: the
+engine's chunk ≡ T 1, prefix on ≡ off and growth ≡ reservation streams
+are bit for bit only where nothing is dropped.  Dense ≡ paged holds
+regardless (both backends make the same calls).
+
+Top-k ties go to the lower expert index, as ``jax.lax.top_k`` breaks them
+(:func:`top_k`: a stable descending sort); bf16 router logits tie often.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.packing import PackedWeight, dequantize_packed
+
+from . import common as C
+
+_DISPATCH_IMPL = "einsum"
+
+
+def set_dispatch_impl(name: str) -> None:
+    """Pick the dispatch: ``"einsum"`` (default) or ``"sort"``."""
+    global _DISPATCH_IMPL
+    if name not in ("einsum", "sort"):
+        raise ValueError(f"unknown dispatch {name!r} (expected 'einsum' or "
+                         "'sort')")
+    _DISPATCH_IMPL = name
+
+
+def _expert_weights(w, dtype=torch.bfloat16) -> torch.Tensor:
+    """(E, K, N) view of expert weights in ``dtype`` (packed stacks are
+    dequantized, member by member)."""
+    if isinstance(w, PackedWeight):
+        return dequantize_packed(w, dtype)
+    return w.to(dtype)
+
+
+def _expert(w, e: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Expert ``e``'s (K, N) weight in ``dtype``: the same values as
+    ``_expert_weights(w)[e]``."""
+    if isinstance(w, PackedWeight):
+        return dequantize_packed(w[e], dtype)
+    return w[e].to(dtype)
+
+
+def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Per-expert buffer of one group: ``S·k·capacity_factor / E`` + 1,
+    rounded up to a multiple of 4, at least 4."""
+    c = int(tokens_per_group * cfg.topk * cfg.capacity_factor
+            / cfg.n_experts) + 1
+    return max(4, -(-c // 4) * 4)
+
+
+def _sort_capacity(cfg: ModelConfig, assignments: int) -> int:
+    """The sort dispatch's per-expert buffer, from the call's B·S·K
+    assignments (decode steps have S 1, and a per-row buffer would give
+    every expert a batch of padding)."""
+    c = int(assignments * cfg.capacity_factor / cfg.n_experts) + 1
+    return max(4, -(-c // 4) * 4)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 product of bf16 operands, f32 accumulation, rounded once
+    (what the reference's bf16 einsum computes)."""
+    return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
+
+
+def router_probs(x: torch.Tensor, router_w, policy) -> torch.Tensor:
+    """(B, S, E) f32 softmax of the router's bf16 logits: a packed router
+    through the mixed-precision GEMM, a bf16 one as an f32-accumulated
+    product rounded once (the reference's bf16 dot; cuBLAS's bf16 GEMM
+    may reduce split-K partials in bf16, and a tie-breaking ulp of a
+    router logit moves a token to another expert)."""
+    if isinstance(router_w, PackedWeight):
+        logits = C.linear(x, router_w, policy)
+    else:
+        logits = _mm(x.to(torch.bfloat16), router_w.to(torch.bfloat16))
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest ``k`` values and their indices along the last axis, equal
+    values in index order (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig, policy
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router probabilities (B, S, E) f32, then the normalized top-k gates
+    (B, S, k) f32 and their expert ids (B, S, k)."""
+    probs = router_probs(x, lp["router"], policy)
+    vals, idx = top_k(probs, cfg.topk)
+    vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    return probs, vals, idx
+
+
+def _expert_ffn(xs: torch.Tensor, lp: Dict[str, Any], e: int
+                ) -> torch.Tensor:
+    """Expert ``e``'s SwiGLU on its kept rows xs (n, d) bf16 → (n, d)
+    bf16, with the reference's rounding points."""
+    h1 = _mm(xs, _expert(lp["we1"], e))
+    h3 = _mm(xs, _expert(lp["we3"], e))
+    h = F.silu(h1.float()).to(torch.bfloat16) * h3
+    return _mm(h, _expert(lp["we2"], e))
+
+
+def dispatch_einsum(gate_idx: torch.Tensor, E: int, cap: int
+                    ) -> torch.Tensor:
+    """The einsum dispatch's kept assignments: (B, S, k) bool — an
+    assignment is kept when its position in its expert's per-row buffer
+    (filled k-major, then in row order) is below ``cap``."""
+    B, S, K = gate_idx.shape
+    counts = torch.zeros((B, E), dtype=torch.long, device=gate_idx.device)
+    keep = []
+    for k in range(K):
+        onehot = F.one_hot(gate_idx[..., k].long(), E)          # (B, S, E)
+        pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None]
+        kept = (pos * onehot).sum(-1) < cap                     # (B, S)
+        keep.append(kept)
+        counts = counts + (onehot * kept[..., None]).sum(1)
+    return torch.stack(keep, -1)
+
+
+def dispatch_sort(gate_idx: torch.Tensor, E: int, cap: int
+                  ) -> torch.Tensor:
+    """The sort dispatch's kept assignments: (B·S·k,) bool over the
+    flattened (row, position, choice) order — each expert keeps its first
+    ``cap`` in that order (a stable sort by expert id)."""
+    eid = gate_idx.reshape(-1).long()
+    order = torch.sort(eid, stable=True).indices
+    eid_s = eid[order]
+    start = torch.searchsorted(eid_s, torch.arange(E, device=eid.device))
+    pos_s = torch.arange(eid.numel(), device=eid.device) - start[eid_s]
+    keep = torch.empty_like(eid, dtype=torch.bool)
+    keep[order] = pos_s < cap
+    return keep
+
+
+def moe_ffn(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
+            policy=None) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d), groups = batch rows (module docstring)."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.topk
+    _, gates, gate_idx = route(x, lp, cfg, policy)
+    xt = x.to(torch.bfloat16).reshape(B * S, d)
+    tok = torch.arange(B * S, device=x.device).repeat_interleave(K)
+    eid = gate_idx.reshape(-1).long()
+    g = gates.reshape(-1).to(torch.bfloat16)       # the combine's bf16 gate
+    if _DISPATCH_IMPL == "sort":
+        keep = dispatch_sort(gate_idx, E, _sort_capacity(cfg, B * S * K))
+        y = torch.zeros((B * S, d), dtype=torch.bfloat16, device=x.device)
+    else:
+        keep = dispatch_einsum(gate_idx, E, _capacity(cfg, S)).reshape(-1)
+        y = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
+    # one host read: which experts hold a kept token
+    kept = torch.nonzero(keep).reshape(-1)
+    for e in torch.unique(eid[kept]).tolist():
+        sel = kept[eid[kept] == e]
+        out = _expert_ffn(xt[tok[sel]], lp, e)
+        if _DISPATCH_IMPL == "sort":
+            y.index_add_(0, tok[sel], out * g[sel, None])
+        else:
+            y.index_add_(0, tok[sel], out.float() * g[sel, None].float())
+    return y.to(x.dtype).reshape(B, S, d)
+
+
+def load_balance_loss(probs: torch.Tensor, gate_idx: torch.Tensor,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: ``E · Σ_e f_e · P_e`` (f from each
+    token's first choice)."""
+    onehot = F.one_hot(gate_idx[..., 0].long(), n_experts).float()
+    f = onehot.mean(dim=(0, 1))
+    p = probs.float().mean(dim=(0, 1))
+    return n_experts * torch.sum(f * p)

@@ -1,8 +1,8 @@
 """Model registry: one functional API over the ported families.
 
-Port of ``repro.models.registry`` for the dense, hybrid and audio
-families.  ``build(cfg)`` returns a :class:`Model` whose members close over
-the family module:
+Port of ``repro.models.registry`` for the dense, moe, vlm, hybrid and
+audio families.  ``build(cfg)`` returns a :class:`Model` whose members
+close over the family module:
 
     model.init_params(seed, device)                       -> params
     model.init_cache(policy, batch, max_seq, device)      -> cache / state
@@ -10,15 +10,15 @@ the family module:
                            blocks_per_slot, device)       -> PagedKVCache
                                           (None: no KV cache to page)
     model.prefill(params, policy, tokens, cache, **extra) -> (logits, cache)
-                                          (None: prompts go through
-                                          decode_step in chunks)
     model.decode_step(params, policy, tokens, cache, pos, **kw)
                                                           -> (logits, cache)
     model.extra_inputs(seed, batch, device)  -> dict of stub modality inputs
 
-``extra`` carries the audio family's ``frames`` (precomputed frontend
-embeddings, the one stub).  The hybrid and audio ``decode_step`` take no
-attention knobs and swallow them, so the engine passes one keyword set.
+``extra`` carries the modality stubs: the vlm family's ``img_embeds``
+(precomputed ViT patch embeddings, VIT_WIDTH wide) and the audio
+family's ``frames`` (precomputed frontend embeddings).  The hybrid and
+audio ``decode_step`` take no attention knobs and swallow them, so the
+engine passes one keyword set.
 """
 from __future__ import annotations
 
@@ -33,18 +33,22 @@ from . import encdec as ED
 from . import rglru as G
 from . import transformer as T
 
-#: families whose :func:`build` result exposes ``init_paged_cache``
-PAGED_FAMILIES = ("dense",)
-#: families the port builds; the JAX package's others name their ROADMAP
-#: queue 1 item
-FAMILIES = ("dense", "hybrid", "audio")
-NOT_PORTED = {"ssm": "item 8 (rwkv6.py)", "moe": "item 7", "vlm": "item 7"}
+VIT_WIDTH = T.VIT_WIDTH
+
+#: families whose :func:`build` result exposes ``init_paged_cache`` (the
+#: transformer families; the engine config refuses a paged vlm, whose
+#: prefill consumes extra inputs)
+PAGED_FAMILIES = ("dense", "moe", "vlm")
+#: families the port builds; the JAX package's other one (ssm) names its
+#: ROADMAP queue 1 item
+FAMILIES = PAGED_FAMILIES + ("hybrid", "audio")
+NOT_PORTED = {"ssm": "item 8 (rwkv6.py)"}
 
 
 def not_ported(family: str) -> str:
     """The error text for a family the port does not build."""
     return (f"family {family!r} is not yet ported: ROADMAP queue 1 "
-            f"{NOT_PORTED.get(family, 'items 7-8')}")
+            f"{NOT_PORTED.get(family, 'item 8')}")
 
 
 @dataclasses.dataclass
@@ -66,16 +70,27 @@ def _no_extra(*a, **k) -> Dict[str, Any]:
 def build(cfg: ModelConfig) -> Model:
     """The :class:`Model` of ``cfg``."""
     fam = cfg.family
-    if fam == "dense" and not cfg.n_experts and not cfg.n_img_tokens:
+    if fam in PAGED_FAMILIES:
+        extra_inputs = _no_extra
+        if cfg.n_img_tokens:
+            def extra_inputs(seed: int, batch: int, device="cuda"):
+                gen = torch.Generator(device=device)
+                gen.manual_seed(seed)
+                return {"img_embeds": torch.randn(
+                    (batch, cfg.n_img_tokens, VIT_WIDTH), generator=gen,
+                    device=device).to(torch.bfloat16)}
+
         return Model(
             cfg=cfg,
             init_params=lambda seed=0, device="cuda": T.init_params(
                 cfg, seed, device),
             init_cache=lambda policy, batch, max_seq, device="cuda":
             T.init_cache(cfg, policy, batch, max_seq, device),
+            prefill=lambda params, policy, tokens, cache, **ex: T.prefill(
+                params, cfg, policy, tokens, cache, **ex),
             decode_step=lambda params, policy, tokens, cache, pos, **kw:
             T.decode_step(params, cfg, policy, tokens, cache, pos, **kw),
-            extra_inputs=_no_extra,
+            extra_inputs=extra_inputs,
             init_paged_cache=lambda policy, n_slots, n_blocks, block_size,
             blocks_per_slot, device="cuda": T.init_paged_cache(
                 cfg, policy, n_slots, n_blocks, block_size, blocks_per_slot,
@@ -114,5 +129,4 @@ def build(cfg: ModelConfig) -> Model:
             ED.decode_step(params, cfg, policy, tokens, cache, pos),
             extra_inputs=extra_inputs,
         )
-    raise NotImplementedError(not_ported(
-        "moe" if cfg.n_experts else "vlm" if cfg.n_img_tokens else fam))
+    raise NotImplementedError(not_ported(fam))

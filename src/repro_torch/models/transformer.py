@@ -1,11 +1,15 @@
-"""Dense decoder-only transformer family (llama-style), decode path.
+"""Decoder-only transformer (llama-style): the dense, moe and vlm families.
 
-Port of ``repro.models.transformer`` for the dense family on either KV
-backend (dense slab or paged pool): RMSNorm, interleaved RoPE, GQA,
-SwiGLU; weights may be bf16 tensors or PackedWeights.  Parameters are a
-dict whose ``"layers"`` entry is a list of per-layer dicts (the JAX
-package stacks them along a leading axis for its layer scan; here the
-scan is a Python loop).
+Port of ``repro.models.transformer`` on either KV backend (dense slab or
+paged pool): RMSNorm, interleaved RoPE, GQA, a SwiGLU or MoE feed-forward
+(:mod:`repro_torch.models.moe`, with arctic's dense residual or llama4's
+shared expert beside it); weights may be bf16 tensors or PackedWeights
+(expert stacks packed member by member).  :func:`decode_step` is the
+engine's chunked prefill and decode step; :func:`prefill` the one-shot
+prefill of the vlm family, which prepends the projected image embeddings
+to the prompt.  Parameters are a dict whose ``"layers"`` entry is a list
+of per-layer dicts (the JAX package stacks them along a leading axis for
+its layer scan; here the scan is a Python loop).
 """
 from __future__ import annotations
 
@@ -14,29 +18,47 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attention as A
 from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.kernels.ref import NO_WINDOW as BIG_WINDOW
 
 from . import common as C
+from . import moe as MOE
+
+#: the vlm family's stub vision-tower width (``img_proj`` maps it to
+#: d_model)
+VIT_WIDTH = 1024
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
+def _stack_init(gen: torch.Generator, E: int, shape) -> torch.Tensor:
+    """(E, K, N) bf16 stack of :func:`common.dense_init` members, drawn one
+    member at a time (one member's f32 at a time)."""
+    out = torch.empty((E,) + tuple(shape), dtype=torch.bfloat16,
+                      device=gen.device)
+    for e in range(E):
+        out[e] = C.dense_init(gen, shape)
+    return out
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
-    """Seeded random bf16 parameters (norm gains zero, embed 0.02, other
-    weights ``1/sqrt(fan_in)``), drawn on ``device`` from one
-    ``torch.Generator``.  The values differ from the JAX package's for the
-    same seed (different generators); tests carry JAX's parameters across
-    with :func:`repro_torch.convert.params_from_jax` instead."""
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            "items 7-8)")
+    """Seeded random bf16 parameters of the JAX package's leaves (norm
+    gains zero, embed and router 0.02, other weights ``1/sqrt(fan_in)``),
+    drawn on ``device`` from one ``torch.Generator``: the dense family's
+    SwiGLU, the moe family's ``router`` and expert stacks ``we1/we3/we2``
+    (E, K, N) (with ``ws1/ws3/ws2`` for a dense residual or shared
+    expert), the vlm family's ``img_proj`` (VIT_WIDTH, d_model).  The
+    values differ from the JAX package's for the same seed (different
+    generators); tests carry JAX's parameters across with
+    :func:`repro_torch.convert.params_from_jax` instead."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"family {cfg.family!r} is not a transformer")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f = cfg.d_model, cfg.d_ff
@@ -47,20 +69,34 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        lp = {
             "ln1": torch.zeros(d, dtype=torch.bfloat16, device=device),
             "ln2": torch.zeros(d, dtype=torch.bfloat16, device=device),
             "wq": C.dense_init(gen, (d, H * hd)),
             "wk": C.dense_init(gen, (d, Hkv * hd)),
             "wv": C.dense_init(gen, (d, Hkv * hd)),
             "wo": C.dense_init(gen, (H * hd, d)),
-            "w1": C.dense_init(gen, (d, f)),
-            "w3": C.dense_init(gen, (d, f)),
-            "w2": C.dense_init(gen, (f, d)),
-        })
+        }
+        if cfg.n_experts:
+            E = cfg.n_experts
+            lp["router"] = C.dense_init(gen, (d, E), scale=0.02)
+            lp["we1"] = _stack_init(gen, E, (d, f))
+            lp["we3"] = _stack_init(gen, E, (d, f))
+            lp["we2"] = _stack_init(gen, E, (f, d))
+            if cfg.moe_dense_residual or cfg.shared_expert:
+                lp["ws1"] = C.dense_init(gen, (d, f))
+                lp["ws3"] = C.dense_init(gen, (d, f))
+                lp["ws2"] = C.dense_init(gen, (f, d))
+        else:
+            lp["w1"] = C.dense_init(gen, (d, f))
+            lp["w3"] = C.dense_init(gen, (d, f))
+            lp["w2"] = C.dense_init(gen, (f, d))
+        layers.append(lp)
     params["layers"] = layers
     if not cfg.tie_embeddings:
         params["lm_head"] = C.dense_init(gen, (d, cfg.vocab), scale=0.02)
+    if cfg.n_img_tokens:
+        params["img_proj"] = C.dense_init(gen, (VIT_WIDTH, d))
     return params
 
 
@@ -110,7 +146,14 @@ def qkv(h, lp, cfg: ModelConfig, policy):
 
 
 def ffn(h, lp, cfg: ModelConfig, policy):
-    """The layer's feed-forward block (SwiGLU for the dense family)."""
+    """The layer's feed-forward block: SwiGLU, or the MoE FFN plus the
+    dense residual / shared expert's SwiGLU."""
+    if cfg.n_experts:
+        y = MOE.moe_ffn(h, lp, cfg, policy)
+        if cfg.moe_dense_residual or cfg.shared_expert:
+            y = y + C.swiglu(h, {"w1": lp["ws1"], "w3": lp["ws3"],
+                                 "w2": lp["ws2"]}, policy)
+        return y
     return C.swiglu(h, lp, policy)
 
 
@@ -118,6 +161,56 @@ def lm_logits(params, h: torch.Tensor) -> torch.Tensor:
     """Logits over the vocabulary (tied embedding unless ``lm_head``)."""
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
     return torch.matmul(h, w.to(h.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Prefill: the whole prompt (and image) at once → last-token logits + cache
+# ---------------------------------------------------------------------------
+
+
+def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
+            tokens: torch.Tensor, cache: KV.KVCache,
+            img_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, KV.KVCache]:
+    """tokens (B, P) from position 0 into a dense slab; the vlm family's
+    ``img_embeds`` (B, n_img, VIT_WIDTH) are projected by ``img_proj``
+    and prepended, so the slab's first ``n_img + P`` rows are written.
+    Attention is :func:`repro_torch.core.attention.flash_attention` (the
+    flash-prefill kernel on the card) over the whole sequence; each
+    layer's K/V are quantized into the slab at position 0.  Returns the
+    last row's (B, V) logits and the cache.  Raises ``ValueError`` when
+    the sequence does not fit the slab."""
+    if not cfg.use_rope:
+        raise NotImplementedError(
+            "sinusoidal positions are not ported yet (ROADMAP queue 1 "
+            "item 8)")
+    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    if img_embeds is not None:
+        proj = C.linear(img_embeds.to(x.dtype), params["img_proj"], policy)
+        x = torch.cat([proj.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    if S > cache.max_seq:
+        raise ValueError(
+            f"prefill of {S} rows ({S - tokens.shape[1]} image + "
+            f"{tokens.shape[1]} prompt) does not fit max_seq="
+            f"{cache.max_seq}")
+    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    rotation = C.rope_rotation(pos, cfg.hd, rotary_pct=cfg.rotary_pct,
+                               theta=cfg.rope_theta)
+    for i, lp in enumerate(params["layers"]):
+        h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = qkv(h, lp, cfg, policy)
+        q = C.apply_rope(q, rotation)
+        k = C.apply_rope(k, rotation)
+        win = layer_window(cfg, i)
+        attn = A.flash_attention(q, k, v, causal=True,
+                                 window=None if win == BIG_WINDOW else win)
+        KV.append(cache.layer(i), k, v, 0, policy.kv)
+        x = x + C.linear(attn.reshape(B, S, -1), lp["wo"], policy)
+        h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + ffn(h2, lp, cfg, policy)
+    h_last = C.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return lm_logits(params, h_last), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Engine configuration: one validated dataclass.
 
 Port of ``repro.serving.config`` for the dense-slab and paged engines of
-the dense family (reservation or block growth with preemption, with or
-without prefix caching; the kernels or the ``attn_impl="xla"`` opt-out)
-and the one-shot-prefill engines of the hybrid and audio families.  Every
+the dense and moe families (reservation or block growth with preemption,
+with or without prefix caching; the kernels or the ``attn_impl="xla"``
+opt-out) and the one-shot-prefill engines of the vlm, hybrid and audio
+families on the dense slab.  Every
 knob of the JAX ``EngineConfig`` is here, with its rules; a family not
 ported yet raises :class:`EngineError` naming the ROADMAP item that ports
 it, instead of silently doing something else.  New knob: ``device``
@@ -101,11 +102,8 @@ class EngineConfig:
             raise EngineError(
                 f"max_prompt={self.max_prompt} exceeds max_seq={self.max_seq}")
 
-        if self.model.family not in FAMILIES or self.model.n_experts or \
-                self.model.n_img_tokens:
-            raise EngineError(not_ported(
-                "moe" if self.model.n_experts else "vlm"
-                if self.model.n_img_tokens else self.model.family))
+        if self.model.family not in FAMILIES:
+            raise EngineError(not_ported(self.model.family))
         if self.cache_kind == "paged":
             if self.max_seq % self.block_size:
                 raise EngineError(
@@ -118,6 +116,10 @@ class EngineConfig:
             if self.model.family not in PAGED_FAMILIES:
                 raise EngineError(
                     f"family {self.model.family!r} has no KV cache to page")
+            if self.model.n_img_tokens:
+                raise EngineError(
+                    "paged cache does not support modality-stub families "
+                    "(their prefill consumes extra encoder inputs)")
             # chunks are quantize-and-written straight into pool blocks: a
             # chunk must tile a block exactly or span whole blocks
             if self.prefill_chunk % self.block_size and \

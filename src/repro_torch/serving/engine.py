@@ -1,9 +1,10 @@
 """Serving engine: continuous batching over the mixed-precision model.
 
-Port of ``repro.serving.engine`` for the dense family on the dense slab
-and on the paged backend (reservation or block growth with preemption,
-prefix caching on or off), and for the hybrid and audio families with
-their one-shot prefill, under every ``WxAyKVz`` policy.  The public surface
+Port of ``repro.serving.engine`` for the dense and moe families on the
+dense slab and on the paged backend (reservation or block growth with
+preemption, prefix caching on or off), and for the vlm, hybrid and audio
+families with their one-shot prefill on the dense slab, under every
+``WxAyKVz`` policy.  The public surface
 is the JAX engine's:
 
 * :class:`~repro_torch.serving.config.EngineConfig` — validated knobs;
@@ -49,11 +50,15 @@ tile), so the two backends traverse the same tiles and serve
 byte-identical greedy streams.  A slot emits a token only on the
 iteration that consumes its last unfed stream token.
 
-The hybrid (recurrent state) and audio (encoder inputs) families keep the
-JAX engine's one-shot path instead: at admission the prompt minus its last
-token runs through ``model.prefill`` into a B=1 cache (flash-prefill
-attention), which is spliced into the slot; every step then feeds one
-token per slot through ``decode_step``.
+The vlm (image inputs), hybrid (recurrent state) and audio (encoder
+inputs) families keep the JAX engine's one-shot path instead: at
+admission the prompt minus its last token runs through ``model.prefill``
+into a B=1 cache (flash-prefill attention), which is spliced into the
+slot; every step then feeds one token per slot through ``decode_step``.
+As in the reference, a vlm slot then decodes from position ``n - 1`` of
+its n-token prompt although the prefill wrote ``n_img + n - 1`` rows:
+each step overwrites and attends to the slab's first rows, the image's
+while ``n - 1 < n_img``.
 
 Sampling is per slot (``serving/sampler.py``); feed cursors are host-side,
 and the one device→host sync per iteration besides the KV write filter is
@@ -88,13 +93,14 @@ _SKIP_KEYS = ("embed", "dec_pos", "lm_head", "conv_w", "lam", "u", "w0",
 
 
 def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
-    """Offline stage: pack every large 2D bf16 GEMM weight (paper §4.1);
-    embeddings and norms stay bf16.  Tensors are moved to ``device`` (when
-    given) first.  On a CUDA device the packed weights are put in the
-    fragment order of the GEMM kernel the policy routes to
-    (``to_kernel_layout``), so the card holds one copy, in the layout that
-    kernel reads; the CPU keeps the JAX package's
-    tile-major bytes.  Returns a new parameter structure."""
+    """Offline stage: pack every large 2D bf16 GEMM weight and every MoE
+    expert stack (paper §4.1); embeddings and norms stay bf16.  Tensors
+    are moved to ``device`` (when given) first.  On a CUDA device the
+    packed 2D weights are put in the fragment order of the GEMM kernel the
+    policy routes to (``to_kernel_layout``), so the card holds one copy,
+    in the layout that kernel reads; the CPU keeps the JAX package's
+    tile-major bytes, and so do expert stacks everywhere (only the plain
+    dequantizer reads them).  Returns a new parameter structure."""
     if isinstance(params, dict):
         return {k: quantize_params(v, policy, device, _path + (k,))
                 for k, v in params.items()}
@@ -106,7 +112,8 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     skip = any(str(k).startswith(s) for k in _path for s in _SKIP_KEYS)
     if not skip and t.dim() >= 2 and t.dtype == torch.bfloat16:
         w = C.maybe_quantize(t, policy)
-        if isinstance(w, PackedWeight) and t.device.type == "cuda":
+        if isinstance(w, PackedWeight) and not w.stacked and \
+                t.device.type == "cuda":
             try:
                 w = to_kernel_layout(w, "a8" if policy.int8_matmul
                                      else "a16")
@@ -226,10 +233,14 @@ class Engine:
         the sampled (B,) tokens on the host."""
         dev = self.device
         kw = {}
-        if self._chunked:
+        if self._kv_family:
+            # every KV family walks the engine's tiles (the one-shot vlm
+            # too, as the reference passes them to every family with
+            # kernels); only chunked engines feed padding rows
             kw = dict(max_live=max_live, attn_block_s=self.attn_block_s,
-                      attn_impl=self.config.attn_impl,
-                      valid=torch.from_numpy(valid).to(dev))
+                      attn_impl=self.config.attn_impl)
+        if self._chunked:
+            kw["valid"] = torch.from_numpy(valid).to(dev)
         logits, self.cache = self.model.decode_step(
             self.params, self.policy, torch.from_numpy(tokens).to(dev),
             self.cache, torch.from_numpy(pos).to(dev), **kw)
@@ -259,6 +270,12 @@ class Engine:
             raise EngineError(
                 f"prompt token outside the vocabulary [0, "
                 f"{self.model_cfg.vocab})")
+        n_img = self.model_cfg.n_img_tokens
+        if n_img and n_img + max(len(prompt) - 1, 1) > self.max_seq:
+            raise EngineError(
+                f"the one-shot prefill of {n_img} image rows + "
+                f"{max(len(prompt) - 1, 1)} prompt tokens does not fit "
+                f"max_seq={self.max_seq}")
         params = params or SamplingParams()
         req = Request(rid=self._next_rid, prompt=prompt, params=params,
                       arrival_time=self.now() if arrival_time is None

@@ -24,6 +24,11 @@ Tolerances:
   output by O(1).
 * Dense ≡ paged, batch-mates, n_live and chunking: the split depends on
   the logical tile index only, so these are compared bit for bit.
+* MoE — the layer on the card against the same call on the CPU: the
+  router's bf16 logits may differ by an ulp, so a token may take another
+  expert, but only at a near-tie (router probabilities within 4e-3,
+  ``test_torch_moe``'s A16 bar); the other tokens' outputs, bf16 matmuls
+  summed in other orders, within 2e-2 · max|y|.
 * Flash prefill — the kernel against its plain version (the same tile
   walk, ``ref.flash_prefill_walk``): the same rounding points, dot
   products summed in other orders (tensor-core fragments against
@@ -383,6 +388,120 @@ def test_gemms_match_plain_at_dense_config_widths(dev, shape, M, bits):
         assert err <= 2 ** -7 * plain.float().abs().max().item(), err
 
 
+#: the packed GEMMs of llama4-scout-17b-a16e (attention, shared expert),
+#: arctic-480b (attention, dense residual, the 128-wide router) and
+#: internvl2-2b (attention, SwiGLU, img_proj at a 256-row image prefill),
+#: as ``models.common.pick_blocks`` tiles them: K, N, bk, bn, token counts
+MOE_VLM_GEMM_SHAPES = [
+    (5120, 5120, 64, 64, (4, 128)), (5120, 1024, 64, 64, (4, 128)),
+    (5120, 8192, 64, 128, (4, 128)), (8192, 5120, 128, 64, (4, 128)),
+    (7168, 7168, 64, 64, (4, 128)), (7168, 1024, 64, 64, (4, 128)),
+    (7168, 4864, 64, 128, (4, 128)), (4864, 7168, 128, 64, (4, 128)),
+    (7168, 128, 64, 128, (4, 128)),
+    (2048, 2048, 128, 128, (4, 319)), (2048, 1024, 128, 64, (4, 319)),
+    (2048, 8192, 128, 128, (4, 319)), (8192, 2048, 128, 128, (4, 319)),
+    (1024, 2048, 64, 128, (256,)),
+]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", MOE_VLM_GEMM_SHAPES)
+def test_gemms_match_plain_at_moe_and_vlm_widths(dev, shape, bits):
+    """Both GEMM kernels against their plain versions at the moe and vlm
+    configs' widths: a single 128-wide column block (arctic's router),
+    M 256 and a ragged 319 (internvl2's image and one-shot prefills)."""
+    K, N, bk, bn, Ms = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K + N + bits)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
+    for M in Ms:
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        xq, xs = Q.quantize_act_per_token(x.float(), bits=8)
+        for y, plain in ((mpgemm_a16(x, to_kernel_layout(pw, "a16")),
+                          ref.mpgemm_ref(x, pw)),
+                         (mpgemm_int8(xq, xs, to_kernel_layout(pw, "a8")),
+                          ref.mpgemm_int8_ref(xq, xs, pw))):
+            torch.cuda.synchronize()
+            err = (y.float() - plain.float()).abs().max().item()
+            assert err <= 2 ** -7 * plain.float().abs().max().item(), \
+                (M, err)
+
+
+#: decode attention at the moe and vlm configs' heads (D 128): llama4's 40
+#: query heads on 8 KV heads (rep 5), arctic's 56 (rep 7), internvl2's 16
+#: (rep 2) after its 256-row image prefill; T 1 and a 32-token chunk
+#: (T x rep rows: 160 and 224 of the kernel's 16-row groups)
+MOE_VLM_ATTN_CASES = [
+    # B, Hkv, rep, D, bs, bps, pos, T, window, n_live
+    (4, 8, 5, 128, 16, 16, [63, 36, 99, 0], 1, None, None),
+    (4, 8, 5, 128, 16, 16, [32, 0, 64, 96], 32, None, None),
+    (4, 8, 7, 128, 16, 16, [63, 36, 99, 0], 1, None, None),
+    (4, 8, 7, 128, 16, 16, [32, 0, 64, 96], 32, None, None),
+    (4, 8, 2, 128, 16, 24, [318, 70, 79, 63], 1, None, None),
+]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("case", MOE_VLM_ATTN_CASES)
+def test_attention_at_moe_and_vlm_heads(dev, case, fmt):
+    """Both decode-attention kernels against their plain versions, dense
+    ≡ paged bit for bit, and (chunks) a chunk's rows the bits of its
+    tokens fed one at a time."""
+    layer, slab, q, posd, win, rep, nl, bs = _attn_inputs(case, fmt, dev)
+    spec = spec_of(fmt)
+    args = (q, slab.k, slab.k_scale, slab.v, slab.v_scale, posd, win, rep)
+    pargs = (q, layer.k, layer.k_scale, layer.v, layer.v_scale,
+             layer.block_table, posd, win, rep, nl)
+    out = kvattn(*args, bs, spec)
+    paged = paged_kvattn(*pargs, spec)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    _close(out, ref.kvattn_ref(*args, bs))
+    _close(paged, ref.paged_kvattn_ref(*pargs))
+    assert torch.equal(out, paged)
+    T = q.shape[2] // rep
+    for t in {0, T // 2, T - 1}:
+        one = kvattn(q[:, :, t * rep:(t + 1) * rep].contiguous(), *args[1:5],
+                     posd + t, win, rep, bs, spec)
+        assert torch.equal(one, out[:, :, t * rep:(t + 1) * rep]), t
+
+
+def test_moe_ffn_on_the_card_matches_cpu(dev):
+    """The moe layer (llama4-width router and experts, w4 packed stacks
+    dequantized on the card) against the same call on the CPU, both
+    dispatches, ample capacity: the same routing, outputs within 2e-2 ·
+    max |y| (bf16 matmuls summed in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import pack_stack
+    from repro_torch.models import moe as MOE
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              n_experts=4, d_ff=1024, capacity_factor=8.0)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator().manual_seed(7)
+    lp = {"router": (torch.randn(d, E, generator=gen) * 0.02).bfloat16()}
+    for name, shape in (("we1", (d, f)), ("we3", (d, f)), ("we2", (f, d))):
+        w = torch.randn((E,) + shape, generator=gen) / shape[0] ** 0.5
+        lp[name] = pack_stack(w, bits=4, group=64, block_k=64, block_n=128)
+    x = torch.randn(4, 32, d, generator=gen).bfloat16()
+    on_card = {k: v.to(dev) for k, v in lp.items()}
+    probs, _, idx = MOE.route(x, lp, cfg, None)
+    idx_card = MOE.route(x.to(dev), on_card, cfg, None)[2].cpu()
+    flip = (idx_card != idx).any(-1)                     # (B, S)
+    # a flip only at a near-tie of the CPU's router probabilities
+    gap = probs.gather(-1, idx) - probs.gather(-1, idx_card)
+    assert gap.abs().max(-1).values[flip].le(4e-3).all()
+    try:
+        for impl in ("einsum", "sort"):
+            MOE.set_dispatch_impl(impl)
+            y_cpu = MOE.moe_ffn(x, lp, cfg).float()
+            y = MOE.moe_ffn(x.to(dev), on_card, cfg).float().cpu()
+            err = (y - y_cpu).abs()[~flip].max().item()
+            assert err <= 2e-2 * y_cpu.abs().max().item(), impl
+    finally:
+        MOE.set_dispatch_impl("einsum")
+
+
 def _gemm_inputs(shape, M, bits, dev):
     """A packed weight in the JAX package's tile-major layout (what the
     plain versions read here, so a wrong fragment permutation shows) and
@@ -522,6 +641,7 @@ FLASH_CASES = [
     (2, 8, 2, 200, 128, True, None),    # D 128, rep 4
     (1, 8, 8, 96, 128, False, 40),      # non-causal window
     (1, 4, 4, 70, 32, True, None),      # whisper REDUCED head dim
+    (1, 16, 8, 319, 128, True, None),   # internvl2: 256 image + 63 prompt
 ]
 
 

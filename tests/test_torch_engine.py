@@ -138,10 +138,7 @@ def test_invalid_configs_rejected(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(model=dataclasses.replace(SMOLLM, family="moe", n_experts=4,
-                                    topk=2)), "item 7"),
-    (dict(model=dataclasses.replace(SMOLLM, family="vlm",
-                                    n_img_tokens=16)), "item 7"),
+    (dict(model=dataclasses.replace(SMOLLM, family="ssm")), "item 8"),
 ])
 def test_unported_features_raise(kw, item):
     args = dict(KW)
@@ -156,12 +153,17 @@ def test_unported_features_raise(kw, item):
     dict(policy="w4a16kv4"), dict(enable_prefix_caching=True),
     dict(enable_block_growth=True), dict(attn_impl="xla"),
     dict(attn_impl="xla", cache_kind="dense"),
+    dict(model=dataclasses.replace(SMOLLM, family="moe", n_experts=4,
+                                   topk=2)),
+    dict(model=dataclasses.replace(SMOLLM, family="vlm", n_img_tokens=16),
+         cache_kind="dense"),
 ])
 def test_formerly_unported_configs_serve(kw):
     """The dense backend, the policies beyond w4a16kv8, the paged pool's
-    prefix caching and block growth, and the gathered-view attention
-    opt-out on both backends build and serve (they raised "not yet
-    ported" before their slices landed)."""
+    prefix caching and block growth, the gathered-view attention opt-out
+    on both backends, and the moe (paged) and vlm (slab) families build
+    and serve (they raised "not yet ported" before their slices
+    landed)."""
     args = dict(KW)
     args.update(kw)
     eng = Engine(EngineConfig(**args))
