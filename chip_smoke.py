@@ -30,9 +30,11 @@ Phases, in order (any failure raises and exits nonzero):
    chatglm3-6b and mistral-large-123b (``DENSE_GEMM_SHAPES``) and of
    llama4-scout-17b-a16e, arctic-480b (its 128-wide router among them)
    and internvl2-2b (M 319 and its img_proj at M 256,
-   ``MOE_VLM_GEMM_SHAPES``); decode attention at their heads (rep 5, 7
-   and 2 at D 128, ``MOE_VLM_ATTN``) and flash prefill at internvl2's
-   one-shot prefill (S 319, 16 heads on 8, D 128).
+   ``MOE_VLM_GEMM_SHAPES``) and of rwkv6-7b (``RWKV_GEMM_SHAPES``: its
+   4096-square projections, ck / cv, and the decay LoRA's 4096 x 64 and
+   64 x 4096, the latter one 64-deep chunk at group 64); decode attention
+   at their heads (rep 5, 7 and 2 at D 128, ``MOE_VLM_ATTN``) and flash
+   prefill at internvl2's one-shot prefill (S 319, 16 heads on 8, D 128).
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
@@ -43,9 +45,16 @@ Phases, in order (any failure raises and exits nonzero):
    llama4-scout and arctic REDUCED on both backends under w4a16kv8 and
    w4a8kv4, the card's routing held to the CPU's up to a near-tie
    (``RoutingHold``, flips counted); internvl2 REDUCED one-shot with the
-   other one-shot families; logits must agree.  Then ``moe_ffn`` at
-   llama4's full width on the card: the sort dispatch ≡ the einsum one,
-   bit for bit, with ample capacity.
+   other one-shot families, and rwkv6-7b REDUCED likewise under
+   w4a16kv8, w4a8kv4 and w16a16kv16; smollm-360m REDUCED with
+   sinusoidal positions (``use_rope=False``) through ``decode_step`` on
+   both backends and through ``prefill`` (flash prefill); logits must
+   agree.  Then ``moe_ffn`` at llama4's full width on the card: the sort
+   dispatch ≡ the einsum one, bit for bit, with ample capacity.  Then the
+   offline calibration at rwkv6's ck width (``calibration_check``):
+   GPTQ-lite no worse than RTN per column, AWQ's chosen alpha no worse
+   than alpha 0, and both calibrated weights through
+   ``pack_prequantized`` and the A16 kernel against its plain version.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
    prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
@@ -57,16 +66,21 @@ Phases, in order (any failure raises and exits nonzero):
    4 requests of 128-token prompts, full-width whisper-tiny (4 + 4
    layers, 1500 frames), max_seq 256, 4 requests of 16-token prompts, and
    internvl2-2b (24 layers, 256 stub image rows before each prompt),
-   max_seq 384, 4 requests of 64-token prompts, 16 new tokens each.  Around each serve the launch counters are zeroed just
+   max_seq 384, 4 requests of 64-token prompts, and full-size rwkv6-7b
+   (all 32 layers, d_model 4096, d_ff 14336, vocab 65536; its recurrent
+   state in the slab's place), max_seq 256, 4 requests of 129-token
+   prompts (two 64-token chunks of its wkv form), 16 new tokens each.
+   Around each serve the launch counters are zeroed just
    before and read just after: every GEMM must have gone through the
    kernel its policy routes to and every attention call through its
    kernel (smollm: 7 GEMMs and 1 attention call per layer and step; the
    one-shot families: 8 flash-prefill launches per request, 24 for
-   internvl2, their packed GEMMs per prefill and per step on the A16
-   kernel, and internvl2's decode attention on the slab kernel).  For each
+   internvl2, none for rwkv6, their packed GEMMs per prefill and per step
+   on the A16 kernel — rwkv6 320 of each, 10 a layer — and internvl2's
+   decode attention on the slab kernel).  For each
    smollm policy the dense and paged token streams must be identical.
    One request per w4a16kv8 serve is replayed teacher-forced and must
-   follow its argmax.
+   follow its argmax (rwkv6's with the serve's batch, ``LOCKSTEP_REPLAY``).
 6. Paging serves, full-width smollm-360m w4a16kv8, counters zeroed and
    read around each: a shared-prefix serve (``PREFIX_SERVE``) with prefix
    caching off and on — identical streams, 96 cached tokens on every hit,
@@ -158,6 +172,17 @@ MOE_VLM_GEMM_SHAPES = [
     ("internvl2 w1/w3", 2048, 8192, 128, 128, (4, 319)),
     ("internvl2 w2", 8192, 2048, 128, 128, (4, 319)),
     ("internvl2 img_proj", 1024, 2048, 64, 128, (256,))]
+#: rwkv6-7b's ten packed GEMMs a layer, as ``pick_blocks`` tiles them
+#: (group = block_k): the six 4096-square projections (wr, wk, wv, wg, wo,
+#: cr), the channel-mix ck / cv, and the decay LoRA — w_A one 64-wide
+#: column block, w_B a single 64-deep K block at group 64, the smallest K
+#: a served config gives the GEMMs
+RWKV_GEMM_SHAPES = [
+    ("rwkv6 wr/wk/wv/wg/wo/cr", 4096, 4096, 128, 128),
+    ("rwkv6 ck", 4096, 14336, 128, 128),
+    ("rwkv6 cv", 14336, 4096, 128, 128),
+    ("rwkv6 w_A", 4096, 64, 128, 64),
+    ("rwkv6 w_B", 64, 4096, 64, 128)]
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
 #: and where the window binds, whisper-tiny's encoder (not a tile multiple)
@@ -227,10 +252,24 @@ SERVES = [("w4a16kv8", 8, 64, 32), ("w4a8kv4", 4, 32, 16),
 #: launches; both decode attention in plain PyTorch, as the reference in
 #: XLA.  internvl2: 24 layers x 7 + img_proj per prefill (256 image rows
 #: before the 63-token prompt), 24 x 7 a step, 24 flash-prefill launches
-#: and 24 slab-kernel launches a step.
+#: and 24 slab-kernel launches a step.  rwkv6-7b: all 32 layers, 10 packed
+#: GEMMs each (wr, wk, wv, wg, wo, w_A, w_B, ck, cv, cr) per prefill and
+#: per step, no attention; 129-token prompts prefill 128 tokens, two
+#: 64-token chunks of its wkv form.
 ONE_SHOT_SERVES = [("recurrentgemma-2b", 512, 4, 128, 16, 200, 200, 8, 0),
                    ("whisper-tiny", 256, 4, 16, 16, 64, 32, 8, 0),
-                   ("internvl2-2b", 384, 4, 64, 16, 169, 168, 24, 24)]
+                   ("internvl2-2b", 384, 4, 64, 16, 169, 168, 24, 24),
+                   ("rwkv6-7b", 256, 4, 129, 16, 320, 320, 0, 0)]
+#: the policies each one-shot family is held card vs CPU under (REDUCED)
+ONE_SHOT_POLICIES = {"rwkv6-7b": ("w4a16kv8", "w4a8kv4", "w16a16kv16")}
+#: one-shot serves replayed with the engine's step shapes (every request
+#: prefilled alone and spliced into its slot, then lockstep decode steps
+#: of the whole batch) instead of one request alone: rwkv6-7b's decode
+#: runs its wkv products as batched cuBLAS matmuls whose f32 rounding
+#: changes with the batch count, and through 32 layers of random weights
+#: that moves its logits by about the near-tie bar (the serve records the
+#: gap as ``replay_alone_vs_batch_rel``)
+LOCKSTEP_REPLAY = ("rwkv6-7b",)
 #: the paging serves, smollm-360m w4a16kv8 on the paged pool (4 slots,
 #: block 16, prefill_chunk 32): requests, shared prefix and distinct tail
 #: tokens, new tokens — caching off and on
@@ -322,9 +361,9 @@ def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
 
 def gemm_phase(dev, flush):
     """Both GEMM kernels against their plain versions at smollm-360m's,
-    recurrentgemma-2b's, whisper-tiny's, the three other dense configs'
-    and the moe and vlm configs' packed shapes, bits 4 and 8, the weights
-    in the kernels' fragment order."""
+    recurrentgemma-2b's, whisper-tiny's, the three other dense configs',
+    rwkv6-7b's and the moe and vlm configs' packed shapes, bits 4 and 8,
+    the weights in the kernels' fragment order."""
     import torch
     from repro_torch.core.packing import (dequantize_packed, pack_weight,
                                           to_kernel_layout)
@@ -337,7 +376,7 @@ def gemm_phase(dev, flush):
     shapes = [(f"smollm {n}", *shape) for n, *shape in GEMM_SHAPES] + \
         [(f"recurrentgemma {n}", *shape) for n, *shape in RG_GEMM_SHAPES] + \
         [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES] + \
-        DENSE_GEMM_SHAPES
+        DENSE_GEMM_SHAPES + RWKV_GEMM_SHAPES
     shapes = [s + (GEMM_MS,) for s in shapes] + MOE_VLM_GEMM_SHAPES
     for name, K, N, bk, bn, Ms in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
@@ -867,6 +906,36 @@ def one_shot_teacher_forced(model, params, policy, stream, P, extra,
     return out
 
 
+def lockstep_teacher_forced(eng, prompts, outs):
+    """Replay a one-shot serve of equal-length prompts with the engine's
+    step shapes: each prompt minus its last token prefilled alone and
+    spliced into its slot, then lockstep decode steps of the whole batch
+    fed the served tokens.  Returns each request's float logits before
+    each of its served tokens."""
+    import torch
+    from repro_torch.serving.engine import _slot_insert
+    model, pol, dev = eng.model, eng.policy, eng.device
+    n = len(prompts)
+    cache = model.init_cache(pol, n, eng.max_seq, dev)
+    for b, p in enumerate(prompts):
+        c1 = model.init_cache(pol, 1, eng.max_seq, dev)
+        _, c1 = model.prefill(eng.params, pol,
+                              torch.tensor([p[:-1]], device=dev), c1,
+                              **eng._extra)
+        _slot_insert(cache, c1, b)
+    toks = [p[-1] for p in prompts]
+    out = [[] for _ in prompts]
+    for i in range(len(outs[0].output_token_ids)):
+        logits, cache = model.decode_step(
+            eng.params, pol, torch.tensor(toks, device=dev)[:, None], cache,
+            torch.full((n,), len(prompts[0]) - 1 + i, dtype=torch.int32,
+                       device=dev), attn_block_s=eng.attn_block_s)
+        for b in range(n):
+            out[b].append(logits[b].float().cpu())
+        toks = [o.output_token_ids[i] for o in outs]
+    return out
+
+
 def compare_logits(ref, got, tol, what):
     """Card logits within ``tol`` · max |logit| of the CPU's, top-1 equal
     where the CPU's top-2 margin is clear; returns the worst relative
@@ -906,7 +975,7 @@ def one_shot_reference(dev):
         extra = model.extra_inputs(5, 1, "cpu")
         stream = torch.randint(1, cfg.vocab, (12,), generator=torch.Generator()
                                .manual_seed(6)).tolist()
-        for name in ("w4a16kv8", "w16a16kv16"):
+        for name in ONE_SHOT_POLICIES.get(arch, ("w4a16kv8", "w16a16kv16")):
             pol = get_policy(name)
             params = quantize_params(raw, pol)
             logits = {str(d): one_shot_teacher_forced(
@@ -914,8 +983,102 @@ def one_shot_reference(dev):
                 {k: v.to(d) for k, v in extra.items()}, 32, d)
                 for d in ("cpu", dev)}
             worst[f"{arch}/{name}"] = compare_logits(
-                logits["cpu"], logits[str(dev)], TOL, f"{arch} {name}")
+                logits["cpu"], logits[str(dev)],
+                TOL_A8 if pol.int8_matmul else TOL, f"{arch} {name}")
     return worst
+
+
+def sinusoidal_reference(dev):
+    """smollm-360m REDUCED with ``use_rope=False`` (sinusoidal positions)
+    under w4a16kv8, the card against the CPU: teacher-forced through
+    ``decode_step`` on both backends (decode attention), and a one-shot
+    ``prefill`` (flash prefill) then decode steps on the slab."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    cfg = dataclasses.replace(get_reduced("smollm-360m"), use_rope=False)
+    model = build(cfg)
+    pol = get_policy("w4a16kv8")
+    params = quantize_params(model.init_params(0, "cpu"), pol)
+    stream = torch.randint(1, cfg.vocab, (12,), generator=torch.Generator()
+                           .manual_seed(4)).tolist()
+    worst = {}
+    for kind in ("dense", "paged"):
+        logits = {}
+        for d in ("cpu", dev):
+            cache, kw = new_cache(model, pol, kind, 1, d)
+            logits[str(d)] = teacher_forced(
+                model, to_device(params, d, pol), pol, cache, kw, stream,
+                [4, 4] + [1] * 4)
+        worst[f"sinusoidal/{kind}"] = compare_logits(
+            logits["cpu"], logits[str(dev)], TOL, f"sinusoidal {kind}")
+    logits = {str(d): one_shot_teacher_forced(
+        model, to_device(params, d, pol), pol, stream, 8, {}, 32, d,
+        attn_block_s=16) for d in ("cpu", dev)}
+    worst["sinusoidal/prefill"] = compare_logits(
+        logits["cpu"], logits[str(dev)], TOL, "sinusoidal prefill")
+    return worst
+
+
+def calibration_check(dev):
+    """The offline calibration at rwkv6-7b's ck width (4096 x 14336, bits
+    4, group 128) on seeded activations (T 256, a few salient channels),
+    on the card: GPTQ-lite's per-column error at most RTN's, AWQ's loss at
+    its alpha at most its loss at alpha 0 (RTN), both from the functions'
+    own sums; then each calibrated weight through ``pack_prequantized`` →
+    ``to_kernel_layout`` → ``mpgemm_a16`` at M 4 and 128 against the plain
+    version (AWQ's with x / s, the scale folded into the activations)."""
+    import torch
+    from repro_torch.core import calibration as CAL
+    from repro_torch.core import quantize as Q
+    from repro_torch.core.packing import pack_prequantized, to_kernel_layout
+    from repro_torch.kernels.mpgemm import mpgemm_a16
+    from repro_torch.kernels.ref import mpgemm_ref
+    K, N, T, group = 4096, 14336, 256, 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    boost = torch.ones(K, device=dev)
+    boost[::37] += 30.0
+    x = torch.randn(T, K, generator=gen, device=dev) * boost
+    t0 = time.perf_counter()
+    q, s = CAL.gptq_lite_quantize(w, x, bits=4, group=group)
+    q0, s0 = Q.quantize_weight_grouped(w, bits=4, group=group)
+    err_g = CAL._col_err(q, s, x, w, group)
+    err_r = CAL._col_err(q0, s0, x, w, group)
+    check(bool((err_g <= err_r).all()),
+          "gptq_lite: a column's error exceeds RTN's")
+    alphas, losses, _ = CAL.awq_losses(w, x, bits=4, group=group)
+    qa, (sca, sa) = CAL.awq_quantize(w, x, bits=4, group=group)
+    best = int(torch.argmin(losses))
+    check(losses[best].item() <= losses[0].item(),
+          "awq: the chosen alpha's loss exceeds alpha 0's (RTN)")
+    torch.cuda.synchronize()
+    res = dict(calib_s=time.perf_counter() - t0,
+               gptq_mse=err_g.mean().item(), rtn_mse=err_r.mean().item(),
+               gptq_columns_kept=int((err_g < err_r).sum()),
+               awq_alpha=alphas[best].item(), awq_loss=losses[best].item(),
+               awq_loss_alpha0=losses[0].item())
+    for label, qq, sc, xs in (("gptq", q, s, None), ("awq", qa, sca, sa)):
+        pw = pack_prequantized(qq, sc, bits=4, group=group)
+        frag = to_kernel_layout(pw, "a16")
+        for M in GEMM_MS:
+            xm = x[:M] if xs is None else x[:M] / xs
+            xb = xm.to(torch.bfloat16)
+            y, ref = mpgemm_a16(xb, frag), mpgemm_ref(xb, pw)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = 2 ** -7 * ref.float().abs().max().item()
+            check(err <= tol,
+                  f"calibrated {label} M={M}: |Δ|={err} > {tol}")
+            res[f"{label}_M{M}_err"] = err
+    del w, x, q, qa
+    torch.cuda.empty_cache()
+    return res
 
 
 def profile_window(eng, prompts, sp):
@@ -1271,10 +1434,17 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
     # argmax of decode_step's logits up to a near-tie (a vlm slot decodes
     # from position n - 1 over the image rows, as in the engine)
     stream = prompts[0] + outs[0].output_token_ids[:-1]
-    tf = one_shot_teacher_forced(eng.model, eng.params, eng.policy, stream,
-                                 prompt_len - 1, eng._extra, max_seq, dev,
-                                 attn_block_s=eng.attn_block_s)
-    for lg, tok in zip(tf[1:], outs[0].output_token_ids):
+    alone = one_shot_teacher_forced(eng.model, eng.params, eng.policy,
+                                    stream, prompt_len - 1, eng._extra,
+                                    max_seq, dev,
+                                    attn_block_s=eng.attn_block_s)[1:]
+    tf, batch_vs_alone = alone, None
+    if arch in LOCKSTEP_REPLAY:
+        tf = lockstep_teacher_forced(eng, prompts, outs)[0]
+        # how far request 0 alone strays from its batch row (recorded)
+        batch_vs_alone = max((a - b).abs().max().item() / b.abs().max()
+                             .item() for a, b in zip(alone, tf))
+    for lg, tok in zip(tf, outs[0].output_token_ids):
         check(lg[tok].item() >= lg.max().item() - TOL *
               lg.abs().max().item(),
               f"{arch}: served token is not the teacher-forced argmax")
@@ -1287,6 +1457,7 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
                latency_p50_s=percentile_stats([o.latency for o in outs])["p50"],
                setup_s=setup_s, launches=launches,
                kv_resident_bytes=eng.kv_resident_bytes(),
+               replay_alone_vs_batch_rel=batch_vs_alone,
                profile=profile_window(eng, prompts, SamplingParams(
                    max_new_tokens=8)),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -1542,7 +1713,8 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_worst, flips = moe_reference(dev)
     worst = {**reference_phase(dev), **one_shot_reference(dev),
-             **dense_reference(dev), **moe_worst}
+             **dense_reference(dev), **moe_worst,
+             **sinusoidal_reference(dev)}
     print(f"reference: REDUCED logits, card vs CPU, max rel err "
           f"{json.dumps(worst)}; moe routing flips at near-ties "
           f"{json.dumps(flips)} ({time.perf_counter() - t0:.1f} s)")
@@ -1550,6 +1722,8 @@ def main() -> int:
     print(f"moe module: llama4 width, sort ≡ einsum, ms "
           f"{json.dumps(moe_module_check(dev))} "
           f"({time.perf_counter() - t0:.1f} s)")
+    print(f"calibration: rwkv6 ck width on the card "
+          f"{json.dumps(calibration_check(dev))}")
     t0 = time.perf_counter()
     _, totals = serve_phase(dev)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,8 @@
 """Architecture configs the port runs.
 
 ``get_config(arch_id)`` / ``get_reduced(arch_id)`` resolve an arch id to its
-full and CPU-sized configuration; ``ARCHS`` lists only the architectures the
-port has been carried to (the JAX package's other families come with their
-ROADMAP items).
+full and CPU-sized configuration; ``ARCHS`` lists all ten of the JAX
+registry's architectures, in its order.
 """
 from __future__ import annotations
 
@@ -11,15 +10,16 @@ from typing import List
 
 from . import (arctic_480b, chatglm3_6b, gemma3_1b, internvl2_2b,
                llama4_scout_17b_a16e, mistral_large_123b, recurrentgemma_2b,
-               smollm_360m, whisper_tiny)
+               rwkv6_7b, smollm_360m, whisper_tiny)
 from .base import ModelConfig
 
 #: architectures the port runs, in the JAX registry's id spelling and order
-ARCHS: List[str] = ["arctic-480b", "llama4-scout-17b-a16e", "whisper-tiny",
-                    "chatglm3-6b", "internvl2-2b", "smollm-360m",
-                    "gemma3-1b", "mistral-large-123b", "recurrentgemma-2b"]
+ARCHS: List[str] = ["arctic-480b", "rwkv6-7b", "llama4-scout-17b-a16e",
+                    "whisper-tiny", "chatglm3-6b", "internvl2-2b",
+                    "smollm-360m", "gemma3-1b", "mistral-large-123b",
+                    "recurrentgemma-2b"]
 
-_MODULES = {"arctic-480b": arctic_480b,
+_MODULES = {"arctic-480b": arctic_480b, "rwkv6-7b": rwkv6_7b,
             "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
             "whisper-tiny": whisper_tiny, "chatglm3-6b": chatglm3_6b,
             "internvl2-2b": internvl2_2b, "smollm-360m": smollm_360m,

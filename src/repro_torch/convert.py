@@ -4,9 +4,9 @@
 ported family's model as nested dicts of numpy arrays (``jax.device_get``
 of the family's ``init_params``; raw, not packed) and returns the port's
 parameter dict: every layer stack split into a list of per-layer dicts
-(dense ``layers``; hybrid ``rec1`` / ``rec2`` / ``attn`` / ``trail``;
-audio ``encoder`` / ``decoder``), every other leaf carried as it is.  The
-port then packs the weights with its own packer, which yields the JAX
+(dense and ssm ``layers``; hybrid ``rec1`` / ``rec2`` / ``attn`` /
+``trail``; audio ``encoder`` / ``decoder``), every other leaf carried as
+it is.  The port then packs the weights with its own packer, which yields the JAX
 packer's bytes.  This is how tests feed both packages the same
 model without downloading weights.
 
@@ -81,9 +81,9 @@ def _split(stack: Mapping[str, Any], n: int, device) -> List[Dict[str, Any]]:
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
                     device="cuda") -> Dict[str, Any]:
-    """JAX parameters of a dense, moe, vlm, hybrid or audio model (numpy
-    leaves, layers stacked along a leading axis) → the port's parameter
-    dict on ``device``."""
+    """JAX parameters of a model of any family (numpy leaves, layers
+    stacked along a leading axis) → the port's parameter dict on
+    ``device``."""
     if cfg.family in ("dense", "moe", "vlm"):
         stacks = {"layers": cfg.n_layers}
         layer_keys, top_keys = _required(cfg)
@@ -91,6 +91,8 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
             + [k for k in top_keys if k not in np_params]
         if missing:
             raise KeyError(f"JAX {cfg.family} parameters lack {missing}")
+    elif cfg.family == "ssm":
+        stacks = {"layers": cfg.n_layers}
     elif cfg.family == "hybrid":
         n_super = cfg.n_layers // cfg.rglru_period
         stacks = {"rec1": n_super, "rec2": n_super, "attn": n_super,
@@ -98,6 +100,6 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
     elif cfg.family == "audio":
         stacks = {"encoder": cfg.enc_layers, "decoder": cfg.n_layers}
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(f"unknown family {cfg.family!r}")
     return {k: _split(v, stacks[k], device) if k in stacks
             else _tree(v, device) for k, v in np_params.items()}

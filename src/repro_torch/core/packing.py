@@ -1,6 +1,8 @@
 """Hardware-aware weight packing (offline stage of the paper's GEMM pipeline).
 
-Port of ``repro.core.packing``.  The layout is the JAX package's tile-major
+Port of ``repro.core.packing``, with its helpers for calibrated weights
+(:func:`pack_prequantized`) and the row-major baseline layout
+(:class:`UnpackedWeight`).  The layout is the JAX package's tile-major
 one, byte for byte:
 
     (K, N) int4  →  data[K/bk, N/bn, bk/2, bn] int8, scales[K/group, N] f32
@@ -123,6 +125,24 @@ def pack_weight(w: torch.Tensor, bits: int = 4, group: int = 128,
                         block_n=block_n, shape=(K, N))
 
 
+def pack_prequantized(q: torch.Tensor, scales: torch.Tensor, bits: int,
+                      group: int = 128, block_k: int = DEFAULT_BLOCK_K,
+                      block_n: int = DEFAULT_BLOCK_N) -> PackedWeight:
+    """Pack already-quantized (K, N) int values (AWQ / GPTQ calibration,
+    :mod:`repro_torch.core.calibration`) with their (K/group, N) scales
+    into the tile-major layout; :func:`to_kernel_layout` then takes it to
+    a kernel's fragment order like any packed weight."""
+    K, N = q.shape
+    if K % block_k or N % block_n:
+        raise ValueError(f"({K}, {N}) does not tile by ({block_k}, {block_n})")
+    tiles = _tile(q.to(torch.int8), block_k, block_n)
+    if bits == 4:
+        tiles = Q.pack_int4(tiles, dim=2)
+    return PackedWeight(data=tiles.contiguous(), scales=scales.contiguous(),
+                        bits=bits, group=group, block_k=block_k,
+                        block_n=block_n, shape=(K, N))
+
+
 def pack_stack(w: torch.Tensor, bits: int = 4, group: int = 128,
                block_k: int = DEFAULT_BLOCK_K,
                block_n: int = DEFAULT_BLOCK_N) -> PackedWeight:
@@ -232,3 +252,35 @@ def dequantize_packed(p: PackedWeight, dtype=torch.bfloat16) -> torch.Tensor:
         return out
     return Q.dequantize_weight_grouped(unpack_weight(p), p.scales,
                                        group=p.group, dtype=dtype)
+
+
+# -- the unpacked baseline layout ---------------------------------------------
+# Stored row-major exactly as the quantizer emits it (int4 two per byte
+# along K); a kernel reading it would do the re-layout itself.
+
+
+@dataclasses.dataclass
+class UnpackedWeight:
+    """Row-major quantized weight: data (K (/2 at int4), N) int8, scales
+    (K/group, N) f32."""
+
+    data: torch.Tensor
+    scales: torch.Tensor
+    bits: int
+    group: int
+    shape: Tuple[int, int]
+
+
+def quantize_rowmajor(w: torch.Tensor, bits: int = 4,
+                      group: int = 128) -> UnpackedWeight:
+    """Quantize (K, N) per (group, column) and keep the row-major order."""
+    q, scales = Q.quantize_weight_grouped(w, bits=bits, group=group)
+    if bits == 4:
+        q = Q.pack_int4(q, dim=0)
+    return UnpackedWeight(data=q, scales=scales, bits=bits, group=group,
+                          shape=tuple(w.shape))
+
+
+def unpack_rowmajor(u: UnpackedWeight) -> torch.Tensor:
+    """(K, N) int8-held values of a row-major quantized weight."""
+    return Q.unpack_int4(u.data, dim=0) if u.bits == 4 else u.data

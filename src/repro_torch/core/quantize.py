@@ -1,7 +1,8 @@
 """Quantization primitives: per-group / per-token symmetric quantization,
 INT4 nibble packing, per-(token, head) KV quantization.
 
-Port of ``repro.core.quantize``; every integer and scale it produces equals
+Port of ``repro.core.quantize`` (fp8 casting included); every integer and
+scale it produces equals
 the JAX package's bit for bit *as the JAX engine runs it*, i.e. under
 ``jax.jit``.  Three details carry that:
 
@@ -133,4 +134,23 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, spec: FormatSpec,
         return q.to(dtype)
     if spec.packed:
         q = unpack_int4(q, dim=q.ndim - 1)
+    return (q.float() * scale).to(dtype)
+
+
+# -- fp8 ----------------------------------------------------------------------
+
+
+def quantize_fp8(x: torch.Tensor, dtype=torch.float8_e4m3fn
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor scaled fp8 cast: ``(x / scale).to(dtype)`` with
+    ``scale = max(amax, 1e-8) * f32(1 / fp8 max)`` (the jitted reference's
+    reciprocal, as :func:`absmax_scale`).  Returns (q, scale () f32)."""
+    recip = float(np.float32(1.0) / np.float32(torch.finfo(dtype).max))
+    scale = torch.clamp_min(x.float().abs().amax(), 1e-8) * recip
+    return (x.float() / scale).to(dtype), scale
+
+
+def dequantize_fp8(q: torch.Tensor, scale: torch.Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_fp8` (up to its rounding)."""
     return (q.float() * scale).to(dtype)

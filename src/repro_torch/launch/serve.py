@@ -4,10 +4,10 @@ Port of ``repro.launch.serve``; runs on the card unless ``--device cpu``.
 Reports throughput and TTFT / latency percentiles.  ``--arch`` takes the
 ported architectures (the dense smollm-360m, gemma3-1b, chatglm3-6b and
 mistral-large-123b, the moe llama4-scout-17b-a16e and arctic-480b, the
-vlm internvl2-2b, the hybrid recurrentgemma-2b, the audio whisper-tiny),
-REDUCED unless ``--full``; the full configurations of mistral-large-123b,
-llama4-scout-17b-a16e and arctic-480b do not fit one card (the engine
-draws their bf16 weights before packing).  The KV store is the dense slab
+vlm internvl2-2b, the ssm rwkv6-7b, the hybrid recurrentgemma-2b, the
+audio whisper-tiny), REDUCED unless ``--full``; the full configurations
+of mistral-large-123b, llama4-scout-17b-a16e and arctic-480b do not fit
+one card (the engine draws their bf16 weights before packing).  The KV store is the dense slab
 unless ``--cache-kind paged`` (dense and moe families), where
 ``--enable-prefix-caching`` shares full prompt-prefix blocks and
 ``--enable-block-growth`` (with ``--reserve-headroom-blocks``) admits on
@@ -15,7 +15,9 @@ prompt blocks and preempts when the pool runs dry; ``--policy`` takes any
 ``WxAyKVz`` name; ``--attn-impl xla`` swaps the decode-attention kernels
 for the reference's opt-out (plain fused attention over the slab or a
 view gathered from the pool).  internvl2-2b prefills 256 (REDUCED: 16)
-stub image rows before the prompt, so ``--max-seq`` must hold them.
+stub image rows before the prompt, so ``--max-seq`` must hold them;
+rwkv6-7b prefills a prompt of n tokens as n - 1 < 64 or a multiple of 64
+(its chunked form's rule), so ``--prompt-len`` 12 or 129 serve.
 
 Usage:
     python -m repro_torch.launch.serve --arch smollm-360m --full \
@@ -31,6 +33,8 @@ Usage:
         --device cpu --cache-kind paged --enable-prefix-caching
     python -m repro_torch.launch.serve --arch internvl2-2b --full \
         --max-seq 384 --prompt-len 64
+    python -m repro_torch.launch.serve --arch rwkv6-7b --full \
+        --prompt-len 129
     python -m repro_torch.launch.serve --full --cache-kind paged \
         --enable-prefix-caching --enable-block-growth --n-blocks 32
 """

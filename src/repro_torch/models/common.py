@@ -1,9 +1,9 @@
 """Shared model building blocks: norms, RoPE, MLPs, and a linear that is
 transparent over quantized (PackedWeight) vs dense (bf16) weights.
 
-Port of ``repro.models.common`` for the ported families (dense, moe, vlm,
-hybrid, audio).  Plain functions over explicit parameter dicts; initializers
-return bf16.
+Port of ``repro.models.common`` for every family (dense, moe, vlm, ssm,
+hybrid, audio).  Plain functions over explicit parameter dicts;
+initializers return bf16.
 """
 from __future__ import annotations
 
@@ -154,6 +154,19 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     var = h.var(-1, keepdim=True, unbiased=False)
     h = (h - mu) * torch.rsqrt(var + eps)
     return (h * g.float() + b.float()).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, g: torch.Tensor, n_groups: int,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm (the RWKV wkv output) in f32 with the
+    population variance (``jnp.var``: ``mean((h - mu)^2)``), then back to
+    x's dtype."""
+    *lead, D = x.shape
+    h = x.float().reshape(*lead, n_groups, D // n_groups)
+    mu = h.mean(-1, keepdim=True)
+    var = torch.square(h - mu).mean(-1, keepdim=True)
+    h = ((h - mu) * torch.rsqrt(var + eps)).reshape(*lead, D)
+    return (h * g.float()).to(x.dtype)
 
 
 def sinusoidal_pos(S: int, D: int, offset: int = 0,

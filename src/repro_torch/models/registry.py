@@ -1,8 +1,8 @@
 """Model registry: one functional API over the ported families.
 
-Port of ``repro.models.registry`` for the dense, moe, vlm, hybrid and
-audio families.  ``build(cfg)`` returns a :class:`Model` whose members
-close over the family module:
+Port of ``repro.models.registry`` for all six families: dense, moe,
+vlm, ssm, hybrid and audio.  ``build(cfg)`` returns a :class:`Model`
+whose members close over the family module:
 
     model.init_params(seed, device)                       -> params
     model.init_cache(policy, batch, max_seq, device)      -> cache / state
@@ -13,6 +13,9 @@ close over the family module:
     model.decode_step(params, policy, tokens, cache, pos, **kw)
                                                           -> (logits, cache)
     model.extra_inputs(seed, batch, device)  -> dict of stub modality inputs
+    model.check_prefill(n_tokens)         -> raises ValueError for a prefill
+                                          length the family refuses (None:
+                                          any length)
 
 ``extra`` carries the modality stubs: the vlm family's ``img_embeds``
 (precomputed ViT patch embeddings, VIT_WIDTH wide) and the audio
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 
 from . import encdec as ED
 from . import rglru as G
+from . import rwkv6 as R
 from . import transformer as T
 
 VIT_WIDTH = T.VIT_WIDTH
@@ -39,16 +43,20 @@ VIT_WIDTH = T.VIT_WIDTH
 #: transformer families; the engine config refuses a paged vlm, whose
 #: prefill consumes extra inputs)
 PAGED_FAMILIES = ("dense", "moe", "vlm")
-#: families the port builds; the JAX package's other one (ssm) names its
-#: ROADMAP queue 1 item
-FAMILIES = PAGED_FAMILIES + ("hybrid", "audio")
-NOT_PORTED = {"ssm": "item 8 (rwkv6.py)"}
+#: families the port builds: every family of the JAX package
+FAMILIES = PAGED_FAMILIES + ("ssm", "hybrid", "audio")
+#: families the port does not build yet, with the ROADMAP queue 1 item
+#: that ports each (none left)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def not_ported(family: str) -> str:
     """The error text for a family the port does not build."""
-    return (f"family {family!r} is not yet ported: ROADMAP queue 1 "
-            f"{NOT_PORTED.get(family, 'item 8')}")
+    if family in NOT_PORTED:
+        return (f"family {family!r} is not yet ported: ROADMAP queue 1 "
+                f"{NOT_PORTED[family]}")
+    return (f"unknown family {family!r} (the port builds: "
+            f"{', '.join(FAMILIES)})")
 
 
 @dataclasses.dataclass
@@ -61,6 +69,7 @@ class Model:
     extra_inputs: Callable[..., Dict[str, torch.Tensor]]
     prefill: Optional[Callable[..., Any]] = None
     init_paged_cache: Optional[Callable[..., Any]] = None
+    check_prefill: Optional[Callable[[int], None]] = None
 
 
 def _no_extra(*a, **k) -> Dict[str, Any]:
@@ -96,6 +105,20 @@ def build(cfg: ModelConfig) -> Model:
                 cfg, policy, n_slots, n_blocks, block_size, blocks_per_slot,
                 device),
         )
+    if fam == "ssm":
+        return Model(
+            cfg=cfg,
+            init_params=lambda seed=0, device="cuda": R.init_params(
+                cfg, seed, device),
+            init_cache=lambda policy, batch, max_seq, device="cuda":
+            R.init_state(cfg, batch, device),
+            prefill=lambda params, policy, tokens, cache, **_ex: R.prefill(
+                params, cfg, policy, tokens, cache),
+            decode_step=lambda params, policy, tokens, cache, pos, **_kw:
+            R.decode_step(params, cfg, policy, tokens, cache, pos),
+            extra_inputs=_no_extra,
+            check_prefill=R.check_prefill_len,
+        )
     if fam == "hybrid":
         return Model(
             cfg=cfg,
@@ -129,4 +152,4 @@ def build(cfg: ModelConfig) -> Model:
             ED.decode_step(params, cfg, policy, tokens, cache, pos),
             extra_inputs=extra_inputs,
         )
-    raise NotImplementedError(not_ported(fam))
+    raise ValueError(not_ported(fam))

@@ -1,13 +1,14 @@
 """Decoder-only transformer (llama-style): the dense, moe and vlm families.
 
 Port of ``repro.models.transformer`` on either KV backend (dense slab or
-paged pool): RMSNorm, interleaved RoPE, GQA, a SwiGLU or MoE feed-forward
-(:mod:`repro_torch.models.moe`, with arctic's dense residual or llama4's
-shared expert beside it); weights may be bf16 tensors or PackedWeights
-(expert stacks packed member by member).  :func:`decode_step` is the
-engine's chunked prefill and decode step; :func:`prefill` the one-shot
-prefill of the vlm family, which prepends the projected image embeddings
-to the prompt.  Parameters are a dict whose ``"layers"`` entry is a list
+paged pool): RMSNorm, interleaved RoPE (or, with ``use_rope=False``,
+sinusoidal positions added to the embeddings), GQA, a SwiGLU or MoE
+feed-forward (:mod:`repro_torch.models.moe`, with arctic's dense residual
+or llama4's shared expert beside it); weights may be bf16 tensors or
+PackedWeights (expert stacks packed member by member).
+:func:`decode_step` is the engine's chunked prefill and decode step;
+:func:`prefill` the one-shot prefill of the vlm family, which prepends
+the projected image embeddings to the prompt.  Parameters are a dict whose ``"layers"`` entry is a list
 of per-layer dicts (the JAX package stacks them along a leading axis for
 its layer scan; here the scan is a Python loop).
 """
@@ -180,10 +181,6 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
     layer's K/V are quantized into the slab at position 0.  Returns the
     last row's (B, V) logits and the cache.  Raises ``ValueError`` when
     the sequence does not fit the slab."""
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            "sinusoidal positions are not ported yet (ROADMAP queue 1 "
-            "item 8)")
     x = params["embed"][tokens.long()].to(policy.compute_dtype)
     if img_embeds is not None:
         proj = C.linear(img_embeds.to(x.dtype), params["img_proj"], policy)
@@ -194,14 +191,19 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
             f"prefill of {S} rows ({S - tokens.shape[1]} image + "
             f"{tokens.shape[1]} prompt) does not fit max_seq="
             f"{cache.max_seq}")
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
-    rotation = C.rope_rotation(pos, cfg.hd, rotary_pct=cfg.rotary_pct,
-                               theta=cfg.rope_theta)
+    rotation = None
+    if cfg.use_rope:
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        rotation = C.rope_rotation(pos, cfg.hd, rotary_pct=cfg.rotary_pct,
+                                   theta=cfg.rope_theta)
+    else:
+        x = x + C.sinusoidal_pos(S, x.shape[-1], device=x.device)[None]
     for i, lp in enumerate(params["layers"]):
         h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv(h, lp, cfg, policy)
-        q = C.apply_rope(q, rotation)
-        k = C.apply_rope(k, rotation)
+        if rotation is not None:
+            q = C.apply_rope(q, rotation)
+            k = C.apply_rope(k, rotation)
         win = layer_window(cfg, i)
         attn = A.flash_attention(q, k, v, causal=True,
                                  window=None if win == BIG_WINDOW else win)
@@ -216,6 +218,25 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
 # ---------------------------------------------------------------------------
 # Decode: T new tokens per slot against the KV cache
 # ---------------------------------------------------------------------------
+
+
+def _position_rows(n_ctx: int, d: int, pos: torch.Tensor, T: int,
+                   per_slot: bool) -> torch.Tensor:
+    """(B, T, d) rows of the ``n_ctx``-long sinusoidal table for tokens at
+    ``pos + t``, as the reference reads them: per slot by a gather, a
+    scalar position by a slice whose start is clamped to fit the table
+    (``dynamic_slice``).  A per-slot row past the table (a mixed step's
+    padding rows near the context end) reads the table's last row, never
+    out of range; the reference's ``take`` fills it with NaN.  Such rows
+    are neither written to the cache nor read for logits."""
+    sp = C.sinusoidal_pos(n_ctx, d, device=pos.device)
+    t = torch.arange(T, device=pos.device)
+    if per_slot:
+        idx = (pos.long()[:, None] + t[None]).clamp(max=n_ctx - 1)
+    else:
+        idx = (pos.long()[:1, None].clamp(0, n_ctx - T) + t[None]).expand(
+            pos.shape[0], T)
+    return sp[idx]
 
 
 def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
@@ -241,28 +262,32 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     reference's gathered-view opt-out (``"xla"``,
     :func:`repro_torch.models.common.attend_decode`).  Returns ((B, V)
     logits, the cache)."""
-    if not cfg.use_rope:
-        raise NotImplementedError(
-            "sinusoidal positions are not ported yet (ROADMAP queue 1 "
-            "item 8)")
     dev = tokens.device
     x = params["embed"][tokens.long()].to(policy.compute_dtype)
     B, T, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-    if pos.dim() == 0:
+    per_slot = pos.dim() == 1
+    if not per_slot:
         pos = pos.expand(B).contiguous()
-    rope_pos = pos.long()[:, None] + torch.arange(T, device=dev)[None]
-    # the same for every layer: RoPE tables and the pool rows written
-    rotation = C.rope_rotation(rope_pos, cfg.hd, rotary_pct=cfg.rotary_pct,
-                               theta=cfg.rope_theta)
     paged = isinstance(cache, PKV.PagedKVCache)
+    rotation = None
+    if cfg.use_rope:
+        # the same for every layer: RoPE tables and the pool rows written
+        rope_pos = pos.long()[:, None] + torch.arange(T, device=dev)[None]
+        rotation = C.rope_rotation(rope_pos, cfg.hd,
+                                   rotary_pct=cfg.rotary_pct,
+                                   theta=cfg.rope_theta)
+    else:
+        n_ctx = cache.max_context if paged else cache.max_seq
+        x = x + _position_rows(n_ctx, x.shape[-1], pos, T, per_slot)
     rows = (PKV if paged else KV).write_rows(cache, pos, T, valid)
     for i, lp in enumerate(params["layers"]):
         cache_l = cache.layer(i)
         h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = qkv(h, lp, cfg, policy)
-        q = C.apply_rope(q, rotation)
-        k = C.apply_rope(k, rotation)
+        if rotation is not None:
+            q = C.apply_rope(q, rotation)
+            k = C.apply_rope(k, rotation)
         if paged:
             PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
         else:

@@ -3,11 +3,10 @@
 Port of ``repro.serving.config`` for the dense-slab and paged engines of
 the dense and moe families (reservation or block growth with preemption,
 with or without prefix caching; the kernels or the ``attn_impl="xla"``
-opt-out) and the one-shot-prefill engines of the vlm, hybrid and audio
-families on the dense slab.  Every
-knob of the JAX ``EngineConfig`` is here, with its rules; a family not
-ported yet raises :class:`EngineError` naming the ROADMAP item that ports
-it, instead of silently doing something else.  New knob: ``device``
+opt-out) and the one-shot-prefill engines of the vlm, ssm, hybrid and
+audio families on the dense slab.  Every knob of the JAX ``EngineConfig``
+is here, with its rules; an unknown family raises :class:`EngineError`
+instead of silently doing something else.  New knob: ``device``
 (``"cuda"`` by default; the CPU only when asked for — a missing card is an
 error, never a fallback).
 """

@@ -2,8 +2,8 @@
 
 Port of ``repro.serving.engine`` for the dense and moe families on the
 dense slab and on the paged backend (reservation or block growth with
-preemption, prefix caching on or off), and for the vlm, hybrid and audio
-families with their one-shot prefill on the dense slab, under every
+preemption, prefix caching on or off), and for the vlm, ssm, hybrid and
+audio families with their one-shot prefill on the dense slab, under every
 ``WxAyKVz`` policy.  The public surface
 is the JAX engine's:
 
@@ -50,8 +50,8 @@ tile), so the two backends traverse the same tiles and serve
 byte-identical greedy streams.  A slot emits a token only on the
 iteration that consumes its last unfed stream token.
 
-The vlm (image inputs), hybrid (recurrent state) and audio (encoder
-inputs) families keep the JAX engine's one-shot path instead: at
+The vlm (image inputs), ssm and hybrid (recurrent state) and audio
+(encoder inputs) families keep the JAX engine's one-shot path instead: at
 admission the prompt minus its last token runs through ``model.prefill``
 into a B=1 cache (flash-prefill attention), which is spliced into the
 slot; every step then feeds one token per slot through ``decode_step``.
@@ -258,7 +258,8 @@ class Engine:
                params: Optional[SamplingParams] = None,
                arrival_time: Optional[float] = None) -> int:
         """Enqueue a request; returns its rid.  Inadmissible requests are
-        rejected here with :class:`EngineError`."""
+        rejected here with :class:`EngineError` (an ssm prompt whose
+        one-shot prefill the chunked form refuses among them)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise EngineError("prompt must contain at least one token")
@@ -276,6 +277,12 @@ class Engine:
                 f"the one-shot prefill of {n_img} image rows + "
                 f"{max(len(prompt) - 1, 1)} prompt tokens does not fit "
                 f"max_seq={self.max_seq}")
+        if self.model.check_prefill is not None and not self._chunked:
+            # the one-shot prefill runs the prompt minus its last token
+            try:
+                self.model.check_prefill(max(len(prompt) - 1, 1))
+            except ValueError as e:
+                raise EngineError(str(e)) from e
         params = params or SamplingParams()
         req = Request(rid=self._next_rid, prompt=prompt, params=params,
                       arrival_time=self.now() if arrival_time is None
@@ -683,8 +690,8 @@ class Engine:
 
     def kv_resident_bytes(self) -> int:
         """Resident bytes of the decode state: slab or pool + scales +
-        table, and a hybrid model's recurrent state or an audio model's
-        cross-attention slab.  The JAX slab also holds a (L, B) int32
+        table, an ssm or hybrid model's recurrent state, or an audio
+        model's cross-attention slab.  The JAX slab also holds a (L, B) int32
         ``length`` the port does not keep."""
         return sum(t.numel() * t.element_size() for t in _leaves(self.cache))
 

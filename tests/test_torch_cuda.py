@@ -346,6 +346,10 @@ GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
     (7680, 2560, 32, 128),
     # whisper-tiny's: wq/wk/wv/wo (a K split of group-128 units), w1, w2
     (384, 384, 128, 128), (384, 1536, 128, 96), (1536, 384, 32, 128),
+    # rwkv6-7b's decay LoRA: w_A one 64-wide column block; w_B a single
+    # 64-deep K chunk at group 64 (fewer chunks than the cp.async ring's
+    # stages, no K split)
+    (4096, 64, 128, 64), (64, 4096, 64, 128),
 ]
 #: token counts: decode (1, 4), the kernels' token tiles of 8 / 16 / 32 /
 #: 128 (int8: 64) and their edges (16, 17, 37, 64), a full prefill chunk
@@ -386,6 +390,48 @@ def test_gemms_match_plain_at_dense_config_widths(dev, shape, M, bits):
         torch.cuda.synchronize()
         err = (y.float() - plain.float()).abs().max().item()
         assert err <= 2 ** -7 * plain.float().abs().max().item(), err
+
+
+#: rwkv6-7b's wide packed GEMMs: the six 4096-square projections, ck and
+#: cv (K, N, bk, bn)
+RWKV_GEMM_SHAPES = [(4096, 4096, 128, 128), (4096, 14336, 128, 128),
+                    (14336, 4096, 128, 128)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [4, 128])
+@pytest.mark.parametrize("shape", RWKV_GEMM_SHAPES)
+def test_gemms_match_plain_at_rwkv6_widths(dev, shape, M, bits):
+    test_gemms_match_plain_at_dense_config_widths(dev, shape, M, bits)
+
+
+@pytest.mark.parametrize("label", ["gptq", "awq"])
+def test_calibrated_weight_through_kernel(dev, label):
+    """A weight calibrated on the card (GPTQ-lite, or AWQ with 1/s folded
+    into x), packed by ``pack_prequantized`` and laid out for the A16
+    kernel, against the plain version of the same packed weight."""
+    from repro_torch.core import calibration as CAL
+    from repro_torch.core.packing import pack_prequantized
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    K, N = 1024, 512
+    w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
+    x = torch.randn(64, K, generator=gen, device=dev)
+    if label == "gptq":
+        q, sc = CAL.gptq_lite_quantize(w, x, bits=4, group=128)
+        xs = torch.ones(K, device=dev)
+    else:
+        q, (sc, xs) = CAL.awq_quantize(w, x, bits=4, group=128)
+    pw = pack_prequantized(q, sc, bits=4, group=128)
+    xb = (x / xs).to(torch.bfloat16)
+    y = mpgemm_a16(xb, to_kernel_layout(pw, "a16"))
+    plain = ref.mpgemm_ref(xb, pw)
+    torch.cuda.synchronize()
+    err = (y.float() - plain.float()).abs().max().item()
+    assert err <= 2 ** -7 * plain.float().abs().max().item(), err
+    # and it computes x @ w up to the 4-bit quantization
+    rel = (y.float() - x @ w).norm() / (x @ w).norm()
+    assert rel.item() < 0.2
 
 
 #: the packed GEMMs of llama4-scout-17b-a16e (attention, shared expert),

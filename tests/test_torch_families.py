@@ -26,7 +26,8 @@ serving engine.
   argmax of the same steps; the slot splice writes one slot's extent and
   leaves the other slots bit for bit; a request served after another in
   the same slot streams as if served alone; paged is rejected for both
-  families and the unported ``rwkv6-7b`` names its ROADMAP item.
+  families; ``rwkv6-7b`` (the ssm family, ``tests/test_torch_rwkv6.py``)
+  builds and serves through the same one-shot path.
 """
 import dataclasses
 
@@ -311,9 +312,18 @@ def test_paged_rejected(arch):
 
 
 def test_rwkv6_not_yet_ported():
+    """Formerly "not yet ported" (ROADMAP queue 1 item 8): the full config,
+    copied field for field from the JAX package's, is accepted and builds
+    the ssm family with no pool; REDUCED serves through the one-shot path
+    and, like the families above, refuses the paged pool."""
     cfg = ModelConfig(**dataclasses.asdict(j_config("rwkv6-7b")))
-    with pytest.raises(EngineError, match="not yet ported: ROADMAP queue 1 "
-                                          "item 8"):
-        EngineConfig(model=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build(cfg)
+    assert EngineConfig(model=cfg, device="cpu").model.family == "ssm"
+    model = build(cfg)
+    assert model.init_paged_cache is None and model.prefill is not None
+    eng = Engine(EngineConfig(**_kw("rwkv6-7b")))
+    assert not eng._chunked and not eng._has_extra
+    outs = eng.generate([[3, 1, 4, 1, 5], [9]],
+                        SamplingParams(max_new_tokens=3))
+    assert [len(o.output_token_ids) for o in outs] == [3, 3]
+    with pytest.raises(EngineError, match="has no KV cache to page"):
+        EngineConfig(**_kw("rwkv6-7b", cache_kind="paged", block_size=8))

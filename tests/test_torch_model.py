@@ -202,11 +202,19 @@ def test_teacher_forced_logits_other_policies(raw, policy, kind):
                     params_t, kind)
 
 
-def test_dense_sinusoidal_positions_not_ported():
-    """No dense configuration uses sinusoidal positions (whisper's are in
-    the audio family), so the dense decode step names its ROADMAP item."""
-    cfg = dataclasses.replace(t_reduced("smollm-360m"), use_rope=False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.decode_step({}, cfg, t_policy("w4a16kv8"),
-                       torch.zeros((1, 1), dtype=torch.int32), None,
-                       torch.zeros((1,), dtype=torch.int32))
+def test_dense_sinusoidal_positions_not_ported(models):
+    """Formerly "not yet ported" (ROADMAP queue 1 item 8): the dense decode
+    step takes ``use_rope=False`` — sinusoidal positions added to the
+    embeddings, no RoPE — and its logits depend on the position
+    (``tests/test_torch_sinusoidal.py`` holds them against JAX)."""
+    _, cfg_t, _, pol_t, _, params_t = models
+    cfg = dataclasses.replace(cfg_t, use_rope=False)
+    tok = torch.full((1, 1), 7, dtype=torch.int32)
+    logits = []
+    for p in (0, 5):
+        cache = TT.init_cache(cfg, pol_t, 1, 16, device="cpu")
+        lt, _ = TT.decode_step(params_t, cfg, pol_t, tok, cache,
+                               torch.tensor([p], dtype=torch.int32))
+        assert lt.shape == (1, cfg.vocab) and torch.isfinite(lt).all()
+        logits.append(lt)
+    assert not torch.equal(*logits)
