@@ -35,6 +35,13 @@ Phases, in order (any failure raises and exits nonzero):
    64 x 4096, the latter one 64-deep chunk at group 64); decode attention
    at their heads (rep 5, 7 and 2 at D 128, ``MOE_VLM_ATTN``) and flash
    prefill at internvl2's one-shot prefill (S 319, 16 heads on 8, D 128).
+   Flash prefill's backward (training, ``FLASH_BWD_SHAPES``: smollm-360m
+   at S 128 and 2048, recurrentgemma-2b at S 4096 with its window,
+   whisper-tiny's encoder and its 64 x 1500 cross attention, internvl2's
+   S 319): the three backward kernels against their plain version, the
+   gradients bit for bit repeatable, the forward's lse against the
+   walk's and its output unchanged by writing it; SDPA's backward through
+   autograd as the yardstick.
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
@@ -55,6 +62,18 @@ Phases, in order (any failure raises and exits nonzero):
    GPTQ-lite no worse than RTN per column, AWQ's chosen alpha no worse
    than alpha 0, and both calibrated weights through
    ``pack_prequantized`` and the A16 kernel against its plain version.
+   Then training (``train_reference``): REDUCED smollm-360m,
+   llama4-scout (Adafactor), internvl2-2b, recurrentgemma-2b,
+   whisper-tiny and rwkv6-7b — loss, every gradient leaf of ``loss_fn``
+   and one optimizer step on the card (flash kernels forward and
+   backward) against the CPU (plain versions), llama4's routing held.
+   Then the training phase (``train_phase``): full-size smollm-360m (32
+   layers, d_model 960, vocab 49152) through ``train()``, AdamW, 4 steps
+   of 8 x 128 tokens, then one step with ``remat=True``, the launch
+   counters zeroed just before each and read just after (32 forward and
+   32 backward flash launches a step, remat 64 forward, nothing else),
+   finite losses, ms/step, tokens/s, peak GiB and a profiled step's
+   device busy share.
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
    prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
@@ -197,6 +216,51 @@ FLASH_SHAPES = [
 #: largest output (both round p and the output to bf16 at the same points;
 #: f32 sum order flips a rounding now and then)
 FLASH_REL_TOL = 2 ** -6
+#: flash prefill's backward (training) at the training shapes: (name, B,
+#: H, Hkv, Sq, Sk, D, causal, window) — smollm-360m's attention at the
+#: training phase's 128 tokens and at 2048, recurrentgemma-2b's local
+#: attention where the window binds, whisper-tiny's encoder and its
+#: training cross attention (64 decoder tokens against 1500 frames), and
+#: internvl2-2b's 319-row prefill (16 heads on 8)
+FLASH_BWD_SHAPES = [
+    ("smollm-360m S128", 8, 15, 5, 128, 128, 64, True, None),
+    ("smollm-360m S2048", 8, 15, 5, 2048, 2048, 64, True, None),
+    ("recurrentgemma-2b S4096", 1, 10, 1, 4096, 4096, 256, True, 2048),
+    ("whisper encoder S1500", 1, 6, 6, 1500, 1500, 64, False, None),
+    ("whisper cross Sq64 Sk1500", 1, 6, 6, 64, 1500, 64, False, None),
+    ("internvl2 S319", 1, 16, 8, 319, 319, 128, True, None)]
+#: the backward kernels' bar against their plain version: the same math
+#: and bf16 rounding points of P and dS, f32 sums in other orders (a P or
+#: dS may round on the other side of a bf16 tie), per gradient relative to
+#: its largest element (tests/test_torch_cuda.py); the forward's lse
+#: against the walk's, absolute (f32 m + log l from dots summed in other
+#: orders)
+FLASH_BWD_REL_TOL = 2e-2
+LSE_ABS_TOL = 2e-4
+#: the training phase: smollm-360m at full size through ``train()``, AdamW:
+#: (steps, batch, sequence), then one step with ``remat=True``
+TRAIN_RUN = (4, 8, 128)
+#: REDUCED models held card vs CPU in training: loss, every gradient leaf
+#: and one optimizer step of each family (llama4 with Adafactor, its
+#: big-model optimizer)
+TRAIN_REDUCED = [("smollm-360m", "adamw"),
+                 ("llama4-scout-17b-a16e", "adafactor"),
+                 ("internvl2-2b", "adamw"), ("recurrentgemma-2b", "adamw"),
+                 ("whisper-tiny", "adamw"), ("rwkv6-7b", "adamw")]
+#: training bars card vs CPU: loss relative; each gradient leaf relative to
+#: its largest element (plus 1e-6 for leaves whose exact gradient is zero,
+#: llama4's top-1 router), 5e-2 for the families whose gradients the JAX
+#: parity tests found sensitive to rounding order
+#: (tests/test_torch_training_families.py); one optimizer step's update
+#: against the CPU's, by norm, over the elements whose gradient the bar
+#: resolves (|g| above the gradient bar, so both sides agree on its sign:
+#: AdamW's first step is lr · sign(g), and an element whose gradient is
+#: rounding noise — all of llama4's top-1 router — steps ±lr on either
+#: side)
+TRAIN_TOL_LOSS = 1e-3
+TRAIN_TOL_GRAD = {"recurrentgemma-2b": 5e-2, "rwkv6-7b": 5e-2}
+TRAIN_TOL_GRAD_DEFAULT = 3e-2
+TRAIN_TOL_UPDATE = 0.1
 #: decode attention's bar against its plain version, on peaked inputs: two
 #: bf16 ulps of the largest output (the kernel's eight splits round p
 #: against other running maxima than the plain walk's single order)
@@ -612,7 +676,7 @@ def kept_pairs(S, causal, window):
                for q in range(S))
 
 
-def flash_inputs(gen, B, H, Hkv, S, D, dev):
+def flash_inputs(gen, B, H, Hkv, S, D, dev, Sk=None):
     """q, k, v whose scores single out a few keys per row: q ~ 4 N(0, 1)
     gives scaled scores of std 4, so one key or a mask edge moves the
     output by O(1).  q and k also carry opposite constant offsets that
@@ -622,8 +686,8 @@ def flash_inputs(gen, B, H, Hkv, S, D, dev):
     ulps of the largest output) stays under 3e-2."""
     import torch
     c = (20 / D ** 0.5) ** 0.5
-    q, k, v = (torch.randn(B, h, S, D, generator=gen, device=dev)
-               for h in (H, Hkv, Hkv))
+    q, k, v = (torch.randn(B, h, n, D, generator=gen, device=dev)
+               for h, n in ((H, S), (Hkv, Sk or S), (Hkv, Sk or S)))
     return [t.to(torch.bfloat16) for t in (4 * q - c, k + c, v / 4)]
 
 
@@ -681,6 +745,95 @@ def flash_phase(dev, flush):
                 lambda: flash_prefill(q, k, v, tile=(bq, bk), **kw),
                 flush) for bq, bk in tiles(D)}))
     return {"flash_prefill": rows}
+
+
+def attn_mask(S, causal, window, dev):
+    """SDPA's boolean mask of flash prefill's causal / window mask (None:
+    every key)."""
+    import torch
+    if not causal and window is None:
+        return None
+    pos = torch.arange(S, device=dev)
+    mask = pos[None] > pos[:, None] - (S if window is None else window)
+    if causal:
+        mask &= pos[None] <= pos[:, None]
+    return mask
+
+
+def flash_bwd_phase(dev, flush):
+    """The flash-prefill backward kernels against their plain version
+    (``ref.flash_prefill_bwd_ref``) and the forward's lse against the
+    walk's, at ``FLASH_BWD_SHAPES``; the gradients must repeat bit for bit
+    and the output with the lse written must be the output without it.
+    Yardstick: SDPA's backward through autograd (same mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashprefill import (flash_prefill,
+                                                  flash_prefill_bwd,
+                                                  pick_tile)
+    from repro_torch.kernels.ref import (NO_WINDOW, flash_prefill_bwd_ref,
+                                         flash_prefill_walk)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    rows = []
+    for name, B, H, Hkv, Sq, Sk, D, causal, window in FLASH_BWD_SHAPES:
+        q, k, v = flash_inputs(gen, B, H, Hkv, Sq, D, dev, Sk=Sk)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        win = NO_WINDOW if window is None else window
+        kw = dict(causal=causal, window=window)
+        out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+        check(torch.equal(out, flash_prefill(q, k, v, **kw)),
+              f"flash_prefill {name}: writing the lse changed the output")
+        _, ref_lse = flash_prefill_walk(q, k, v, causal, win, Sk,
+                                        *pick_tile(B, H, Hkv, Sq, D),
+                                        return_lse=True)
+        lse_err = (lse - ref_lse).abs().max().item()
+        check(lse_err <= LSE_ABS_TOL, f"lse {name}: |Δ|={lse_err}")
+        grads = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+        again = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+
+        def plain():
+            return flash_prefill_bwd_ref(q, k, v, out, lse, do, causal, win,
+                                         Sk)
+        ref = plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, g, g2, r in zip(("dq", "dk", "dv"), grads, again, ref):
+            check(torch.isfinite(g.float()).all().item(),
+                  f"flash_prefill_bwd {name} {gname} not finite")
+            check(torch.equal(g, g2),
+                  f"flash_prefill_bwd {name} {gname} not repeatable")
+            err = (g.float() - r.float()).abs().max().item()
+            top = r.float().abs().max().item()
+            check(err <= FLASH_BWD_REL_TOL * top,
+                  f"flash_prefill_bwd {name} {gname}: |Δ|={err} > "
+                  f"{FLASH_BWD_REL_TOL} x {top}")
+            errs[gname] = (err, err / top)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(
+            *leaves, attn_mask=attn_mask(Sq, causal, window, dev),
+            enable_gqa=Hkv != H)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, do,
+                                       retain_graph=True)
+        pairs = Sq * Sk if Sq != Sk else kept_pairs(Sq, causal, window)
+        ops = 2.5 * 4 * D * B * H * pairs   # 5 products, 2 D flops a pair
+        nbytes = 2 * D * (4 * B * H * Sq + 4 * B * Hkv * Sk) + 4 * B * H * Sq
+        b, by = bound_ms(nbytes, ops)
+        rows.append(dict(
+            shape=f"{name} B={B} H={H} Hkv={Hkv} D={D} causal={causal} "
+                  f"window={window}",
+            max_abs_err=max(e for e, _ in errs.values()),
+            rel_err={k: r for k, (_, r) in errs.items()},
+            lse_max_abs_err=lse_err,
+            ms=time_ms(lambda: flash_prefill_bwd(q, k, v, out, lse, do,
+                                                 **kw), flush),
+            plain_ms=time_ms(plain, flush, iters=5),
+            library_ms=time_ms(library, flush),
+            bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
+            ops_per_s=BF16_OPS_PER_S))
+    return {"flash_prefill_bwd": rows}
 
 
 def to_device(params, dev, policy):
@@ -1081,6 +1234,162 @@ def calibration_check(dev):
     return res
 
 
+def train_phase(dev):
+    """The training path at full size: smollm-360m (32 layers, d_model
+    960, vocab 49152, seeded random weights) through ``train()`` with
+    AdamW, ``TRAIN_RUN`` steps, then one step with ``remat=True``; the
+    launch counters zeroed just before each run and read just after: 32
+    forward and 32 backward flash launches a step (remat: 64 forward),
+    nothing else.  Losses must be finite.  Then one more step under
+    ``torch.profiler`` for the device's busy share."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.training.loop import train
+    cfg = get_config("smollm-360m")
+    steps, batch, seq = TRAIN_RUN
+    counters = launch_counters()
+    res = {}
+    for remat, n in ((False, steps), (True, 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        out = train(cfg, n_steps=n, batch=batch, seq=seq, lr=3e-4, seed=0,
+                    log_every=1, remat=remat, device=dev)
+        launches = {k: f.launches for k, f in counters.items()}
+        L = cfg.n_layers
+        want = {k: 0 for k in launches}
+        want["flash_prefill"] = L * n * (2 if remat else 1)
+        want["flash_prefill_bwd"] = L * n
+        label = "remat" if remat else "train"
+        check(launches == want,
+              f"{label}: launches {launches} != {want} ({n} steps)")
+        losses = [v for _, v in out["losses"]]
+        check(len(losses) == n and all(math.isfinite(v) for v in losses),
+              f"{label}: losses {losses}")
+        step_ms = [t * 1e3 for t in out["step_s"]]
+        steady = statistics.median(step_ms[1:] or step_ms)
+        res[label] = dict(
+            arch=cfg.name, steps=n, batch=batch, seq=seq, remat=remat,
+            losses=losses, step_ms=step_ms, ms_per_step=steady,
+            tokens_per_s=batch * seq / steady * 1e3, wall_s=out["wall_s"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=launches)
+        if not remat:
+            res["profile"] = train_profile(cfg, out, dev)
+        del out
+    return res
+
+
+def train_profile(cfg, out, dev):
+    """One more AdamW step of a ``train()`` run under ``torch.profiler``:
+    device events summed against the host wall clock of the step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.registry import build
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.loop import make_train_step
+    steps, batch, seq = TRAIN_RUN
+    model = build(cfg)
+    step = make_train_step(model, O.for_config(cfg, lr=3e-4,
+                                               total_steps=steps))
+    toks, tgts = next(D.batches(cfg.vocab, batch, seq, 1, seed=1,
+                                device=dev))
+    params, state = out["params"], out["opt_state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, toks, tgts)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    busy = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                device_idle_share=1 - busy / wall_us,
+                top_device=[dict(name=k[:60], ms=t / 1e3, count=n)
+                            for k, (t, n) in top])
+
+
+def train_reference(dev):
+    """REDUCED models of every family in training: the loss and every
+    gradient leaf of ``loss_fn`` on the card (the flash kernels forward
+    and backward) against the CPU (plain versions), same parameters,
+    tokens and stub inputs, then one step of the family's optimizer on
+    each side, the updates compared; moe routing on the card held to the
+    CPU's up to a near-tie (``RoutingHold``)."""
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.loop import tree_map
+    pol = get_policy("w16a16kv16")
+    worst = {}
+    for arch, opt_name in TRAIN_REDUCED:
+        cfg = get_reduced(arch)
+        model = build(cfg)
+        raw = model.init_params(0, "cpu")
+        gen = torch.Generator().manual_seed(9)
+        toks, tgts = (torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+                      for _ in range(2))
+        extra = model.extra_inputs(3, 2, "cpu")
+        hold, got = RoutingHold(), {}
+        for i, d in enumerate(("cpu", dev)):
+            params = tree_map(lambda t: t.detach().to(d, copy=True)
+                              .requires_grad_(True), raw)
+            with hold.run(replay=i > 0, eps=FLIP_SHARE * TOL):
+                loss = model.loss_fn(params, pol, toks.to(d), tgts.to(d),
+                                     **{k: v.to(d) for k, v in extra.items()})
+                loss.backward()
+            grads = tree_map(lambda p: p.grad, params)
+            before = tree_map(lambda p: p.detach().clone(), params)
+            opt = O.adafactor(lr=1e-2) if opt_name == "adafactor" else \
+                O.adamw(lr=1e-2, warmup=1, total_steps=1)
+            opt.update(grads, opt.init(params), params)
+            got[str(d)] = (loss.item(), O.leaf_groups(tree_map(
+                lambda g: None if g is None else g.float().cpu(), grads)),
+                O.leaf_groups(params), O.leaf_groups(before))
+        (l_cpu, g_cpu, p_cpu, b_cpu), (l_dev, g_dev, p_dev, b_dev) = \
+            got["cpu"], got[str(dev)]
+        loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
+        check(loss_rel <= TRAIN_TOL_LOSS, f"{arch}: loss {l_dev} vs {l_cpu}")
+        tol = TRAIN_TOL_GRAD.get(arch, TRAIN_TOL_GRAD_DEFAULT)
+        grad_rel = upd_rel = 0.0
+        for name, (_, members) in g_cpu.items():
+            for j, (a, b) in enumerate(zip(members, g_dev[name][1])):
+                if a is None or b is None:
+                    check(a is None and b is None, f"{arch} {name}: grad")
+                    continue
+                top = a.abs().max().item()
+                err = (b - a).abs().max().item()
+                check(err <= tol * top + 1e-6,
+                      f"{arch} {name}[{j}]: grad |Δ|={err} > {tol} x {top}")
+                grad_rel = max(grad_rel, err / max(top, 1e-6))
+                keep = a.abs() > tol * top + 1e-6   # above the grad bar
+                dc = (p_cpu[name][1][j].detach().float() -
+                      b_cpu[name][1][j].float())[keep]
+                dd = (p_dev[name][1][j].detach().float() -
+                      b_dev[name][1][j].float()).cpu()[keep]
+                norm = dc.norm().item()
+                diff = (dd - dc).norm().item()
+                check(diff <= TRAIN_TOL_UPDATE * norm + 1e-6,
+                      f"{arch} {name}[{j}]: update |Δ|={diff} vs {norm}")
+                upd_rel = max(upd_rel, diff / max(norm, 1e-12))
+        worst[arch] = dict(optimizer=opt_name, loss_rel=loss_rel,
+                           grad_rel=grad_rel, update_rel=upd_rel,
+                           routing_flips=len(hold.flips))
+    return worst
+
+
 def profile_window(eng, prompts, sp):
     """Where a short serving window's time goes: ``torch.profiler``'s
     device events (kernels and copies) summed against the host wall clock
@@ -1111,14 +1420,20 @@ def profile_window(eng, prompts, sp):
 
 
 def launch_counters():
-    """The five kernel wrappers, by name."""
-    from repro_torch.kernels.flashprefill import flash_prefill
+    """The six kernel wrappers, by name."""
+    from repro_torch.kernels.flashprefill import (flash_prefill,
+                                                  flash_prefill_bwd)
     from repro_torch.kernels.kvattn import kvattn
     from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
     from repro_torch.kernels.paged_kvattn import paged_kvattn
     return {"mpgemm_a16": mpgemm_a16, "mpgemm_int8": mpgemm_int8,
             "paged_kvattn": paged_kvattn, "kvattn": kvattn,
-            "flash_prefill": flash_prefill}
+            "flash_prefill": flash_prefill,
+            "flash_prefill_bwd": flash_prefill_bwd}
+
+
+#: kernels only the training path launches (the serves must launch none)
+TRAIN_ONLY = ("flash_prefill_bwd",)
 
 
 def smollm_engine(dev, **kw):
@@ -1622,7 +1937,8 @@ def serve_phase(dev):
     runs += dense_config_serves(dev, totals)
     runs += dense_config_serves(dev, totals, MOE_SERVES)
     for k, n in totals.items():
-        check(n > 0, f"kernel {k} was never launched on the main path")
+        check(n > 0 or k in TRAIN_ONLY,
+              f"kernel {k} was never launched on the main path")
     return runs, totals
 
 
@@ -1696,7 +2012,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = {**gemm_phase(dev, flush), **attn_phase(dev, flush),
-            **flash_phase(dev, flush)}
+            **flash_phase(dev, flush), **flash_bwd_phase(dev, flush)}
     del flush
     for kern, rs in rows.items():
         for r in rs:
@@ -1709,6 +2025,9 @@ def main() -> int:
             if "tile_sweep_ms" in r:
                 print("    tiles:", {t: round(ms * 1e3, 1) for t, ms in
                                      r["tile_sweep_ms"].items()}, "us")
+            if "rel_err" in r:
+                print(f"    relative errors {r['rel_err']}, lse |Δ| "
+                      f"{r['lse_max_abs_err']:.3g}")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     moe_worst, flips = moe_reference(dev)
@@ -1725,8 +2044,20 @@ def main() -> int:
     print(f"calibration: rwkv6 ck width on the card "
           f"{json.dumps(calibration_check(dev))}")
     t0 = time.perf_counter()
+    print(f"training reference: REDUCED, card vs CPU "
+          f"{json.dumps(train_reference(dev))} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    training = train_phase(dev)
+    for label in ("train", "remat", "profile"):
+        print(f"training {label}:", json.dumps(training[label]))
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     _, totals = serve_phase(dev)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    for label in ("train", "remat"):      # main-path runs of the kernels
+        for k, n in training[label]["launches"].items():
+            totals[k] += n
 
     src = "src/repro_torch/csrc/"
     kernels = [
@@ -1748,6 +2079,11 @@ def main() -> int:
                   name="flash_prefill", route="cuda",
                   source=src + "flash_prefill.cu",
                   replaces="src/repro/kernels/flashprefill.py:82"),
+        # no Pallas kernel: the reference differentiates its XLA walk
+        summarize(rows["flash_prefill_bwd"], totals["flash_prefill_bwd"],
+                  name="flash_prefill_bwd", route="cuda",
+                  source=src + "flash_prefill_bwd.cu",
+                  replaces="src/repro/core/attention.py:92"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

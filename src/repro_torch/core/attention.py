@@ -3,10 +3,13 @@ and cross attention.
 
 Port of ``repro.core.attention``:
 
-* :func:`flash_attention` — memory-bounded prefill attention.  On CUDA
-  tensors it runs the hand-written flash-prefill kernel
-  (``csrc/flash_prefill.cu``); on CPU tensors its plain version, the port
-  of the JAX function's ``q_chunk × kv_chunk`` online-softmax walk.
+* :func:`flash_attention` — memory-bounded prefill and training
+  attention.  On CUDA tensors it runs the hand-written flash-prefill
+  kernel (``csrc/flash_prefill.cu``) and, where a gradient is wanted, its
+  backward kernel (``csrc/flash_prefill_bwd.cu``); on CPU tensors their
+  plain versions, the port of the JAX function's ``q_chunk × kv_chunk``
+  online-softmax walk and the same backward math in PyTorch ops.  The
+  reference differentiates its walk with XLA.
 * :func:`decode_attention` (``impl="fused"`` and the paper's
   ``"dequant_first"`` baseline) and :func:`cross_attention` — the JAX
   package computes them with XLA outside any Pallas kernel; here they are
@@ -15,7 +18,9 @@ Port of ``repro.core.attention``:
 * :func:`prefill_attention` — the full-matrix oracle.
 
 Not ported: ``_flash_triangle`` / ``BLOCK_SKIP`` / ``SP_PREFILL`` (dry-run
-and multi-device knobs, ROADMAP queue 1 item 12).
+and multi-device knobs), a nonzero ``pos_offset``, causal or windowed
+Sq != Sk (chunked or offset prefill, ``launch/spattn.py``) and traced
+windows: ROADMAP queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -63,22 +68,25 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     pos_offset: int = 0) -> torch.Tensor:
-    """Online-softmax prefill attention over tiles of keys.
-    q (B, S, H, D), k/v (B, S, Hkv, D) → (B, S, H, D) in q's dtype.
+    """Online-softmax attention over tiles of keys, differentiable.
+    q (B, Sq, H, D), k/v (B, Sk, Hkv, D) → (B, Sq, H, D) in q's dtype.
 
     The flash-prefill kernel's wrapper picks the tile from the shapes
     (the JAX default of 512 × 512 chunks does not fit in a block's shared
-    memory at D 256); tiles wholly masked are skipped.  The kernel's
+    memory at D 256); tiles wholly masked are skipped.  The kernels'
     contract is every caller's in the ported families: ``pos_offset ==
-    0``, as many queries as keys, and an int or no window.  Chunked or
-    offset prefill (``launch/spattn.py``, training) is ROADMAP queue 1
-    item 12."""
+    0``, an int or no window, and as many queries as keys — or, without
+    a mask (``causal=False``, no window), any Sk: whisper's training cross
+    attention.  Chunked or offset prefill (``launch/spattn.py``) is
+    ROADMAP queue 1 item 12."""
+    cross = not causal and window is None
     if not isinstance(pos_offset, int) or pos_offset != 0 or \
-            q.shape[1] != k.shape[1] or not (
+            (q.shape[1] != k.shape[1] and not cross) or not (
                 window is None or isinstance(window, int)):
         raise NotImplementedError(
-            "flash_attention takes pos_offset 0, Sq == Sk and an int or no "
-            "window; the rest is not yet ported: ROADMAP queue 1 item 12")
+            "flash_attention takes pos_offset 0, an int or no window, and "
+            "Sq == Sk unless causal=False without a window; the rest is not "
+            "yet ported: ROADMAP queue 1 item 12")
     return ops.flash_prefill_attention(q, k, v, causal=causal, window=window)
 
 

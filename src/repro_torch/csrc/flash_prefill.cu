@@ -1,10 +1,11 @@
-// Flash attention for one-shot prefill: causal, sliding-window or
-// non-causal, bf16 Q/K/V, grouped-query heads.
+// Flash attention for one-shot prefill and the training forward: causal,
+// sliding-window or non-causal, bf16 Q/K/V, grouped-query heads.
 //
 // Replaces repro/kernels/flashprefill.py:82 flash_prefill (kernel body
 // _flash_kernel, :33), whose contract and numerics it keeps:
-//   * q (B, H, S, D), k/v (B, Hkv, S, D) bf16; head h reads KV head
-//     h / rep (:111);
+//   * q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16; head h reads KV head
+//     h / rep (:111); Sq == Sk unless non-causal without a window
+//     (whisper's training cross attention, repro/models/encdec.py:294);
 //   * a key is kept when kpos < seq, kpos <= qpos if causal and
 //     kpos > qpos - window (:56-61; window = NO_WINDOW turns it off);
 //   * scores are bf16 x bf16 products summed in f32, times rsqrt(D) (:53);
@@ -12,10 +13,12 @@
 //     so a fully masked key slice leaves (m, l, acc) exactly unchanged;
 //   * the online softmax keeps f32 m and l; l sums the unrounded p, p is
 //     rounded to bf16 before the PV product (:70);
-//   * out = bf16(acc / max(l, 1e-20)) (:75).
+//   * out = bf16(acc / max(l, 1e-20)) (:75); for training, optionally
+//     each row's f32 log-sum-exp m + log(l) (NEG_INF for a row with no
+//     kept key), from which csrc/flash_prefill_bwd.cu recomputes p.
 // It is not a block-for-block copy: the TPU kernel's 512 x 512 tiles do
 // not fit in a block's 227 KB of shared memory at D 256, and its grid
-// walks every KV block of a row in order.  Any S works: rows past S are
+// walks every KV block of a row in order.  Any S works: rows past Sq are
 // neither loaded nor stored, keys past seq are copied as zeros (cp.async
 // with a source size of 0) and masked, so the caller passes no padded copy.
 //
@@ -64,6 +67,7 @@ constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
 constexpr int ERR_SMEM = -1;       // launch refused: the tile needs more
 constexpr int STAGES = 2;          // K/V tiles in the ring
 constexpr int PAD = 8;             // bf16 padding per shared-memory row
+constexpr int NO_WINDOW = 1 << 30; // window operand: no sliding window
 
 constexpr int MAX_WARPS = 8;       // block_q <= 128
 
@@ -82,13 +86,13 @@ __device__ __forceinline__ bool keep(int kpos, int qpos, int seq, bool causal,
   return kpos < seq && (!causal || kpos <= qpos) && kpos > qpos - window;
 }
 
-// Grid (ceil(rep * S / bq), Hkv, B), block bq / 16 warps.
+// Grid (ceil(rep * Sq / bq), Hkv, B), block bq / 16 warps.
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int H, int Hkv, int S, int seq, int causal, int window,
-                     int bk) {
+                     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                     int seq, int causal, int window, int bk) {
   constexpr int LD = D + PAD;
   constexpr int NT = D / 8;          // n8 tiles of the output row
   constexpr int SLICE = slice_keys(D);
@@ -104,13 +108,14 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, hk = blockIdx.y, r0 = blockIdx.x * bq;
-  const int rep = H / Hkv, NR = rep * S;
-  const int kv_len = min(seq, S);
-  const size_t kvhead = (size_t(b) * Hkv + hk) * S * D;
-  // row r of KV head hk -> offset of its q / out row
-  auto row_off = [&](int r) {
-    return ((size_t(b) * H + hk * rep + r % rep) * S + r / rep) * D;
+  const int rep = H / Hkv, NR = rep * Sq;
+  const int kv_len = min(seq, Sk);
+  const size_t kvhead = (size_t(b) * Hkv + hk) * Sk * D;
+  // row r of KV head hk -> its (b, h, t) index: times D, its q / out row
+  auto row_idx = [&](int r) {
+    return (size_t(b) * H + hk * rep + r % rep) * Sq + r / rep;
   };
+  auto row_off = [&](int r) { return row_idx(r) * D; };
 
   // KV tiles that can hold a kept key of tokens [tq0, tq1]
   const int tq0 = r0 / rep, tq1 = (min(r0 + bq, NR) - 1) / rep;
@@ -224,9 +229,13 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   ptx::cp_wait<0>();
 
-  // out = bf16(acc / max(l, 1e-20)); l is quad-reduced already
+  // out = bf16(acc / max(l, 1e-20)); m and l are quad-reduced already
   const float inv[2] = {1.f / fmaxf(l[0], 1e-20f), 1.f / fmaxf(l[1], 1e-20f)};
   const int ra = rw + g, rb = ra + 8;
+  if (lse != nullptr && t == 0) {
+    if (ra < NR) lse[row_idx(ra)] = l[0] > 0.f ? m[0] + logf(l[0]) : NEG_INF;
+    if (rb < NR) lse[row_idx(rb)] = l[1] > 0.f ? m[1] + logf(l[1]) : NEG_INF;
+  }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int d = n * 8 + 2 * t;
@@ -240,9 +249,9 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int S, int seq, int causal, int window, int bq,
-           int bk, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int Hkv, int Sq, int Sk, int seq, int causal,
+           int window, int bq, int bk, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, bq, bk);
   if (smem > size_t(MAX_SMEM)) return ERR_SMEM;
   auto kern = flash_prefill_kernel<D>;
@@ -251,46 +260,51 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
   }
-  const int rows = H / Hkv * S;              // token-major rows a KV head
+  const int rows = H / Hkv * Sq;             // token-major rows a KV head
   dim3 grid((rows + bq - 1) / bq, Hkv, B);
   kern<<<grid, bq * 2, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), H, Hkv, S, seq, causal, window, bk);
+      static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Sq, Sk, seq, causal,
+      window, bk);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, S, D), k/v (B, Hkv, S, D), out (B, H, S, D), all bf16 and
-// contiguous; H a multiple of Hkv; keys at or past seq (<= S) masked;
-// window = 1 << 30 for none.  bq: token-major rows (t * rep + g) per
-// block, a multiple of 16 up to 128; bk: keys per tile of the ring, a
-// multiple of the slice (128 keys, 64 at D 256).  D in {32, 64,
-// 128, 256}.  Returns the CUDA error of the launch (0 on success), or
-// ERR_SMEM when the (bq, bk) tile does not fit in shared memory.
+// q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out (B, H, Sq, D), all bf16 and
+// contiguous; H a multiple of Hkv; Sq == Sk unless causal = 0 and window
+// = NO_WINDOW; keys at or past seq (<= Sk) masked; window = 1 << 30 for
+// none.  lse: (B, H, Sq) f32 log-sum-exp of each row, or null (the serve
+// path: nothing written, out unchanged).  bq: token-major rows (t * rep +
+// g) per block, a multiple of 16 up to 128; bk: keys per tile of the ring,
+// a multiple of the slice (128 keys, 64 at D 256).  D in {32, 64, 128,
+// 256}.  Returns the CUDA error of the launch (0 on success), or ERR_SMEM
+// when the (bq, bk) tile does not fit in shared memory.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
-                             void* out, int B, int H, int Hkv, int S, int D,
-                             int seq, int causal, int window, int bq, int bk,
-                             void* stream) {
+                             void* out, void* lse, int B, int H, int Hkv,
+                             int Sq, int Sk, int D, int seq, int causal,
+                             int window, int bq, int bk, void* stream) {
   if (bq < 16 || bq > MAX_WARPS * 16 || bq % 16 || bk < 1 ||
-      bk % slice_keys(D) || Hkv < 1 || H % Hkv || seq > S || S < 1)
+      bk % slice_keys(D) || Hkv < 1 || H % Hkv || seq > Sk || Sq < 1 ||
+      Sk < 1 || (Sq != Sk && (causal || window < NO_WINDOW)))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, out, B, H, Hkv, S, seq, causal, window, bq,
-                        bk, st);
+      return launch<32>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
+                        window, bq, bk, st);
     case 64:
-      return launch<64>(q, k, v, out, B, H, Hkv, S, seq, causal, window, bq,
-                        bk, st);
+      return launch<64>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
+                        window, bq, bk, st);
     case 128:
-      return launch<128>(q, k, v, out, B, H, Hkv, S, seq, causal, window, bq,
-                         bk, st);
+      return launch<128>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
+                         window, bq, bk, st);
     case 256:
-      return launch<256>(q, k, v, out, B, H, Hkv, S, seq, causal, window, bq,
-                         bk, st);
+      return launch<256>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
+                         window, bq, bk, st);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,0 +1,1 @@
+"""Walkthroughs of the port: ``python -m repro_torch.examples.<name>``."""

@@ -19,7 +19,7 @@ from repro_torch.core.packing import PackedWeight
 from repro_torch.core.paged_kvcache import PagedKVCache, blocks_needed
 from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 
-from .flashprefill import flash_prefill
+from .flashprefill import FlashPrefill, flash_prefill
 from .kvattn import kvattn
 from .mpgemm import mpgemm_a16, mpgemm_int8
 from .paged_kvattn import paged_kvattn
@@ -55,15 +55,21 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
                             window: Optional[int] = None) -> torch.Tensor:
-    """Fused flash prefill.  q: (B, S, H, D); k/v: (B, S, Hkv, D).
+    """Fused flash prefill.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D).
 
     The kernel takes head-major bf16 operands and masks the ragged tail
     itself, so S needs no padding (the JAX wrapper pads S to a block
-    multiple for its Pallas grid); its wrapper picks the tile.  Returns
-    (B, S, H, D) in q's dtype."""
+    multiple for its Pallas grid); its wrapper picks the tile.  Where a
+    gradient is wanted (grad mode on and an operand requiring it) the call
+    goes through :class:`FlashPrefill` (forward kernel with lse, backward
+    kernel); otherwise the forward alone, which saves nothing and writes
+    no lse.  Returns (B, Sq, H, D) in q's dtype."""
     hm = [t.transpose(1, 2).to(torch.bfloat16).contiguous()
           for t in (q, k, v)]
-    out = flash_prefill(*hm, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in hm):
+        out = FlashPrefill.apply(*hm, causal, window)
+    else:
+        out = flash_prefill(*hm, causal=causal, window=window)
     return out.transpose(1, 2).to(q.dtype)
 
 

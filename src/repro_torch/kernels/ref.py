@@ -170,9 +170,10 @@ def paged_kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
 def prefill_kv_tiles(q0: int, qc: int, S: int, seq: int, causal: bool,
                      window: int, block_k: int) -> range:
     """First keys of the ``block_k``-key tiles that can hold a kept key of
-    query rows ``[q0, q0 + qc)``: tiles wholly past ``seq``, above the
-    diagonal (causal) or before the window are skipped, as the kernel
-    skips them (each is an exact no-op of the online softmax)."""
+    query rows ``[q0, q0 + qc)`` among ``S`` keys: tiles wholly past
+    ``seq``, above the diagonal (causal) or before the window are skipped,
+    as the kernel skips them (each is an exact no-op of the online
+    softmax)."""
     hi = min(seq, S)
     if causal:
         hi = min(hi, q0 + qc)
@@ -180,54 +181,135 @@ def prefill_kv_tiles(q0: int, qc: int, S: int, seq: int, causal: bool,
     return range(lo // block_k * block_k, hi, block_k)
 
 
+def _work_types(q: torch.Tensor):
+    """(accumulation dtype, rounding of a kernel operand): bf16 operands
+    accumulate in f32 and round p (and dS) to bf16 where the kernels do;
+    f64 operands keep f64 throughout (finite-difference checks of the
+    math)."""
+    if q.dtype == torch.float64:
+        return torch.float64, lambda t: t
+    return torch.float32, lambda t: t.to(torch.bfloat16).float()
+
+
+def _keep(qpos: torch.Tensor, kpos: torch.Tensor, seq: int, causal: bool,
+          window: int) -> torch.Tensor:
+    """(qc, Sk) mask of flash prefill: ``kpos < seq``, ``kpos <= qpos`` if
+    causal, ``kpos > qpos - window``."""
+    mask = (kpos[None] < seq) & (kpos[None] > qpos - window)
+    if causal:
+        mask &= kpos[None] <= qpos
+    return mask
+
+
 def flash_prefill_walk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, window: int, seq: int, block_q: int,
-                       block_k: int) -> torch.Tensor:
+                       block_k: int, return_lse: bool = False):
     """Flash prefill over ``block_q × block_k`` tiles: the port of
     ``repro.core.attention.flash_attention``'s ``q_chunk × kv_chunk``
     walk (attention.py:118-173) on the kernel's head-major operands.
 
-    q (B, H, S, D), k/v (B, Hkv, S, D) bf16; head h reads KV head
-    ``h // rep``; a key is kept when ``kpos < seq``, ``kpos <= qpos`` if
-    ``causal`` and ``kpos > qpos - window`` (NO_WINDOW: no window).
-    Rounding points of the kernel: scores f32 times ``rsqrt(D)``, masked to
-    ``NEG_INF``, p zeroed under the mask, l summing the unrounded p, p
-    rounded to bf16 before the PV product, ``bf16(acc / max(l, 1e-20))``.
-    Rows and keys need no padding: the last tiles are cut short."""
-    B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16 (Sq == Sk unless non-causal
+    without a window); head h reads KV head ``h // rep``; a key is kept
+    when ``kpos < seq``, ``kpos <= qpos`` if ``causal`` and ``kpos > qpos
+    - window`` (NO_WINDOW: no window).  Rounding points of the kernel:
+    scores f32 times ``rsqrt(D)``, masked to ``NEG_INF``, p zeroed under
+    the mask, l summing the unrounded p, p rounded to bf16 before the PV
+    product, ``bf16(acc / max(l, 1e-20))``.  Rows and keys need no
+    padding: the last tiles are cut short.  ``return_lse`` also returns
+    each row's f32 log-sum-exp ``m + log(l)`` (B, H, Sq), NEG_INF for a
+    row with no kept key — what the backward pass recomputes P from.
+    f64 operands are walked in f64 without rounding."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     rep = H // Hkv
     dev = q.device
-    qg = q.float().reshape(B, Hkv, rep, S, D)
-    kf, vf = k.float(), v.float()
-    inv = torch.rsqrt(torch.full((), float(D), device=dev))
-    out = torch.empty((B, Hkv, rep, S, D), dtype=torch.bfloat16, device=dev)
-    for q0 in range(0, S, block_q):
+    acc_t, rnd = _work_types(q)
+    qg = q.to(acc_t).reshape(B, Hkv, rep, Sq, D)
+    kf, vf = k.to(acc_t), v.to(acc_t)
+    inv = torch.rsqrt(torch.full((), float(D), dtype=acc_t, device=dev))
+    out_t = torch.float64 if acc_t == torch.float64 else torch.bfloat16
+    out = torch.empty((B, Hkv, rep, Sq, D), dtype=out_t, device=dev)
+    lse = torch.empty((B, Hkv, rep, Sq), dtype=acc_t, device=dev)
+    for q0 in range(0, Sq, block_q):
         qb = qg[:, :, :, q0:q0 + block_q]                   # (B,Hkv,rep,qc,D)
         qc = qb.shape[3]
         qpos = (q0 + torch.arange(qc, device=dev))[:, None]
-        m = torch.full((B, Hkv, rep, qc, 1), NEG_INF, device=dev)
-        l = torch.zeros((B, Hkv, rep, qc, 1), device=dev)
-        acc = torch.zeros((B, Hkv, rep, qc, D), device=dev)
-        for k0 in prefill_kv_tiles(q0, qc, S, seq, causal, window, block_k):
+        m = torch.full((B, Hkv, rep, qc, 1), NEG_INF, dtype=acc_t,
+                       device=dev)
+        l = torch.zeros((B, Hkv, rep, qc, 1), dtype=acc_t, device=dev)
+        acc = torch.zeros((B, Hkv, rep, qc, D), dtype=acc_t, device=dev)
+        for k0 in prefill_kv_tiles(q0, qc, Sk, seq, causal, window,
+                                   block_k):
             kb = kf[:, :, None, k0:k0 + block_k]            # (B,Hkv,1,kc,D)
             vb = vf[:, :, None, k0:k0 + block_k]
             kpos = k0 + torch.arange(kb.shape[3], device=dev)
-            mask = (kpos[None] < seq) & (kpos[None] > qpos - window)
-            if causal:
-                mask &= kpos[None] <= qpos
+            mask = _keep(qpos, kpos, seq, causal, window)
             s = torch.matmul(qb, kb.transpose(-1, -2)) * inv
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(
-                p.to(torch.bfloat16).float(), vb)
+            acc = acc * alpha + torch.matmul(rnd(p), vb)
             m = m_new
-        out[:, :, :, q0:q0 + qc] = (acc / l.clamp_min(1e-20)).to(
-            torch.bfloat16)
-    return out.reshape(B, H, S, D)
+        out[:, :, :, q0:q0 + qc] = (acc / l.clamp_min(1e-20)).to(out_t)
+        lse[:, :, :, q0:q0 + qc] = torch.where(
+            l > 0, m + torch.log(l), torch.full_like(l, NEG_INF))[..., 0]
+    out = out.reshape(B, H, Sq, D)
+    if return_lse:
+        return out, lse.reshape(B, H, Sq)
+    return out
+
+
+def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, lse: torch.Tensor,
+                          dout: torch.Tensor, causal: bool, window: int,
+                          seq: int, block_q: int = 128):
+    """dq, dk, dv of :func:`flash_prefill_walk` from its saved operands:
+    the plain version of ``csrc/flash_prefill_bwd.cu``, and the CPU path
+    of the autograd function (the reference differentiates its XLA walk,
+    ``jax.vjp`` of ``core/attention.py:92``).
+
+    q / out / dout (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16, lse (B, H, Sq)
+    f32.  Per block of ``block_q`` query tokens, in f32:
+    ``P = exp(S · rsqrt(D) − lse)`` (0 under the mask), ``D_i =
+    rowsum(dO ∘ O)``, ``dV = Σ bf16(P)ᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘
+    (dP − D_i)``, ``dQ = rsqrt(D) · bf16(dS) K`` and ``dK = rsqrt(D) ·
+    Σ bf16(dS)ᵀ Q`` — the kernel's rounding points; a KV head's dK and dV
+    sum over its ``rep`` query heads.  Returns bf16 dq, dk, dv (f64
+    operands: f64, unrounded)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    dev = q.device
+    acc_t, rnd = _work_types(q)
+    qg = q.to(acc_t).reshape(B, Hkv, rep, Sq, D)
+    dog = dout.to(acc_t).reshape(B, Hkv, rep, Sq, D)
+    lg = lse.to(acc_t).reshape(B, Hkv, rep, Sq, 1)
+    delta = (dog * out.to(acc_t).reshape(B, Hkv, rep, Sq, D)).sum(
+        -1, keepdim=True)
+    kf, vf = k.to(acc_t)[:, :, None], v.to(acc_t)[:, :, None]
+    inv = torch.rsqrt(torch.full((), float(D), dtype=acc_t, device=dev))
+    kpos = torch.arange(Sk, device=dev)
+    dq = torch.empty_like(qg)
+    dk = torch.zeros((B, Hkv, Sk, D), dtype=acc_t, device=dev)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, Sq, block_q):
+        sl = slice(q0, q0 + block_q)
+        qb, dob = qg[:, :, :, sl], dog[:, :, :, sl]
+        qpos = (q0 + torch.arange(qb.shape[3], device=dev))[:, None]
+        mask = _keep(qpos, kpos, seq, causal, window)
+        s = torch.matmul(qb, kf.transpose(-1, -2)) * inv
+        p = torch.where(mask, torch.exp(s - lg[:, :, :, sl]),
+                        torch.zeros_like(s))
+        dv += torch.matmul(rnd(p).transpose(-1, -2), dob).sum(2)
+        dp = torch.matmul(dob, vf.transpose(-1, -2))
+        ds = rnd(p * (dp - delta[:, :, :, sl]))
+        dq[:, :, :, sl] = torch.matmul(ds, kf) * inv
+        dk += torch.matmul(ds.transpose(-1, -2), qb).sum(2) * inv
+    out_t = torch.float64 if acc_t == torch.float64 else torch.bfloat16
+    return (dq.reshape(B, H, Sq, D).to(out_t), dk.to(out_t),
+            dv.to(out_t))
 
 
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

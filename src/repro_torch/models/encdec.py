@@ -1,6 +1,7 @@
 """Whisper-style encoder-decoder — the audio family.
 
-Port of ``repro.models.encdec`` (prefill and decode).  The modality
+Port of ``repro.models.encdec`` (prefill, decode and the training
+forward).  The modality
 frontend (mel spectrogram + two Conv1d) is a stub, as in the JAX package:
 the encoder takes precomputed frame embeddings (B, enc_seq, d_model).  The
 encoder's bidirectional self-attention and the decoder prompt's causal
@@ -11,7 +12,10 @@ package does in XLA.  Every projection is a quantization-transparent
 linear; LayerNorm with bias, sinusoidal encoder positions, learned decoder
 positions (clamped to the 448-entry table), logits from ``embed.T``.
 Parameters: ``encoder`` / ``decoder`` are lists of per-layer dicts.
-``hidden_states`` (training) waits for ROADMAP queue 1 item 11.
+:func:`hidden_states` (training) runs the encoder, then the decoder
+teacher-forced over the whole target sequence, its cross attention
+through ``flash_attention`` with T queries against the encoder's frames
+(the kernels, forward and backward, on the card).
 """
 from __future__ import annotations
 
@@ -19,11 +23,12 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core import kvcache as KV
-from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.precision import PrecisionPolicy, get_policy
 
 from . import common as C
 
@@ -239,3 +244,47 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
 
     x = _decoder(params, cfg, policy, x, cache, self_attn)
     return _logits(params, cfg, x), cache
+
+
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  frames: Optional[torch.Tensor] = None,
+                  policy: Optional[PrecisionPolicy] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder hidden states (B, T, d), final-normed: the
+    training forward.  ``frames`` (B, enc_seq, d) stub features (zeros
+    when None) run through the encoder; each decoder layer attends
+    causally to the targets and, without a mask, to the encoder output's
+    own cross K/V (Sq = T against Sk = enc_seq).  ``remat`` recomputes
+    each decoder layer in the backward pass (the encoder is kept, as in
+    the reference)."""
+    policy = policy or get_policy("w16a16kv16")
+    B, T = tokens.shape
+    if frames is None:
+        frames = torch.zeros((B, cfg.enc_seq, cfg.d_model),
+                             dtype=torch.bfloat16, device=tokens.device)
+    enc_out = encode(params, cfg, frames, policy)
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pos = torch.arange(T, device=tokens.device)
+    x = params["embed"][tokens.long()].to(torch.bfloat16)
+    x = x + _dec_pos_embed(params, pos)[None]
+
+    def body(x, lp):
+        h = _layer_norm(x, lp["ln1"], cfg.norm_eps)
+        attn = A.flash_attention(_proj(h, lp["wq"], policy, H, hd),
+                                 _proj(h, lp["wk"], policy, Hkv, hd),
+                                 _proj(h, lp["wv"], policy, Hkv, hd),
+                                 causal=True)
+        x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
+        hx = _layer_norm(x, lp["lnx"], cfg.norm_eps)
+        xattn = A.flash_attention(_proj(hx, lp["xwq"], policy, H, hd),
+                                  _proj(enc_out, lp["xwk"], policy, Hkv, hd),
+                                  _proj(enc_out, lp["xwv"], policy, Hkv, hd),
+                                  causal=False)
+        x = x + C.linear(xattn.reshape(B, T, -1), lp["xwo"], policy)
+        h2 = _layer_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + _mlp(h2, lp, policy)
+
+    for lp in params["decoder"]:
+        x = checkpoint(body, x, lp, use_reentrant=False) if remat \
+            else body(x, lp)
+    return _layer_norm(x, params["final_ln"], cfg.norm_eps)

@@ -12,6 +12,11 @@ whose members close over the family module:
     model.prefill(params, policy, tokens, cache, **extra) -> (logits, cache)
     model.decode_step(params, policy, tokens, cache, pos, **kw)
                                                           -> (logits, cache)
+    model.hidden_states(params, tokens, policy=..., remat=..., **extra)
+                                          -> final normed hidden states
+    model.logits(params, h)               -> logits of hidden states
+    model.loss_fn(params, policy, tokens, targets, remat=..., **extra)
+                                          -> scalar mean next-token NLL
     model.extra_inputs(seed, batch, device)  -> dict of stub modality inputs
     model.check_prefill(n_tokens)         -> raises ValueError for a prefill
                                           length the family refuses (None:
@@ -29,6 +34,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -67,9 +73,28 @@ class Model:
     init_cache: Callable[..., Any]
     decode_step: Callable[..., Any]
     extra_inputs: Callable[..., Dict[str, torch.Tensor]]
+    hidden_states: Callable[..., torch.Tensor]
     prefill: Optional[Callable[..., Any]] = None
     init_paged_cache: Optional[Callable[..., Any]] = None
     check_prefill: Optional[Callable[[int], None]] = None
+
+    def logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        """Logits of hidden states (tied embedding unless ``lm_head``)."""
+        return T.lm_logits(params, h)
+
+    def loss_fn(self, params, policy, tokens: torch.Tensor,
+                targets: torch.Tensor, remat: bool = False,
+                **extra) -> torch.Tensor:
+        """Causal LM cross-entropy, the mean over tokens, from f32 logits
+        (``log_softmax``).  The vlm family prepends image rows: only the
+        text positions (the tail) are scored."""
+        h = self.hidden_states(params, tokens, policy=policy, remat=remat,
+                               **extra)
+        if h.shape[1] != tokens.shape[1]:
+            h = h[:, h.shape[1] - tokens.shape[1]:]
+        logp = F.log_softmax(self.logits(params, h).float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        return nll.mean()
 
 
 def _no_extra(*a, **k) -> Dict[str, Any]:
@@ -104,6 +129,9 @@ def build(cfg: ModelConfig) -> Model:
             blocks_per_slot, device="cuda": T.init_paged_cache(
                 cfg, policy, n_slots, n_blocks, block_size, blocks_per_slot,
                 device),
+            hidden_states=lambda params, tokens, policy=None, remat=False,
+            **ex: T.hidden_states(params, cfg, tokens, policy=policy,
+                                  remat=remat, **ex),
         )
     if fam == "ssm":
         return Model(
@@ -118,6 +146,9 @@ def build(cfg: ModelConfig) -> Model:
             R.decode_step(params, cfg, policy, tokens, cache, pos),
             extra_inputs=_no_extra,
             check_prefill=R.check_prefill_len,
+            hidden_states=lambda params, tokens, policy=None, remat=False,
+            **_ex: R.hidden_states(params, cfg, tokens, policy=policy,
+                                   remat=remat),
         )
     if fam == "hybrid":
         return Model(
@@ -131,6 +162,9 @@ def build(cfg: ModelConfig) -> Model:
             decode_step=lambda params, policy, tokens, cache, pos, **_kw:
             G.decode_step(params, cfg, policy, tokens, cache, pos),
             extra_inputs=_no_extra,
+            hidden_states=lambda params, tokens, policy=None, remat=False,
+            **_ex: G.hidden_states(params, cfg, tokens, policy=policy,
+                                   remat=remat),
         )
     if fam == "audio":
         def extra_inputs(seed: int, batch: int, device="cuda"):
@@ -151,5 +185,8 @@ def build(cfg: ModelConfig) -> Model:
             decode_step=lambda params, policy, tokens, cache, pos, **_kw:
             ED.decode_step(params, cfg, policy, tokens, cache, pos),
             extra_inputs=extra_inputs,
+            hidden_states=lambda params, tokens, policy=None, remat=False,
+            **ex: ED.hidden_states(params, cfg, tokens, policy=policy,
+                                   remat=remat, **ex),
         )
     raise ValueError(not_ported(fam))

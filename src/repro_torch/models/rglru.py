@@ -2,7 +2,8 @@
 and local (sliding-window) MQA attention, pattern (recurrent, recurrent,
 attention) repeating, then the trailing recurrent blocks.
 
-Port of ``repro.models.rglru`` (prefill and decode).  RG-LRU per channel:
+Port of ``repro.models.rglru`` (prefill, decode and the training
+forward).  RG-LRU per channel:
 
     r_t = σ(W_a x_t)          i_t = σ(W_i x_t)
     log a_t = -c · softplus(Λ) · r_t            (c = 8)
@@ -11,23 +12,25 @@ Port of ``repro.models.rglru`` (prefill and decode).  RG-LRU per channel:
 Prefill runs the recurrence as a log-depth associative scan (the port of
 ``jax.lax.associative_scan``'s tree, :func:`_associative_scan`), its
 attention blocks through ``core.attention.flash_attention`` (the
-flash-prefill kernel on the card); decode is the O(1) per-token update and
-``decode_attention`` over the quantized slab.  Parameters are dicts whose
+flash-prefill kernel on the card, and its backward kernel in training);
+decode is the O(1) per-token update and ``decode_attention`` over the
+quantized slab.  Parameters are dicts whose
 ``rec1`` / ``rec2`` / ``attn`` / ``trail`` entries are lists of per-layer
 dicts (the JAX package stacks them for its scans).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core import kvcache as KV
-from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.precision import PrecisionPolicy, get_policy
 
 from . import common as C
 from .transformer import lm_logits
@@ -40,7 +43,8 @@ class HybridCache:
     """Decode state: batch on axis 1 of every leaf (the engine splices a
     B=1 prefill cache into a slot along it)."""
 
-    kv: KV.KVCache           # (L_attn, B, S, 1, Dstore) quantized
+    kv: Optional[KV.KVCache]  # (L_attn, B, S, 1, Dstore) quantized; None
+    #                            in training (nothing is written)
     h: torch.Tensor          # (L_rec, B, W) f32 LRU state
     conv: torch.Tensor       # (L_rec, B, conv_width - 1, W) bf16 conv tail
 
@@ -273,13 +277,17 @@ def _attn_tail(x, attn, lp, cfg: ModelConfig, policy):
     return x + C.swiglu(h2, lp, policy)
 
 
-def _attn_block_seq(x, lp, cfg: ModelConfig, policy, cache_l: KV.KVCache):
+def _attn_block_seq(x, lp, cfg: ModelConfig, policy,
+                    cache_l: Optional[KV.KVCache]):
+    """Full-sequence attention block; its K/V are written to ``cache_l``
+    unless it is None (training)."""
     B, S, _ = x.shape
     h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _qkv(h, lp, cfg, policy, pos)
     attn = A.flash_attention(q, k, v, causal=True, window=cfg.window)
-    KV.append(cache_l, k, v, 0, policy.kv)
+    if cache_l is not None:
+        KV.append(cache_l, k, v, 0, policy.kv)
     return _attn_tail(x, attn, lp, cfg, policy)
 
 
@@ -299,26 +307,57 @@ def _attn_block_step(x, lp, cfg: ModelConfig, policy, cache_l: KV.KVCache,
 
 
 def _run(params, cfg: ModelConfig, policy, x: torch.Tensor,
-         cache: HybridCache, rec_block, attn_block
+         cache: HybridCache, rec_block, attn_block, remat: bool = False
          ) -> Tuple[torch.Tensor, HybridCache]:
-    """The layer walk shared by prefill and decode: superblock i runs
-    recurrent states 2i and 2i+1 and attention slab i, the trailing blocks
-    the states after them.  Returns (x, new cache); the slabs are written
-    in place."""
+    """The layer walk shared by prefill, decode and training: superblock i
+    runs recurrent states 2i and 2i+1 and attention slab i, the trailing
+    blocks the states after them.  Returns (x, new cache); the slabs are
+    written in place.  ``remat`` recomputes each superblock in the
+    backward pass (the trailing blocks are kept, as in the reference)."""
     n_super = len(params["attn"])
     h_new, c_new = list(cache.h.unbind(0)), list(cache.conv.unbind(0))
+
+    def superblock(x, i, h1, c1, h2, c2):
+        x, h1, c1 = rec_block(x, params["rec1"][i], cfg, policy, h1, c1)
+        x, h2, c2 = rec_block(x, params["rec2"][i], cfg, policy, h2, c2)
+        x = attn_block(x, params["attn"][i], cfg, policy,
+                       None if cache.kv is None else cache.kv.layer(i))
+        return x, h1, c1, h2, c2
+
     for i in range(n_super):
-        for j, lp in ((2 * i, params["rec1"][i]), (2 * i + 1,
-                                                   params["rec2"][i])):
-            x, h_new[j], c_new[j] = rec_block(x, lp, cfg, policy, h_new[j],
-                                              c_new[j])
-        x = attn_block(x, params["attn"][i], cfg, policy, cache.kv.layer(i))
+        args = (x, i, h_new[2 * i], c_new[2 * i], h_new[2 * i + 1],
+                c_new[2 * i + 1])
+        x, h_new[2 * i], c_new[2 * i], h_new[2 * i + 1], c_new[2 * i + 1] = \
+            checkpoint(superblock, *args, use_reentrant=False) if remat \
+            else superblock(*args)
     for t, lp in enumerate(params["trail"]):
         j = 2 * n_super + t
         x, h_new[j], c_new[j] = rec_block(x, lp, cfg, policy, h_new[j],
                                           c_new[j])
     return x, HybridCache(kv=cache.kv, h=torch.stack(h_new),
                           conv=torch.stack(c_new))
+
+
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  policy: Optional[PrecisionPolicy] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """tokens (B, S) → final normed hidden states (B, S, d): the layer walk
+    from zero recurrent states, writing no KV (the reference's
+    ``hidden_states``: ``_run`` on a fresh cache without cache writes)."""
+    policy = policy or get_policy("w16a16kv16")
+    B = tokens.shape[0]
+    _, n_rec, _ = _counts(cfg)
+    W = cfg.lru_width or cfg.d_model
+    dev = tokens.device
+    state = HybridCache(
+        kv=None, h=torch.zeros((n_rec, B, W), dtype=torch.float32,
+                               device=dev),
+        conv=torch.zeros((n_rec, B, cfg.conv_width - 1, W),
+                         dtype=torch.bfloat16, device=dev))
+    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x, _ = _run(params, cfg, policy, x, state, _rec_block_seq,
+                _attn_block_seq, remat=remat)
+    return C.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,

@@ -1,7 +1,8 @@
 """RWKV6 ("Finch", arXiv:2404.05892) — the ssm family: an attention-free
 linear recurrence with data-dependent decay.
 
-Port of ``repro.models.rwkv6`` (prefill and decode).  The wkv recurrence
+Port of ``repro.models.rwkv6`` (prefill, decode and the training
+forward).  The wkv recurrence
 per head (state S ∈ R^{dk×dv}):
 
     S_t = diag(w_t) · S_{t-1} + k_tᵀ v_t
@@ -18,22 +19,24 @@ recurrence itself is plain PyTorch, as the reference's is XLA outside any
 Pallas kernel.
 
 As in the reference, the chunked form takes a sequence of fewer than 64
-tokens or a multiple of 64 (``repro/models/rwkv6.py:133``); other lengths
-are refused (:func:`check_prefill_len`) rather than padded, since padding
-tokens would enter the recurrent state.  Parameters are a dict whose
+tokens or a multiple of 64 (``repro/models/rwkv6.py:133``), in prefill and
+in training alike; other lengths are refused (:func:`check_prefill_len`)
+rather than padded, since padding tokens would enter the recurrent
+state.  Parameters are a dict whose
 ``"layers"`` entry is a list of per-layer dicts (the JAX package stacks
 them for its layer scan).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.precision import PrecisionPolicy, get_policy
 
 from . import common as C
 from .transformer import lm_logits
@@ -101,14 +104,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
 
 
-def check_prefill_len(S: int) -> None:
+def check_prefill_len(S: int, training: bool = False) -> None:
     """Raise ``ValueError`` unless the chunked form takes ``S`` tokens:
-    fewer than 64, or a multiple of 64 (the reference asserts the same)."""
+    fewer than 64, or a multiple of 64 (the reference asserts the same,
+    ROADMAP §3)."""
     if not (S % CHUNK == 0 or S < CHUNK):
+        what = (f"trains on sequences of {S} tokens" if training else
+                f"prefills {S} tokens")
+        hint = "" if training else "; a prompt of n tokens prefills n - 1"
         raise ValueError(
-            f"rwkv6 prefills {S} tokens, but its chunked wkv form takes "
-            f"fewer than {CHUNK} tokens or a multiple of {CHUNK} (as the "
-            f"reference); a prompt of n tokens prefills n - 1")
+            f"rwkv6 {what}, but its chunked wkv form takes fewer than "
+            f"{CHUNK} tokens or a multiple of {CHUNK} (as the reference)"
+            f"{hint}")
 
 
 def _lerp(x, x_prev, mu):
@@ -210,32 +217,43 @@ def _channel_mix(x, xs, lp, policy):
 
 
 def _forward_seq(params, cfg: ModelConfig, tokens, policy,
-                 state: RWKVState) -> Tuple[torch.Tensor, RWKVState]:
+                 state: RWKVState, remat: bool = False
+                 ) -> Tuple[torch.Tensor, RWKVState]:
     """tokens (B, S) from ``state`` → (final-normed hidden states, the new
-    state)."""
+    state); ``remat`` recomputes each layer in the backward pass."""
     x = params["embed"][tokens.long()].to(policy.compute_dtype)
-    tm, cm, wkv = [], [], []
-    for i, lp in enumerate(params["layers"]):
+
+    def body(x, lp, tm_s, cm_s, wkv_s):
         h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        dx, tm_new, wkv_new = _time_mix_seq(h, state.tm_shift[i], lp, cfg,
-                                            policy, state.wkv[i])
+        dx, tm_new, wkv_new = _time_mix_seq(h, tm_s, lp, cfg, policy, wkv_s)
         x = x + dx
         h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _channel_mix(h2, _shifted(h2, state.cm_shift[i]), lp,
-                             policy)
+        x = x + _channel_mix(h2, _shifted(h2, cm_s), lp, policy)
+        return x, tm_new, h2[:, -1], wkv_new
+
+    tm, cm, wkv = [], [], []
+    for i, lp in enumerate(params["layers"]):
+        args = (x, lp, state.tm_shift[i], state.cm_shift[i], state.wkv[i])
+        x, tm_new, cm_new, wkv_new = checkpoint(
+            body, *args, use_reentrant=False) if remat else body(*args)
         tm.append(tm_new)
-        cm.append(h2[:, -1])
+        cm.append(cm_new)
         wkv.append(wkv_new)
     new_state = RWKVState(tm_shift=torch.stack(tm), cm_shift=torch.stack(cm),
                           wkv=torch.stack(wkv))
     return C.rms_norm(x, params["final_norm"], cfg.norm_eps), new_state
 
 
-def hidden_states(*args, **kwargs):
-    """The training forward (ROADMAP queue 1 item 11, not ported)."""
-    raise NotImplementedError(
-        "rwkv6 hidden_states (training) is not yet ported: ROADMAP queue 1 "
-        "item 11")
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  policy: Optional[PrecisionPolicy] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """tokens (B, S) → final normed hidden states (B, S, d) from a zero
+    state: the training forward.  S must be < 64 or a multiple of 64."""
+    check_prefill_len(tokens.shape[1], training=True)
+    policy = policy or get_policy("w16a16kv16")
+    state = init_state(cfg, tokens.shape[0], tokens.device)
+    h, _ = _forward_seq(params, cfg, tokens, policy, state, remat=remat)
+    return h
 
 
 def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,

@@ -8,15 +8,18 @@ or llama4's shared expert beside it); weights may be bf16 tensors or
 PackedWeights (expert stacks packed member by member).
 :func:`decode_step` is the engine's chunked prefill and decode step;
 :func:`prefill` the one-shot prefill of the vlm family, which prepends
-the projected image embeddings to the prompt.  Parameters are a dict whose ``"layers"`` entry is a list
-of per-layer dicts (the JAX package stacks them along a leading axis for
-its layer scan; here the scan is a Python loop).
+the projected image embeddings to the prompt; :func:`hidden_states` the
+full-sequence training forward.  Parameters are a dict whose
+``"layers"`` entry is a list of per-layer dicts (the JAX package stacks
+them along a leading axis for its layer scan; here the scan is a Python
+loop).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
@@ -162,6 +165,57 @@ def lm_logits(params, h: torch.Tensor) -> torch.Tensor:
     """Logits over the vocabulary (tied embedding unless ``lm_head``)."""
     w = params["lm_head"] if "lm_head" in params else params["embed"].T
     return torch.matmul(h, w.to(h.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (training) — bf16 path
+# ---------------------------------------------------------------------------
+
+
+def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  img_embeds: Optional[torch.Tensor] = None,
+                  policy: Optional[PrecisionPolicy] = None,
+                  remat: bool = False) -> torch.Tensor:
+    """tokens (B, S_text) → final normed hidden states (B, S, d), the
+    training forward of ``repro.models.transformer.hidden_states``.
+
+    vlm: ``img_embeds`` (B, n_img, VIT_WIDTH) are projected and
+    prepended, so S = n_img + S_text.  Attention is causal
+    :func:`repro_torch.core.attention.flash_attention` with each layer's
+    window (the kernels on the card, forward and backward); ``remat``
+    recomputes each layer in the backward pass."""
+    x = params["embed"][tokens.long()]
+    if img_embeds is not None:
+        proj = C.linear(img_embeds.to(x.dtype), params["img_proj"], policy)
+        x = torch.cat([proj.to(x.dtype), x], dim=1)
+    B, S, d = x.shape
+    rotation = None
+    if cfg.use_rope:
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        rotation = C.rope_rotation(pos, cfg.hd, rotary_pct=cfg.rotary_pct,
+                                   theta=cfg.rope_theta)
+    else:
+        x = x + C.sinusoidal_pos(S, d, device=x.device)[None]
+
+    def body(xc, lp, win):
+        h = C.rms_norm(xc, lp["ln1"], cfg.norm_eps)
+        q, k, v = qkv(h, lp, cfg, policy)
+        if rotation is not None:
+            q = C.apply_rope(q, rotation)
+            k = C.apply_rope(k, rotation)
+        attn = A.flash_attention(q, k, v, causal=True, window=win)
+        xc = xc + C.linear(attn.reshape(B, S, -1), lp["wo"], policy)
+        h2 = C.rms_norm(xc, lp["ln2"], cfg.norm_eps)
+        return xc + ffn(h2, lp, cfg, policy)
+
+    for i, lp in enumerate(params["layers"]):
+        win = layer_window(cfg, i)
+        win = None if win == BIG_WINDOW else win
+        if remat:
+            x = checkpoint(body, x, lp, win, use_reentrant=False)
+        else:
+            x = body(x, lp, win)
+    return C.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,15 @@ Tolerances:
   PyTorch's matmul), so p may round to bf16 on the other side of a tie,
   plus one bf16 ulp of the output: |Δ| ≤ 2^-6 · max|plain| (two bf16
   ulps of the largest output), on inputs whose scores single out a few
-  keys per row so a mask or window error moves the output by O(1).
+  keys per row so a mask or window error moves the output by O(1).  The
+  lse it writes for training against the walk's at 1e-5 relative (one
+  f32 ulp of m + log l, sums in other orders), and the output with the
+  lse written is the output without it, bit for bit.
+* Flash prefill's backward — the kernels against
+  ``ref.flash_prefill_bwd_ref`` (the same math and bf16 rounding points
+  of P and dS, f32 sums in other orders, so a P or dS may round to the
+  other side of a bf16 tie): |Δ| ≤ 2e-2 · max|plain| per gradient; the
+  gradients repeat bit for bit (no atomics).
 """
 import dataclasses
 
@@ -49,7 +57,8 @@ from repro_torch.core import quantize as Q
 from repro_torch.core.packing import pack_weight, to_kernel_layout
 from repro_torch.core.precision import get_policy
 from repro_torch.kernels import ref
-from repro_torch.kernels.flashprefill import flash_prefill, tiles
+from repro_torch.kernels.flashprefill import (flash_prefill,
+                                              flash_prefill_bwd, tiles)
 from repro_torch.kernels.kvattn import kvattn
 from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
 from repro_torch.kernels.paged_kvattn import paged_kvattn
@@ -753,3 +762,86 @@ def test_flash_prefill_counts_launches(dev):
     flash_prefill(q, k, v)
     flash_prefill(q.cpu(), k.cpu(), v.cpu())           # plain: not counted
     assert flash_prefill.launches == before + 1
+
+
+#: flash prefill's backward against its plain version (module docstring)
+FLASH_BWD_REL_TOL = 2e-2
+#: forward + backward cases: B, H, Hkv, Sq, Sk, D, causal, window — causal
+#: rep 1 / 3 / 10, a window inside the sequence, non-causal (the encoder),
+#: non-causal Sq != Sk (whisper's training cross attention), every head dim
+FLASH_GRAD_CASES = [
+    (2, 15, 5, 128, 128, 64, True, None),     # smollm-360m: rep 3
+    (1, 10, 1, 300, 300, 256, True, 128),     # recurrentgemma: rep 10, window
+    (2, 6, 6, 150, 150, 64, False, None),     # whisper encoder, ragged
+    (2, 6, 6, 64, 150, 64, False, None),      # whisper cross attention
+    (1, 16, 8, 319, 319, 128, True, None),    # internvl2: rep 2
+    (2, 4, 4, 70, 70, 32, True, None),        # whisper REDUCED head dim
+    (1, 8, 2, 96, 96, 128, False, 40),        # non-causal window
+]
+
+
+def _grad_inputs(case, dev):
+    B, H, Hkv, Sq, Sk, D = case[:6]
+    rng = np.random.default_rng(Sq + Sk + D)
+    c = (20 / D ** 0.5) ** 0.5
+    q = rng.standard_normal((B, H, Sq, D), np.float32)
+    k, v = (rng.standard_normal((B, Hkv, Sk, D), np.float32)
+            for _ in range(2))
+    do = rng.standard_normal((B, H, Sq, D), np.float32)
+    return [torch.from_numpy(t).to(dev, torch.bfloat16)
+            for t in (4 * q - c, k + c, v / 4, do)]
+
+
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+def test_flash_prefill_lse_and_cross_match_plain(dev, case):
+    q, k, v, _ = _grad_inputs(case, dev)
+    kw = dict(causal=case[6], window=case[7])
+    out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+    ref_out, ref_lse = flash_prefill(q.cpu(), k.cpu(), v.cpu(),
+                                     return_lse=True, **kw)
+    bare = flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bare)
+    err = (out.float().cpu() - ref_out.float()).abs().max().item()
+    assert err <= FLASH_REL_TOL * ref_out.float().abs().max().item()
+    torch.testing.assert_close(lse.cpu(), ref_lse, rtol=1e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES)
+def test_flash_prefill_bwd_matches_plain(dev, case):
+    q, k, v, do = _grad_inputs(case, dev)
+    kw = dict(causal=case[6], window=case[7])
+    out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+    got = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+    ref = flash_prefill_bwd(*(t.cpu() for t in (q, k, v, out, lse, do)),
+                            **kw)
+    torch.cuda.synchronize()
+    for name, a, b, r in zip("qkv", got, again, ref):
+        assert torch.equal(a, b), f"d{name} not repeatable"
+        assert torch.isfinite(a.float()).all()
+        err = (a.float().cpu() - r.float()).abs().max().item()
+        assert err <= FLASH_BWD_REL_TOL * r.float().abs().max().item(), \
+            (name, err)
+
+
+def test_flash_attention_grad_runs_the_kernels(dev):
+    """``core.attention.flash_attention`` under autograd on the card: one
+    forward and one backward launch, gradients those of the backward
+    kernel called directly; without grad the forward alone."""
+    from repro_torch.core.attention import flash_attention
+    q, k, v, do = _grad_inputs(FLASH_GRAD_CASES[0], dev)
+    fwd, bwd = flash_prefill.launches, flash_prefill_bwd.launches
+    leaves = [t.transpose(1, 2).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True)
+    out.backward(do.transpose(1, 2))
+    assert (flash_prefill.launches - fwd, flash_prefill_bwd.launches - bwd) \
+        == (1, 1)
+    o, lse = flash_prefill(q, k, v, return_lse=True)
+    want = flash_prefill_bwd(q, k, v, o, lse, do)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad.transpose(1, 2), w)
+    with torch.no_grad():
+        flash_attention(*leaves, causal=True)
+    assert flash_prefill_bwd.launches - bwd == 2

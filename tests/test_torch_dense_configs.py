@@ -8,7 +8,7 @@ mistral-large-123b (88 layers, untied lm_head).
   carry the assigned hyperparameters (``test_models_smoke``'s table).
 * ``layer_window``, the window's reach and partial RoPE: the JAX suite's
   ``TestGemma3Windows`` / ``TestChatGLMPartialRope``, on the port's
-  ``decode_step`` (the port has no ``hidden_states``).
+  ``decode_step`` (the serving path these configs were ported for).
 * Decode attention at head dim 288 (the plain versions of both kernels)
   against the Pallas kernels in interpret mode, every KV format.
 * RoPE at theta 1e6 up to position 4096 against JAX: the inverse

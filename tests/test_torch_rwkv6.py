@@ -153,8 +153,12 @@ def test_chunk_length_rule():
 
 
 def test_hidden_states_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TR.hidden_states({}, t_reduced(ARCH), torch.zeros((1, 4)))
+    """The training forward (ROADMAP item 11, ported) refuses a sequence
+    length its chunked form does not take, naming the rule, before it
+    touches the parameters."""
+    with pytest.raises(ValueError, match="trains on sequences of 100 "
+                       "tokens.*multiple of 64"):
+        TR.hidden_states({}, t_reduced(ARCH), torch.zeros((1, 100)))
 
 
 # ---------------------------------------------------------------------------
