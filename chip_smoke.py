@@ -7,7 +7,9 @@ Phases, in order (any failure raises and exits nonzero):
 
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
-   ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel).
+   ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel); print
+   each function's registers and spills, and fail if a flash kernel at
+   head dim 288 spills.
 3. Kernel phase: hold each kernel against its plain PyTorch version on the
    card at the main paths' full-width shapes — both GEMMs at bits 4 and 8
    at smollm-360m's and recurrentgemma-2b's packed shapes, the weights in
@@ -34,14 +36,16 @@ Phases, in order (any failure raises and exits nonzero):
    4096-square projections, ck / cv, and the decay LoRA's 4096 x 64 and
    64 x 4096, the latter one 64-deep chunk at group 64); decode attention
    at their heads (rep 5, 7 and 2 at D 128, ``MOE_VLM_ATTN``) and flash
-   prefill at internvl2's one-shot prefill (S 319, 16 heads on 8, D 128).
+   prefill at internvl2's one-shot prefill (S 319, 16 heads on 8, D 128)
+   and at gemma3-1b's training shapes (B 2, S 2048, 4 heads on 1, D 288;
+   a local layer with window 1024 and a global one).
    Flash prefill's backward (training, ``FLASH_BWD_SHAPES``: smollm-360m
    at S 128 and 2048, recurrentgemma-2b at S 4096 with its window,
    whisper-tiny's encoder and its 64 x 1500 cross attention, internvl2's
-   S 319): the three backward kernels against their plain version, the
-   gradients bit for bit repeatable, the forward's lse against the
-   walk's and its output unchanged by writing it; SDPA's backward through
-   autograd as the yardstick.
+   S 319, gemma3-1b's two layers at D 288): the three backward kernels
+   against their plain version, the gradients bit for bit repeatable,
+   the forward's lse against the walk's and its output unchanged by
+   writing it; SDPA's backward through autograd as the yardstick.
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
@@ -64,7 +68,8 @@ Phases, in order (any failure raises and exits nonzero):
    ``pack_prequantized`` and the A16 kernel against its plain version.
    Then training (``train_reference``): REDUCED smollm-360m,
    llama4-scout (Adafactor), internvl2-2b, recurrentgemma-2b,
-   whisper-tiny and rwkv6-7b — loss, every gradient leaf of ``loss_fn``
+   whisper-tiny, rwkv6-7b and gemma3-1b at head dim 288 — loss, every
+   gradient leaf of ``loss_fn``
    and one optimizer step on the card (flash kernels forward and
    backward) against the CPU (plain versions), llama4's routing held.
    Then the training phase (``train_phase``): full-size smollm-360m (32
@@ -73,7 +78,10 @@ Phases, in order (any failure raises and exits nonzero):
    counters zeroed just before each and read just after (32 forward and
    32 backward flash launches a step, remat 64 forward, nothing else),
    finite losses, ms/step, tokens/s, peak GiB and a profiled step's
-   device busy share.
+   device busy share; then full-size gemma3-1b (26 layers, d_model 1152,
+   head dim 288, vocab 262144, ~1.0 B parameters) the same way, 3 steps
+   of 2 x 2048 tokens and a remat step (26 forward and 26 backward flash
+   launches a step, remat 52 forward).
 5. Serve phase: the full-width smollm-360m (32 layers, d_model 960,
    seeded random weights), 4 slots, max_seq 256, block_size 16,
    prefill_chunk 32, greedy, through ``Engine.generate`` on the dense slab
@@ -205,13 +213,17 @@ RWKV_GEMM_SHAPES = [
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
 #: and where the window binds, whisper-tiny's encoder (not a tile multiple)
-#: and its decoder prompt (the serve's 16-token prompt less its last token)
+#: and its decoder prompt (the serve's 16-token prompt less its last token);
+#: gemma3-1b's local and global layers at the training run's 2 x 2048
+#: tokens (head dim 288, 4 heads on 1, window 1024 binding)
 FLASH_SHAPES = [
     ("recurrentgemma S127", 1, 10, 1, 127, 256, True, 2048),
     ("recurrentgemma S4096", 1, 10, 1, 4096, 256, True, 2048),
     ("whisper encoder S1500", 1, 6, 6, 1500, 64, False, None),
     ("whisper decoder S15", 1, 6, 6, 15, 64, True, None),
-    ("internvl2 S319", 1, 16, 8, 319, 128, True, None)]
+    ("internvl2 S319", 1, 16, 8, 319, 128, True, None),
+    ("gemma3-1b local S2048", 2, 4, 1, 2048, 288, True, 1024),
+    ("gemma3-1b global S2048", 2, 4, 1, 2048, 288, True, None)]
 #: flash prefill's bar against its plain version: two bf16 ulps of the
 #: largest output (both round p and the output to bf16 at the same points;
 #: f32 sum order flips a rounding now and then)
@@ -220,15 +232,18 @@ FLASH_REL_TOL = 2 ** -6
 #: H, Hkv, Sq, Sk, D, causal, window) — smollm-360m's attention at the
 #: training phase's 128 tokens and at 2048, recurrentgemma-2b's local
 #: attention where the window binds, whisper-tiny's encoder and its
-#: training cross attention (64 decoder tokens against 1500 frames), and
-#: internvl2-2b's 319-row prefill (16 heads on 8)
+#: training cross attention (64 decoder tokens against 1500 frames),
+#: internvl2-2b's 319-row prefill (16 heads on 8), and gemma3-1b's local
+#: and global layers at its training run's 2 x 2048 tokens (D 288)
 FLASH_BWD_SHAPES = [
     ("smollm-360m S128", 8, 15, 5, 128, 128, 64, True, None),
     ("smollm-360m S2048", 8, 15, 5, 2048, 2048, 64, True, None),
     ("recurrentgemma-2b S4096", 1, 10, 1, 4096, 4096, 256, True, 2048),
     ("whisper encoder S1500", 1, 6, 6, 1500, 1500, 64, False, None),
     ("whisper cross Sq64 Sk1500", 1, 6, 6, 64, 1500, 64, False, None),
-    ("internvl2 S319", 1, 16, 8, 319, 319, 128, True, None)]
+    ("internvl2 S319", 1, 16, 8, 319, 319, 128, True, None),
+    ("gemma3-1b local S2048", 2, 4, 1, 2048, 2048, 288, True, 1024),
+    ("gemma3-1b global S2048", 2, 4, 1, 2048, 2048, 288, True, None)]
 #: the backward kernels' bar against their plain version: the same math
 #: and bf16 rounding points of P and dS, f32 sums in other orders (a P or
 #: dS may round on the other side of a bf16 tie), per gradient relative to
@@ -237,16 +252,21 @@ FLASH_BWD_SHAPES = [
 #: orders)
 FLASH_BWD_REL_TOL = 2e-2
 LSE_ABS_TOL = 2e-4
-#: the training phase: smollm-360m at full size through ``train()``, AdamW:
-#: (steps, batch, sequence), then one step with ``remat=True``
-TRAIN_RUN = (4, 8, 128)
+#: the training phase: models at full size through ``train()``, AdamW:
+#: (arch, steps, batch, sequence), then one step with ``remat=True`` —
+#: smollm-360m, and gemma3-1b (head dim 288) at a sequence where the
+#: 1024-token window binds on its 22 local layers
+TRAIN_RUNS = [("smollm-360m", 4, 8, 128), ("gemma3-1b", 3, 2, 2048)]
 #: REDUCED models held card vs CPU in training: loss, every gradient leaf
 #: and one optimizer step of each family (llama4 with Adafactor, its
-#: big-model optimizer)
-TRAIN_REDUCED = [("smollm-360m", "adamw"),
-                 ("llama4-scout-17b-a16e", "adafactor"),
-                 ("internvl2-2b", "adamw"), ("recurrentgemma-2b", "adamw"),
-                 ("whisper-tiny", "adamw"), ("rwkv6-7b", "adamw")]
+#: big-model optimizer): (arch, optimizer, head dim override) — gemma3 at
+#: its full width's 288
+TRAIN_REDUCED = [("smollm-360m", "adamw", None),
+                 ("llama4-scout-17b-a16e", "adafactor", None),
+                 ("internvl2-2b", "adamw", None),
+                 ("recurrentgemma-2b", "adamw", None),
+                 ("whisper-tiny", "adamw", None), ("rwkv6-7b", "adamw", None),
+                 ("gemma3-1b", "adamw", 288)]
 #: training bars card vs CPU: loss relative; each gradient leaf relative to
 #: its largest element (plus 1e-6 for leaves whose exact gradient is zero,
 #: llama4's top-1 router), 5e-2 for the families whose gradients the JAX
@@ -1235,54 +1255,58 @@ def calibration_check(dev):
 
 
 def train_phase(dev):
-    """The training path at full size: smollm-360m (32 layers, d_model
-    960, vocab 49152, seeded random weights) through ``train()`` with
-    AdamW, ``TRAIN_RUN`` steps, then one step with ``remat=True``; the
-    launch counters zeroed just before each run and read just after: 32
-    forward and 32 backward flash launches a step (remat: 64 forward),
-    nothing else.  Losses must be finite.  Then one more step under
-    ``torch.profiler`` for the device's busy share."""
+    """The training path at full size (``TRAIN_RUNS``): smollm-360m (32
+    layers, d_model 960, vocab 49152) and gemma3-1b (26 layers, d_model
+    1152, head dim 288, vocab 262144, tied embeddings), seeded random
+    weights, through ``train()`` with AdamW, then one step with
+    ``remat=True``; the launch counters zeroed just before each run and
+    read just after: one forward and one backward flash launch a layer
+    and step (remat: two forward), nothing else.  Losses must be finite.
+    Then one more step under ``torch.profiler`` for the device's busy
+    share."""
     import math
     import torch
     from repro_torch.configs import get_config
     from repro_torch.training.loop import train
-    cfg = get_config("smollm-360m")
-    steps, batch, seq = TRAIN_RUN
     counters = launch_counters()
     res = {}
-    for remat, n in ((False, steps), (True, 1)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for f in counters.values():
-            f.launches = 0
-        out = train(cfg, n_steps=n, batch=batch, seq=seq, lr=3e-4, seed=0,
-                    log_every=1, remat=remat, device=dev)
-        launches = {k: f.launches for k, f in counters.items()}
-        L = cfg.n_layers
-        want = {k: 0 for k in launches}
-        want["flash_prefill"] = L * n * (2 if remat else 1)
-        want["flash_prefill_bwd"] = L * n
-        label = "remat" if remat else "train"
-        check(launches == want,
-              f"{label}: launches {launches} != {want} ({n} steps)")
-        losses = [v for _, v in out["losses"]]
-        check(len(losses) == n and all(math.isfinite(v) for v in losses),
-              f"{label}: losses {losses}")
-        step_ms = [t * 1e3 for t in out["step_s"]]
-        steady = statistics.median(step_ms[1:] or step_ms)
-        res[label] = dict(
-            arch=cfg.name, steps=n, batch=batch, seq=seq, remat=remat,
-            losses=losses, step_ms=step_ms, ms_per_step=steady,
-            tokens_per_s=batch * seq / steady * 1e3, wall_s=out["wall_s"],
-            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            launches=launches)
-        if not remat:
-            res["profile"] = train_profile(cfg, out, dev)
-        del out
+    for arch, steps, batch, seq in TRAIN_RUNS:
+        cfg = get_config(arch)
+        for remat, n in ((False, steps), (True, 1)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for f in counters.values():
+                f.launches = 0
+            out = train(cfg, n_steps=n, batch=batch, seq=seq, lr=3e-4,
+                        seed=0, log_every=1, remat=remat, device=dev)
+            launches = {k: f.launches for k, f in counters.items()}
+            L = cfg.n_layers
+            want = {k: 0 for k in launches}
+            want["flash_prefill"] = L * n * (2 if remat else 1)
+            want["flash_prefill_bwd"] = L * n
+            label = f"{arch} {'remat' if remat else 'train'}"
+            check(launches == want,
+                  f"{label}: launches {launches} != {want} ({n} steps)")
+            losses = [v for _, v in out["losses"]]
+            check(len(losses) == n and all(math.isfinite(v) for v in losses),
+                  f"{label}: losses {losses}")
+            step_ms = [t * 1e3 for t in out["step_s"]]
+            steady = statistics.median(step_ms[1:] or step_ms)
+            res[label] = dict(
+                arch=cfg.name, steps=n, batch=batch, seq=seq, remat=remat,
+                losses=losses, step_ms=step_ms, ms_per_step=steady,
+                tokens_per_s=batch * seq / steady * 1e3,
+                wall_s=out["wall_s"],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=launches)
+            if not remat:
+                res[f"{arch} profile"] = train_profile(cfg, out, dev, steps,
+                                                       batch, seq)
+            del out
     return res
 
 
-def train_profile(cfg, out, dev):
+def train_profile(cfg, out, dev, steps, batch, seq):
     """One more AdamW step of a ``train()`` run under ``torch.profiler``:
     device events summed against the host wall clock of the step."""
     import torch
@@ -1292,7 +1316,6 @@ def train_profile(cfg, out, dev):
     from repro_torch.training import data as D
     from repro_torch.training import optimizer as O
     from repro_torch.training.loop import make_train_step
-    steps, batch, seq = TRAIN_RUN
     model = build(cfg)
     step = make_train_step(model, O.for_config(cfg, lr=3e-4,
                                                total_steps=steps))
@@ -1326,6 +1349,7 @@ def train_reference(dev):
     tokens and stub inputs, then one step of the family's optimizer on
     each side, the updates compared; moe routing on the card held to the
     CPU's up to a near-tie (``RoutingHold``)."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_reduced
     from repro_torch.core.precision import get_policy
@@ -1334,8 +1358,12 @@ def train_reference(dev):
     from repro_torch.training.loop import tree_map
     pol = get_policy("w16a16kv16")
     worst = {}
-    for arch, opt_name in TRAIN_REDUCED:
-        cfg = get_reduced(arch)
+    for base, opt_name, hd in TRAIN_REDUCED:
+        cfg = get_reduced(base)
+        arch = base
+        if hd is not None:
+            cfg = dataclasses.replace(cfg, head_dim=hd)
+            arch = f"{base} hd{hd}"
         model = build(cfg)
         raw = model.init_params(0, "cpu")
         gen = torch.Generator().manual_seed(9)
@@ -1362,7 +1390,7 @@ def train_reference(dev):
             got["cpu"], got[str(dev)]
         loss_rel = abs(l_dev - l_cpu) / abs(l_cpu)
         check(loss_rel <= TRAIN_TOL_LOSS, f"{arch}: loss {l_dev} vs {l_cpu}")
-        tol = TRAIN_TOL_GRAD.get(arch, TRAIN_TOL_GRAD_DEFAULT)
+        tol = TRAIN_TOL_GRAD.get(base, TRAIN_TOL_GRAD_DEFAULT)
         grad_rel = upd_rel = 0.0
         for name, (_, members) in g_cpu.items():
             for j, (a, b) in enumerate(zip(members, g_dev[name][1])):
@@ -1434,6 +1462,8 @@ def launch_counters():
 
 #: kernels only the training path launches (the serves must launch none)
 TRAIN_ONLY = ("flash_prefill_bwd",)
+#: the flash libraries, whose D 288 functions must spill no register
+FLASH_LIBS = ("flash_prefill", "flash_prefill_bwd")
 
 
 def smollm_engine(dev, **kw):
@@ -2001,10 +2031,14 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {[p.name for p in libs]} in {time.perf_counter() - t0:.1f} s")
     for p in libs:
+        lib = p.stem.split('-')[0]
         for kern, regs, spill in ptxas_report(
                 p.with_suffix(".log").read_text()):
-            print(f"  {p.stem.split('-')[0]} {kern}: {regs} registers, "
-                  f"{spill} bytes spilled")
+            print(f"  {lib} {kern}: {regs} registers, {spill} bytes spilled")
+            # the flash kernels at gemma3's head dim fit their registers
+            check(not (lib in FLASH_LIBS and "288" in
+                       kern[kern.find("<") + 1:-1].split(", ") and spill),
+                  f"{lib} {kern} spills {spill} bytes")
 
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     for _ in range(1000):                 # ~0.4 s of work: clocks up
@@ -2049,14 +2083,14 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     training = train_phase(dev)
-    for label in ("train", "remat", "profile"):
-        print(f"training {label}:", json.dumps(training[label]))
+    for label, r in training.items():
+        print(f"training {label}:", json.dumps(r))
     print(f"training phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _, totals = serve_phase(dev)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
-    for label in ("train", "remat"):      # main-path runs of the kernels
-        for k, n in training[label]["launches"].items():
+    for r in training.values():           # main-path runs of the kernels
+        for k, n in r.get("launches", {}).items():
             totals[k] += n
 
     src = "src/repro_torch/csrc/"

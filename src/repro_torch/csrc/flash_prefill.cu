@@ -33,7 +33,7 @@
 //     rows.  The block loops over the block_k-key tiles that can hold a
 //     kept key of its rows: tiles wholly above the diagonal (causal) or
 //     before the window are never loaded, a warp skips a slice (128 keys,
-//     64 at D 256) masked for all its rows, and a slice kept whole for
+//     64 above D 128) masked for all its rows, and a slice kept whole for
 //     them skips the per-score mask.  The wrapper picks the tile from the
 //     shapes.
 //   * An asynchronous K/V ring: two tiles in shared memory, filled by
@@ -43,13 +43,23 @@
 //     ldmatrix.x4.trans; Q's fragments stay in registers across the walk
 //     at D <= 128 (at D 256 they would cost 64 more registers a thread
 //     beside the 128 of the output) and are reloaded from shared memory
-//     per slice at D 256.  Rows are padded by 16 bytes, so the eight rows
+//     per slice above D 128.  Rows are padded by 16 bytes, so the eight rows
 //     of each 8 x 8 matrix fall in distinct banks.
 //   * Tensor cores: mma.sync m16n8k16 bf16 with f32 accumulators — S = Q
 //     K^T for a slice in registers (the C fragments are reused as
 //     the A fragments of P), the softmax reduced across the four lanes of
-//     a row quad, O accumulated in registers (D / 2 floats a thread).
-//     wgmma is not used; PERF.md records what was measured without it.
+//     a row quad, O accumulated in registers (D / 2 floats a thread, D / 4
+//     at D 288).  wgmma is not used; PERF.md records what was measured
+//     without it.
+//   * Wide heads (D > 256, gemma3's 288).  A warp's whole output row
+//     would take 144 floats a thread, 176 with the 64-key score slice,
+//     before fragments and addresses, of the 255 registers a thread may
+//     hold (D 256's 160 already leave little): two warps share each 16-row
+//     group (d_warps, as csrc/flash_block.cuh does for decode), both
+//     compute the same S and softmax (same instructions on the same
+//     operands: the same bits) and each keeps the output of its half of
+//     D.  The block keeps at most 256 threads, so its row tile is at most
+//     64 rows there (max_rows).
 //
 // A tile that needs more than the 227 KB of shared memory a block may use
 // is refused with ERR_SMEM (the wrapper raises), never split.
@@ -69,10 +79,17 @@ constexpr int STAGES = 2;          // K/V tiles in the ring
 constexpr int PAD = 8;             // bf16 padding per shared-memory row
 constexpr int NO_WINDOW = 1 << 30; // window operand: no sliding window
 
-constexpr int MAX_WARPS = 8;       // block_q <= 128
+constexpr int MAX_WARPS = 8;       // threads per block <= 256
+
+// warps sharing one 16-row group, each keeping the output of D / d_warps
+// columns, and the largest row tile (block_q) of a block
+__host__ __device__ constexpr int d_warps(int D) { return D > 256 ? 2 : 1; }
+__host__ __device__ constexpr int max_rows(int D) {
+  return MAX_WARPS / d_warps(D) * 16;
+}
 
 // keys per online-softmax update: 128 (16 n8 score tiles a warp, 64
-// floats a thread) where the registers allow, 64 at D 256
+// floats a thread) where the registers allow, 64 above D 128
 __host__ __device__ constexpr int slice_keys(int D) {
   return D > 128 ? 64 : 128;
 }
@@ -86,7 +103,7 @@ __device__ __forceinline__ bool keep(int kpos, int qpos, int seq, bool causal,
   return kpos < seq && (!causal || kpos <= qpos) && kpos > qpos - window;
 }
 
-// Grid (ceil(rep * Sq / bq), Hkv, B), block bq / 16 warps.
+// Grid (ceil(rep * Sq / bq), Hkv, B), block bq / 16 * d_warps(D) warps.
 template <int D>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -94,18 +111,24 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
                      int seq, int causal, int window, int bk) {
   constexpr int LD = D + PAD;
-  constexpr int NT = D / 8;          // n8 tiles of the output row
+  constexpr int WD = d_warps(D);     // warps per 16-row group
+  constexpr int NT = D / 8 / WD;     // n8 tiles of the output a warp keeps
   constexpr int SLICE = slice_keys(D);
   constexpr int NJ = SLICE / 8;      // n8 tiles of a slice's scores
   constexpr int ST = STAGES;
   constexpr bool QREG = D <= 128;    // Q fragments held in registers
   constexpr int VEC = D / 8;         // 16-byte words per row
+  static_assert(D % (16 * WD) == 0, "each warp keeps whole k16 column pairs");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bq = blockDim.x / 32 * 16;
+  const int groups = blockDim.x / 32 / WD;   // 16-row groups of the block
+  const int bq = groups * 16;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* ring = Qs + bq * LD;         // stage i: K rows, then V rows
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the warp's 16-row group and its part of D (columns dcol, + D / WD)
+  const int wgrp = WD == 1 ? warp : warp % groups;
+  const int dcol = WD == 1 ? 0 : warp / groups * (D / WD);
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, hk = blockIdx.y, r0 = blockIdx.x * bq;
   const int rep = H / Hkv, NR = rep * Sq;
@@ -151,10 +174,10 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ptx::cp_wait<ST - 1>();                  // Q has arrived
   __syncthreads();
 
-  const int rw = r0 + warp * 16;           // this warp's first row
+  const int rw = r0 + wgrp * 16;           // this warp's first row
   const int qa = (rw + g) / rep, qb = (rw + g + 8) / rep;   // row tokens
   const int tw0 = rw / rep, tw1 = (rw + 15) / rep;
-  const bf16* Qw = Qs + warp * 16 * LD;
+  const bf16* Qw = Qs + wgrp * 16 * LD;
   const float inv_sqrt_d = rsqrtf(static_cast<float>(D));
   uint32_t qf[QREG ? D / 16 : 1][4];
   if constexpr (QREG) {
@@ -224,7 +247,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           seq, causal, window);
             },
             m, l, acc);
-      ptx::pv_update<NJ, NT>(s, Vd + ks0 * LD, LD, lane, NJ / 2, acc);
+      ptx::pv_update<NJ, NT>(s, Vd + ks0 * LD + dcol, LD, lane, NJ / 2,
+                             acc);
     }
   }
   ptx::cp_wait<0>();
@@ -232,13 +256,13 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // out = bf16(acc / max(l, 1e-20)); m and l are quad-reduced already
   const float inv[2] = {1.f / fmaxf(l[0], 1e-20f), 1.f / fmaxf(l[1], 1e-20f)};
   const int ra = rw + g, rb = ra + 8;
-  if (lse != nullptr && t == 0) {
+  if (lse != nullptr && t == 0 && dcol == 0) {
     if (ra < NR) lse[row_idx(ra)] = l[0] > 0.f ? m[0] + logf(l[0]) : NEG_INF;
     if (rb < NR) lse[row_idx(rb)] = l[1] > 0.f ? m[1] + logf(l[1]) : NEG_INF;
   }
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + 2 * t;
+    const int d = dcol + n * 8 + 2 * t;
     if (ra < NR)
       *reinterpret_cast<uint32_t*>(out + row_off(ra) + d) =
           ptx::pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
@@ -262,7 +286,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   }
   const int rows = H / Hkv * Sq;             // token-major rows a KV head
   dim3 grid((rows + bq - 1) / bq, Hkv, B);
-  kern<<<grid, bq * 2, smem, stream>>>(
+  kern<<<grid, bq * 2 * d_warps(D), smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -278,15 +302,16 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 // = NO_WINDOW; keys at or past seq (<= Sk) masked; window = 1 << 30 for
 // none.  lse: (B, H, Sq) f32 log-sum-exp of each row, or null (the serve
 // path: nothing written, out unchanged).  bq: token-major rows (t * rep +
-// g) per block, a multiple of 16 up to 128; bk: keys per tile of the ring,
-// a multiple of the slice (128 keys, 64 at D 256).  D in {32, 64, 128,
-// 256}.  Returns the CUDA error of the launch (0 on success), or ERR_SMEM
-// when the (bq, bk) tile does not fit in shared memory.
+// g) per block, a multiple of 16 up to max_rows(D) (128; 64 at D 288);
+// bk: keys per tile of the ring, a multiple of the slice (128 keys, 64
+// above D 128).  D in {32, 64, 128, 256, 288}.  Returns the CUDA error of
+// the launch (0 on success), or ERR_SMEM when the (bq, bk) tile does not
+// fit in shared memory.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int Hkv,
                              int Sq, int Sk, int D, int seq, int causal,
                              int window, int bq, int bk, void* stream) {
-  if (bq < 16 || bq > MAX_WARPS * 16 || bq % 16 || bk < 1 ||
+  if (bq < 16 || bq > max_rows(D) || bq % 16 || bk < 1 ||
       bk % slice_keys(D) || Hkv < 1 || H % Hkv || seq > Sk || Sq < 1 ||
       Sk < 1 || (Sq != Sk && (causal || window < NO_WINDOW)))
     return int(cudaErrorInvalidValue);
@@ -304,6 +329,9 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                          window, bq, bk, st);
     case 256:
       return launch<256>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
+                         window, bq, bk, st);
+    case 288:
+      return launch<288>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
                          window, bq, bk, st);
     default:
       return int(cudaErrorInvalidValue);

@@ -30,15 +30,18 @@
 //     dP^T = V dO^T in registers (mma.sync m16n8k16, bf16 in, f32
 //     accumulators), forms P^T and dS^T, and accumulates dV += P^T dO and
 //     dK += dS^T Q, the C fragments of P^T / dS^T reused as A fragments.
-//     The Q / dO rows stream through a two-stage cp.async ring.  At D 256
-//     the dK / dV accumulators would need 256 floats a thread, so the
-//     output columns are split over two blocks (DV = 128 each), which
-//     recompute S^T and dP^T.
+//     The Q / dO rows stream through a two-stage cp.async ring.  Above D
+//     128 the dK / dV accumulators would need D floats a thread, so the
+//     output columns are split over D / DV blocks (dv_cols: DV = 128 of
+//     D 256, 144 of D 288), which each recompute S^T and dP^T.
 //   * dq_kernel: row-parallel, as the forward: a block owns 64 packed rows
 //     and walks the key slices that can hold a kept key (warps skip
 //     slices masked for all their rows), recomputing S and dP and
 //     accumulating dQ += dS K in registers; K / V slices through a
-//     two-stage cp.async ring.
+//     two-stage cp.async ring.  At D 288 dQ's 144 floats a thread would
+//     not fit beside S and dP: two warps share each 16-row group
+//     (dq_warps), both compute the same S, dP and dS (the same bits) and
+//     each keeps dQ's columns of its half of D.
 // Each output element is written by one thread of one block, in a fixed
 // order: no atomics, so the gradients repeat bit for bit.  wgmma and TMA
 // are not used.
@@ -60,8 +63,12 @@ constexpr int BK = WARPS * 16;       // keys of a dK/dV block
 constexpr int BQ = 32;               // packed rows per step of its walk
 constexpr int QROWS = WARPS * 16;    // packed rows of a dQ block
 
-// output columns a dK/dV block accumulates: all of D up to 128
-__host__ __device__ constexpr int dv_cols(int D) { return D > 128 ? 128 : D; }
+// output columns a dK/dV block accumulates: all of D up to 128, else half
+// of it (a multiple of 16, so each warp owns whole k16 column pairs)
+__host__ __device__ constexpr int dv_cols(int D) { return D > 128 ? D / 2 : D; }
+// warps sharing one 16-row group of the dQ walk, each keeping dQ's columns
+// of D / dq_warps
+__host__ __device__ constexpr int dq_warps(int D) { return D > 256 ? 2 : 1; }
 // keys per step of the dQ walk (the registers hold dQ's D / 2 floats)
 __host__ __device__ constexpr int dq_slice(int D) { return D > 128 ? 32 : 64; }
 
@@ -114,6 +121,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + PAD;
   constexpr int DV = dv_cols(D);
   constexpr int NS = D / DV;         // column splits
+  static_assert(D % DV == 0 && DV % 16 == 0,
+                "the column splits cover D in whole k16 column pairs");
   constexpr int NJ = BQ / 8;         // n8 tiles of a step's S^T
   constexpr int NT = DV / 8;         // n8 tiles of the accumulated columns
   constexpr int VEC = D / 8;         // 16-byte words per row
@@ -275,9 +284,10 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Grid (ceil(rep * Sq / QROWS), Hkv, B), WARPS warps of 16 packed rows.
+// Grid (ceil(rep * Sq / QROWS), Hkv, B), WARPS * dq_warps(D) warps: each
+// 16 packed rows by D / dq_warps(D) columns of dQ.
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32 * dq_warps(D))
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
@@ -286,14 +296,17 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LD = D + PAD;
   constexpr int SLICE = dq_slice(D);
   constexpr int NJ = SLICE / 8;
-  constexpr int NT = D / 8;
+  constexpr int WD = dq_warps(D);
+  constexpr int NT = D / 8 / WD;     // n8 tiles of dQ a warp keeps
   constexpr int VEC = D / 8;
+  static_assert(D % (16 * WD) == 0, "each warp keeps whole k16 column pairs");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Os = Qs + QROWS * LD;
   bf16* ring = Os + QROWS * LD;      // stage i: K slice, then V slice
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32 % WARPS, lane = threadIdx.x % 32;
+  const int dcol = WD == 1 ? 0 : threadIdx.x / 32 / WARPS * (D / WD);
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, hk = blockIdx.y, r0 = blockIdx.x * QROWS;
   const int rep = H / Hkv, NR = rep * Sq;
@@ -396,13 +409,13 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         s[j][e] = p * (dp[j][e] - (upper ? da : db));
       }
     // dQ += bf16(dS) K: K read as the B operand of a [key][d] tile
-    ptx::pv_update<NJ, NT>(s, Kd, LD, lane, NJ / 2, acc);
+    ptx::pv_update<NJ, NT>(s, Kd + dcol, LD, lane, NJ / 2, acc);
   }
   ptx::cp_wait<0>();
 
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + 2 * t;
+    const int d = dcol + n * 8 + 2 * t;
     if (ra < NR)
       *reinterpret_cast<uint32_t*>(dq + row_idx(ra) * D + d) =
           ptx::pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
@@ -443,7 +456,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
   const size_t s2 = dq_smem(D);
   if ((err = set_smem(dq_kernel<D>, s2))) return err;
   dim3 g2((H / Hkv * Sq + QROWS - 1) / QROWS, Hkv, B);
-  dq_kernel<D><<<g2, WARPS * 32, s2, stream>>>(
+  dq_kernel<D><<<g2, WARPS * 32 * dq_warps(D), s2, stream>>>(
       q, k, v, dout, lse, delta, dq, H, Hkv, Sq, Sk, kv_len, causal, window);
   return int(cudaGetLastError());
 }
@@ -454,7 +467,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
 // bf16 and contiguous; lse (B, H, Sq) f32 from the forward; delta (B, H,
 // Sq) f32 scratch.  H a multiple of Hkv; Sq == Sk unless causal = 0 and
 // window = NO_WINDOW; keys at or past seq (<= Sk) masked; window = 1 <<
-// 30 for none.  D in {32, 64, 128, 256}.  Launches the three kernels in
+// 30 for none.  D in {32, 64, 128, 256, 288}.  Launches the three kernels in
 // order on `stream`; returns the first CUDA error (0 on success).
 extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
                                  const void* out, const void* lse,
@@ -480,6 +493,7 @@ extern "C" int flash_prefill_bwd(const void* q, const void* k, const void* v,
     FP_BWD_CASE(64)
     FP_BWD_CASE(128)
     FP_BWD_CASE(256)
+    FP_BWD_CASE(288)
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -17,7 +17,9 @@ the diagonal or before the window.  Its tile — ``block_q`` token-major
 rows ``t * rep + g`` of one KV head per block, ``block_k`` keys per tile
 of its K/V ring — is chosen here from the shapes (:func:`pick_tile`),
 not by the caller (the JAX default of 512 × 512 does not fit in shared
-memory at D 256).
+memory at D 256).  At gemma3-1b's head dim 288 two warps share each
+16-row group (each keeps half of the output's columns), so a block holds
+at most 64 rows there (:func:`block_qs`).
 CPU tensors take the plain versions
 (:func:`repro_torch.kernels.ref.flash_prefill_walk`, the same tile walk,
 and :func:`repro_torch.kernels.ref.flash_prefill_bwd_ref`); CUDA tensors
@@ -33,12 +35,13 @@ from . import _build
 from .ref import NO_WINDOW, flash_prefill_bwd_ref, flash_prefill_walk
 
 #: head dims the kernel is instantiated for (whisper-tiny REDUCED 32,
-#: whisper-tiny 64, recurrentgemma-2b 256)
-HEAD_DIMS = (32, 64, 128, 256)
+#: whisper-tiny 64, recurrentgemma-2b 256, gemma3-1b 288)
+HEAD_DIMS = (32, 64, 128, 256, 288)
 #: bytes of shared memory a block may use, and what the kernel returns when
 #: a tile needs more
 MAX_SMEM, ERR_SMEM = 232448, -1
-#: the row tiles the kernel takes (one warp per 16 rows), largest first
+#: the row tiles the kernel takes (one warp per 16 rows, two at D 288; at
+#: most 256 threads a block), largest first
 BLOCK_QS = (128, 64, 32, 16)
 #: the grid below which :func:`pick_tile` takes smaller row tiles: at S
 #: 127, rep 10 the 10 blocks of 128-row tiles ran 17–18 % slower than 20
@@ -48,9 +51,16 @@ MIN_BLOCKS = 16
 
 def slice_keys(D: int) -> int:
     """Keys of one online-softmax slice of the kernel at head dim D: 128,
-    64 at D 256 (where the registers hold the output row) — the K/V tile
-    :func:`pick_tile` takes."""
+    64 above D 128 (where the registers hold the output row) — the K/V
+    tile :func:`pick_tile` takes."""
     return 64 if D > 128 else 128
+
+
+def block_qs(D: int) -> Tuple[int, ...]:
+    """The row tiles the kernel takes at head dim D, largest first:
+    :data:`BLOCK_QS`, up to 64 rows above D 256 (two warps a 16-row
+    group, ``max_rows`` of csrc/flash_prefill.cu)."""
+    return tuple(bq for bq in BLOCK_QS if D <= 256 or bq <= 64)
 
 
 def smem_bytes(D: int, block_q: int, block_k: int) -> int:
@@ -62,8 +72,8 @@ def smem_bytes(D: int, block_q: int, block_k: int) -> int:
 
 def tiles(D: int) -> List[Tuple[int, int]]:
     """Every tile :func:`pick_tile` can choose at head dim D: a row tile
-    of :data:`BLOCK_QS` by one slice of keys (all fit in shared memory)."""
-    return [(bq, slice_keys(D)) for bq in BLOCK_QS]
+    of :func:`block_qs` by one slice of keys (all fit in shared memory)."""
+    return [(bq, slice_keys(D)) for bq in block_qs(D)]
 
 
 def pick_tile(B: int, H: int, Hkv: int, S: int, D: int) -> Tuple[int, int]:
@@ -72,28 +82,25 @@ def pick_tile(B: int, H: int, Hkv: int, S: int, D: int) -> Tuple[int, int]:
     blocks, or as many as any row tile gives (larger blocks load each K/V
     tile for more rows), by one slice of keys."""
     rows = H // Hkv * S
-    grid = {bq: -(-rows // bq) * Hkv * B for bq in BLOCK_QS}
+    grid = {bq: -(-rows // bq) * Hkv * B for bq in block_qs(D)}
     want = min(MIN_BLOCKS, max(grid.values()))
-    return next(bq for bq in BLOCK_QS if grid[bq] >= want), slice_keys(D)
+    return next(bq for bq in block_qs(D) if grid[bq] >= want), slice_keys(D)
 
 
 def _check_head_dim(D: int) -> None:
-    """Raise ``ValueError`` unless the kernels are built for head dim D;
-    gemma3-1b's 288 (its prefill and training on the card) is ROADMAP
-    queue 2 item 8."""
+    """Raise ``ValueError`` unless the kernels are built for head dim D."""
     if D not in HEAD_DIMS:
-        item = " (head dim 288: ROADMAP queue 2 item 8)" if D == 288 else ""
         raise ValueError(f"unsupported head_dim={D} (kernel takes "
-                         f"{HEAD_DIMS}){item}")
+                         f"{HEAD_DIMS})")
 
 
 def check_tile(D: int, block_q: int, block_k: int) -> None:
     """Raise ``ValueError`` unless the kernel is built for head dim ``D``
-    and the tile has its shape: block_q one of :data:`BLOCK_QS`, block_k a
+    and the tile has its shape: block_q one of :func:`block_qs`, block_k a
     multiple of the slice (:func:`slice_keys`).  Whether the tile fits in
     shared memory the kernel decides."""
     _check_head_dim(D)
-    if block_q not in BLOCK_QS or block_k % slice_keys(D) or block_k < 1:
+    if block_q not in block_qs(D) or block_k % slice_keys(D) or block_k < 1:
         raise ValueError(f"unsupported tile block_q={block_q}, "
                          f"block_k={block_k}")
 

@@ -21,6 +21,9 @@ whose members close over the family module:
     model.check_prefill(n_tokens)         -> raises ValueError for a prefill
                                           length the family refuses (None:
                                           any length)
+    model.empty_stacks()                  -> the reference's zero-length
+                                          leaves of layer stacks with no
+                                          layers (checkpoints; hybrid only)
 
 ``extra`` carries the modality stubs: the vlm family's ``img_embeds``
 (precomputed ViT patch embeddings, VIT_WIDTH wide) and the audio
@@ -77,6 +80,7 @@ class Model:
     prefill: Optional[Callable[..., Any]] = None
     init_paged_cache: Optional[Callable[..., Any]] = None
     check_prefill: Optional[Callable[[int], None]] = None
+    empty_stacks: Callable[[], Dict[str, Any]] = dict
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """Logits of hidden states (tied embedding unless ``lm_head``)."""
@@ -165,6 +169,7 @@ def build(cfg: ModelConfig) -> Model:
             hidden_states=lambda params, tokens, policy=None, remat=False,
             **_ex: G.hidden_states(params, cfg, tokens, policy=policy,
                                    remat=remat),
+            empty_stacks=lambda: G.empty_stacks(cfg),
         )
     if fam == "audio":
         def extra_inputs(seed: int, batch: int, device="cuda"):

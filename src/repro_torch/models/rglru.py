@@ -134,6 +134,24 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     }
 
 
+def empty_stacks(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's leaves of each layer stack with no layers:
+    ``trail`` when ``n_layers`` is a multiple of ``rglru_period`` (the
+    superblock stacks when it is below it), each a block's leaves with a
+    leading axis of 0.  The port's empty list holds no shapes; the
+    reference's stacked dict keeps these (``training.checkpoint``).  A
+    block is drawn on the CPU only for a stack that is empty."""
+    n_super, _, n_trail = _counts(cfg)
+    blocks = {"rec1": (n_super, _init_rec_block),
+              "rec2": (n_super, _init_rec_block),
+              "attn": (n_super, _init_attn_block),
+              "trail": (n_trail, _init_rec_block)}
+    gen = torch.Generator()
+    return {name: {k: torch.zeros((0,) + tuple(v.shape), dtype=v.dtype)
+                   for k, v in init(cfg, gen).items()}
+            for name, (n, init) in blocks.items() if n == 0}
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU + conv
 # ---------------------------------------------------------------------------

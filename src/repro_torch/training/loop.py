@@ -35,6 +35,19 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def empty_state(model: Model, opt: O.Optimizer) -> Optional[Dict[str, Any]]:
+    """The reference's leaves of a training state that the port's layout
+    has no place for: the zero-length leaves of each layer stack with no
+    layers and their optimizer state (``opt.init`` of them, without its
+    step), in the reference's layout — ``checkpoint.save`` / ``restore``'s
+    ``empty``.  None when every stack has layers."""
+    empty = model.empty_stacks()
+    if not empty:
+        return None
+    return {"params": empty, "opt": {k: v for k, v in opt.init(empty).items()
+                                     if k != "step"}}
+
+
 def make_train_step(model: Model, opt: O.Optimizer,
                     remat: bool = False) -> Callable:
     """``train_step(params, opt_state, tokens, targets, **extra) ->
@@ -66,7 +79,8 @@ def train(cfg: ModelConfig, n_steps: int = 100, batch: int = 8,
     ``n_steps`` steps of (batch, seq) tokens.  Returns the parameters,
     the optimizer state, the logged ``(step, loss)`` pairs, the wall
     seconds, tokens per second and each step's wall seconds (host clock;
-    on the card each step ends in a synchronize)."""
+    on the card each step ends in a synchronize).  A checkpoint holds the
+    reference's tree (``checkpoint``), so either package restores it."""
     model = build(cfg)
     params = tree_map(lambda p: p.requires_grad_(True),
                       model.init_params(seed, device))
@@ -74,6 +88,7 @@ def train(cfg: ModelConfig, n_steps: int = 100, batch: int = 8,
     opt_state = opt.init(params)
     extra = model.extra_inputs(seed + 7, batch, device)
     step_fn = make_train_step(model, opt, remat=remat)
+    empty = empty_state(model, opt) if checkpoint_path else None
     cuda = torch.device(device).type == "cuda"
 
     losses, step_s = [], []
@@ -93,7 +108,7 @@ def train(cfg: ModelConfig, n_steps: int = 100, batch: int = 8,
         if checkpoint_path and checkpoint_every and \
                 (i + 1) % checkpoint_every == 0:
             CKPT.save(checkpoint_path, {"params": params, "opt": opt_state},
-                      step=i + 1)
+                      step=i + 1, empty=empty)
     dt = time.perf_counter() - t0
     return {"params": params, "opt_state": opt_state, "losses": losses,
             "wall_s": dt, "tokens_per_s": n_steps * batch * seq / dt,

@@ -149,6 +149,25 @@ def test_flash_tile_choice_at_main_path_shapes(case, tile):
     assert err <= 2e-2, err
 
 
+def test_flash_tiles_at_head_dim_288():
+    """At gemma3-1b's head dim two warps share each 16-row group and a
+    block holds at most 256 threads: row tiles up to 64, one 64-key slice,
+    every one inside the 227 KB of shared memory; the training shape (B 2,
+    S 2048, 4 heads on 1) takes the 64-row tile; a 128-row tile is
+    refused before any launch."""
+    from repro_torch.kernels import flashprefill as FP
+    assert FP.tiles(288) == [(64, 64), (32, 64), (16, 64)]
+    assert all(FP.smem_bytes(288, *t) <= FP.MAX_SMEM for t in FP.tiles(288))
+    assert FP.pick_tile(2, 4, 1, 2048, 288) == (64, 64)
+    assert FP.pick_tile(1, 4, 1, 20, 288) == (16, 64)
+    for t in FP.tiles(288):
+        FP.check_tile(288, *t)
+    with pytest.raises(ValueError, match="tile"):
+        FP.check_tile(288, 128, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        FP.check_tile(48, 64, 64)
+
+
 def test_prefill_attention_oracle_matches_jax():
     q, k, v = _qkv(3, 1, 40, 4, 2, 64)
     for causal, window in ((True, None), (True, 9), (False, None)):

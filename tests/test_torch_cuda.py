@@ -697,6 +697,8 @@ FLASH_CASES = [
     (1, 8, 8, 96, 128, False, 40),      # non-causal window
     (1, 4, 4, 70, 32, True, None),      # whisper REDUCED head dim
     (1, 16, 8, 319, 128, True, None),   # internvl2: 256 image + 63 prompt
+    (2, 4, 1, 300, 288, True, 128),     # gemma3 local: D 288, ragged S
+    (1, 4, 1, 200, 288, True, None),    # gemma3 global
 ]
 
 
@@ -777,6 +779,8 @@ FLASH_GRAD_CASES = [
     (1, 16, 8, 319, 319, 128, True, None),    # internvl2: rep 2
     (2, 4, 4, 70, 70, 32, True, None),        # whisper REDUCED head dim
     (1, 8, 2, 96, 96, 128, False, 40),        # non-causal window
+    (2, 4, 1, 300, 300, 288, True, 128),      # gemma3 local: D 288, ragged
+    (1, 4, 1, 200, 200, 288, True, None),     # gemma3 global
 ]
 
 

@@ -7,11 +7,11 @@ against the JAX package, finite differences and exact attention.
   flash_attention`` (its XLA walk, which the reference differentiates):
   the same bf16 q, k, v and output gradient, causal, windowed, non-causal
   and non-causal Sq != Sk (whisper's training cross attention), rep 1 /
-  3 / 10, head dims 32 / 64 / 256.  Outputs within 2e-2 · max |out| (one
-  bf16 ulp and a p rounded on the other side of a tie), each gradient
-  within 2e-2 · max |JAX gradient| (measured ≤ 7e-3: the two round P and
-  dS to bf16 at other points — the port where its kernel does, JAX where
-  its differentiated walk does).
+  3 / 4 / 10, head dims 32 / 64 / 256 / 288.  Outputs within 2e-2 · max
+  |out| (one bf16 ulp and a p rounded on the other side of a tie), each
+  gradient within 2e-2 · max |JAX gradient| (measured ≤ 7e-3: the two
+  round P and dS to bf16 at other points — the port where its kernel
+  does, JAX where its differentiated walk does).
 * ``torch.autograd.gradcheck`` of the autograd function on f64 operands,
   where the plain versions round nothing: the backward math is the
   derivative of the forward.
@@ -45,6 +45,7 @@ CASES = [
     (1, 60, 60, 4, 1, 64, False, None),       # encoder: non-causal, rep 4
     (2, 16, 40, 4, 4, 32, False, None),       # cross attention, Sq < Sk
     (1, 48, 20, 6, 2, 64, False, None),       # cross attention, Sq > Sk
+    (1, 40, 40, 4, 1, 288, True, 16),         # gemma3: rep 4, D 288, window
 ]
 
 

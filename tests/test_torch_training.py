@@ -16,9 +16,19 @@ optimizers, checkpoints, the loop, the CLI and the examples.
   its own leaf: no decay of gains, unfactored gain moments, per-layer
   ``rms_u`` and ``scale``) miss JAX's by many ulps: the stacked-leaf
   semantics are what the parity rests on.
-* Checkpoints: every dtype round-trips bit for bit; a leaf-count or
-  shape mismatch is refused; a flat tree saved by either package
-  restores in the other, with the same arrays, tags and key paths.
+* Checkpoints: every dtype round-trips bit for bit; a leaf-count, path
+  or shape mismatch is refused; a flat tree saved by either package
+  restores in the other, with the same arrays, tags and key paths.  The
+  checkpoint of a ``train()`` run holds the reference's tree (layer
+  stacks as (L, ...) leaves, optimizer groups nested): one step of each
+  package's ``train()`` (REDUCED smollm-360m with AdamW, REDUCED
+  llama4-scout with Adafactor) writes the same index — leaf count,
+  order, key paths, tags — and each file restores into the other
+  package's state bit for bit (restored and saved again, it gives the
+  writer's bytes).  Every other family's state (parameters from
+  ``convert.params_from_jax``, the optimizer's initial state) saves as
+  JAX's ``_flatten`` of the same state, value for value, and round-trips
+  both ways — recurrentgemma REDUCED's ``trail`` stack has no layers.
 * Mirrors of ``tests/test_training.py``: both optimizers converge, the
   Adafactor state is factored, ``for_config`` picks Adafactor for
   ``big_model``, the loss descends, a whisper step runs; remat gives the
@@ -26,6 +36,7 @@ optimizers, checkpoints, the loop, the CLI and the examples.
   and the multi-device flags are refused naming ROADMAP item 12.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +49,7 @@ from repro.models.registry import build as j_build
 from repro.training import checkpoint as JCK
 from repro.training import data as JD
 from repro.training import optimizer as JO
+from repro.training.loop import train as j_train
 from repro_torch.configs import get_reduced
 from repro_torch.convert import params_from_jax, to_tensor
 from repro_torch.core.precision import get_policy
@@ -45,7 +57,7 @@ from repro_torch.models.registry import build
 from repro_torch.training import checkpoint as CK
 from repro_torch.training import data as D
 from repro_torch.training import optimizer as O
-from repro_torch.training.loop import train, tree_map
+from repro_torch.training.loop import empty_state, train, tree_map
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores
@@ -314,6 +326,8 @@ def test_mismatch_refused(tmp_path):
         CK.restore(path, {"x": torch.zeros(5)})
     with pytest.raises(ValueError, match="leaves"):
         CK.restore(path, {"x": torch.zeros(4), "y": torch.zeros(1)})
+    with pytest.raises(ValueError, match="where the model has"):
+        CK.restore(path, {"w": torch.zeros(4)})
 
 
 def test_checkpoints_cross_load_with_jax(tmp_path):
@@ -345,6 +359,87 @@ def test_checkpoints_cross_load_with_jax(tmp_path):
         np.testing.assert_array_equal(
             np.asarray(got_j[k]).view(np.uint8),
             np.asarray(tree_j[k]).view(np.uint8))
+
+
+def _index(path):
+    with np.load(path) as z:
+        return json.loads(str(z["__index__"]))
+
+
+def _same_files(a, b):
+    """Two checkpoint files hold the same index and the same bytes."""
+    with np.load(a) as za, np.load(b) as zb:
+        assert str(za["__index__"]) == str(zb["__index__"])
+        assert sorted(za.files) == sorted(zb.files)
+        for k in za.files:
+            if k != "__index__":
+                assert za[k].dtype == zb[k].dtype, k
+                assert za[k].shape == zb[k].shape, k
+                assert za[k].tobytes() == zb[k].tobytes(), k
+
+
+@pytest.mark.parametrize("arch,big_model", [("smollm-360m", False),
+                                            ("llama4-scout-17b-a16e", True)])
+def test_train_checkpoints_cross_load_with_jax(tmp_path, arch, big_model):
+    """One step of each package's ``train()`` with ``checkpoint_every=1``
+    (llama4 as a big model: Adafactor): the same reference tree, and each
+    file restores into the other package's state bit for bit."""
+    jcfg = dataclasses.replace(j_reduced(arch), big_model=big_model)
+    tcfg = dataclasses.replace(get_reduced(arch), big_model=big_model)
+    pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    kw = dict(n_steps=1, batch=2, seq=16, log_every=1, checkpoint_every=1)
+    res_j = j_train(jcfg, checkpoint_path=pj, **kw)
+    res_t = train(tcfg, checkpoint_path=pt, device="cpu", **kw)
+    assert _index(pj) == _index(pt)
+    assert ("['opt']['m']" if big_model else "['opt']['mu']") in \
+        _index(pt)["leaves"][0]["path"]
+    with np.load(pj) as zj, np.load(pt) as zt:
+        for k in zj.files:
+            assert (zj[k].dtype, zj[k].shape) == (zt[k].dtype, zt[k].shape)
+
+    like_t = {"params": res_t["params"], "opt": res_t["opt_state"]}
+    got_t, step_t = CK.restore(pj, like_t)          # JAX's run, port's tree
+    layers = got_t["params"]["layers"]
+    assert len(layers) == tcfg.n_layers
+    assert layers[0]["wq"].untyped_storage().data_ptr() != \
+        layers[1]["wq"].untyped_storage().data_ptr()
+    CK.save(str(tmp_path / "t2.npz"), got_t, step=step_t)
+    _same_files(pj, str(tmp_path / "t2.npz"))
+
+    like_j = {"params": res_j["params"], "opt": res_j["opt_state"]}
+    got_j, step_j = JCK.restore(pt, like_j)         # port's run, JAX's tree
+    JCK.save(str(tmp_path / "j2.npz"), got_j, step=step_j)
+    _same_files(pt, str(tmp_path / "j2.npz"))
+    assert step_t == step_j == 1
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "internvl2-2b", "rwkv6-7b",
+                                  "recurrentgemma-2b", "whisper-tiny"])
+def test_state_of_every_family_saves_the_reference_tree(tmp_path, arch):
+    jcfg, tcfg = j_reduced(arch), get_reduced(arch)
+    raw = jax.device_get(j_build(jcfg).init_params(jax.random.PRNGKey(0)))
+    state_j = {"params": raw, "opt": JO.for_config(jcfg).init(raw)}
+    params = params_from_jax(raw, tcfg, device="cpu")
+    opt = O.for_config(tcfg)
+    state_t = {"params": params, "opt": opt.init(params)}
+    empty = empty_state(build(tcfg), opt)
+    assert (empty is not None) == (arch == "recurrentgemma-2b")
+    pt, pj = str(tmp_path / "t.npz"), str(tmp_path / "j.npz")
+    CK.save(pt, state_t, step=5, empty=empty)
+    JCK.save(pj, state_j, step=5)
+    _same_files(pj, pt)
+    # both files restore into the port's state and save back unchanged
+    for src in (pt, pj):
+        got, step = CK.restore(src, state_t, empty=empty)
+        assert step == 5
+        CK.save(str(tmp_path / "again.npz"), got, step=step, empty=empty)
+        _same_files(pt, str(tmp_path / "again.npz"))
+    got_j, _ = JCK.restore(pt, state_j)
+    JCK.save(str(tmp_path / "j2.npz"), got_j, step=5)
+    _same_files(pj, str(tmp_path / "j2.npz"))
+    if empty is not None:
+        with pytest.raises(ValueError, match="leaves"):
+            CK.restore(pj, state_t)
 
 
 # ---------------------------------------------------------------------------

@@ -2,24 +2,26 @@
 plain versions): the step-0 loss and every gradient leaf of
 ``Model.loss_fn`` under w16a16kv16, and three AdamW steps.
 
-The same REDUCED parameters go to both packages (JAX's ``init_params``,
-carried across by ``params_from_jax``; JAX's gradients are mapped through
-it too, so a stacked leaf is compared layer by layer), with the same
-numpy tokens, targets and stub modality inputs.  JAX runs jitted
-``jax.value_and_grad(loss_fn)``.  For rwkv6 it is compiled with
-``xla_allow_excess_precision`` off, which gives eager JAX's numbers
-(``jax.disable_jit``) bit for bit in a fifth of the time: with it on,
-jitted XLA keeps bf16 intermediates in f32 (ROADMAP §3) and moves
-rwkv6's gradients by up to 40 % of a leaf's largest element against
-eager JAX's — the chunked wkv form's ``exp(±cumulative log decay)``
-factors cancel in the backward pass, so its gradients are sensitive to
-rounding.  The port matches eager JAX there.
+gemma3-1b also runs at its full width's head dim 288 (the loss and
+gradients).  The same REDUCED parameters go to both packages (JAX's
+``init_params``, carried across by ``params_from_jax``; JAX's gradients
+are mapped through it too, so a stacked leaf is compared layer by
+layer), with the same numpy tokens, targets and stub modality inputs.
+JAX runs jitted ``jax.value_and_grad(loss_fn)``.  For rwkv6 it is
+compiled with ``xla_allow_excess_precision`` off, which gives eager
+JAX's numbers (``jax.disable_jit``) bit for bit in a fifth of the time:
+with it on, jitted XLA keeps bf16 intermediates in f32 (ROADMAP §3) and
+moves rwkv6's gradients by up to 40 % of a leaf's largest element
+against eager JAX's — the chunked wkv form's ``exp(±cumulative log
+decay)`` factors cancel in the backward pass, so its gradients are
+sensitive to rounding.  The port matches eager JAX there.
 
 Bars (measured worst in brackets):
 
 * step-0 loss: 1e-3 relative [1.3e-4, llama4 and gemma3];
 * each gradient leaf: |Δ| ≤ TOL_GRAD · max |JAX leaf| + 1e-6 — bf16
-  rounding through the network, in other orders: 3e-2 [2.1e-2, llama4];
+  rounding through the network, in other orders: 3e-2 [2.1e-2, llama4;
+  gemma3 at head dim 288 1.9e-2];
   the 1e-6 floor for leaves whose exact gradient is zero and both sides
   hold rounding noise of ~1e-9 (llama4's top-1 router: its gate is v / v
   = 1); 5e-2 for recurrentgemma against jitted JAX [3.5e-2 on a conv
@@ -41,6 +43,8 @@ port's top-k differs, its own probabilities must put the two choices
 within 4e-3 of each other, and it then takes JAX's choice): one token
 sent to another expert moves its gradient by O(1).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,8 +122,11 @@ class RoutingLock:
         monkeypatch.setattr(TMOE, "top_k", port_top_k)
 
 
-def _setup(arch, monkeypatch, n_batches=1):
+def _setup(arch, monkeypatch, n_batches=1, hd=None):
     cj, ct = j_reduced(arch), t_reduced(arch)
+    if hd is not None:
+        cj = dataclasses.replace(cj, head_dim=hd)
+        ct = dataclasses.replace(ct, head_dim=hd)
     mj, mt = j_build(cj), t_build(ct)
     pj = mj.init_params(jax.random.PRNGKey(0))
     rng = np.random.default_rng(11)
@@ -150,7 +157,18 @@ def _jit(fn, arch, *args, **kw):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_gradients_match_jax(arch, monkeypatch):
-    cj, ct, mj, mt, pj, pt, data, ex_j, ex_t = _setup(arch, monkeypatch)
+    _loss_and_gradients(arch, monkeypatch)
+
+
+def test_loss_and_gradients_match_jax_at_head_dim_288(monkeypatch):
+    """gemma3-1b REDUCED at its full width's head dim (288): flash
+    attention forward and backward at D 288 on the training path."""
+    _loss_and_gradients("gemma3-1b", monkeypatch, hd=288)
+
+
+def _loss_and_gradients(arch, monkeypatch, hd=None):
+    cj, ct, mj, mt, pj, pt, data, ex_j, ex_t = _setup(arch, monkeypatch,
+                                                      hd=hd)
     toks, tgts = data[0]
 
     def loss_j(p):
