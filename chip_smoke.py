@@ -8,8 +8,8 @@ Phases, in order (any failure raises and exits nonzero):
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    ``nvcc`` for ``sm_90a`` (one compiler per source, in parallel); print
-   each function's registers and spills, and fail if a flash kernel at
-   head dim 288 spills.
+   each function's registers and spills, and fail if a flash-prefill
+   kernel at head dim 288 or any backward function spills.
 3. Kernel phase: hold each kernel against its plain PyTorch version on the
    card at the main paths' full-width shapes — both GEMMs at bits 4 and 8
    at smollm-360m's and recurrentgemma-2b's packed shapes, the weights in
@@ -42,10 +42,12 @@ Phases, in order (any failure raises and exits nonzero):
    Flash prefill's backward (training, ``FLASH_BWD_SHAPES``: smollm-360m
    at S 128 and 2048, recurrentgemma-2b at S 4096 with its window,
    whisper-tiny's encoder and its 64 x 1500 cross attention, internvl2's
-   S 319, gemma3-1b's two layers at D 288): the three backward kernels
-   against their plain version, the gradients bit for bit repeatable,
-   the forward's lse against the walk's and its output unchanged by
-   writing it; SDPA's backward through autograd as the yardstick.
+   S 319, gemma3-1b's two layers at D 288): the backward kernels against
+   their plain version, the gradients bit for bit repeatable, the
+   forward's lse against the walk's and its output unchanged by writing
+   it; SDPA's backward through autograd as the yardstick; each row's work
+   plan (grids, split walks, scratch) and the device time of each of its
+   kernels (D_i, dK/dV, dQ, the split reduce) in one profiled call.
 4. Reference phase: smollm-360m REDUCED, teacher-forced through
    ``decode_step`` on the card (kernels) and on the CPU (plain versions),
    on both KV backends under w4a16kv8, w4a8kv4, w8a8kvfp8 and w8a16kv16;
@@ -780,12 +782,61 @@ def attn_mask(S, causal, window, dev):
     return mask
 
 
+#: the backward's kernels (``csrc/flash_prefill_bwd.cu``), by the name
+#: the profiler reports: ``::<name>_kernel<``
+BWD_KERNELS = ("delta", "dkdv", "dq", "split_sum")
+
+
+def bwd_kernel_us(call, calls=3):
+    """Device µs of each backward kernel (``BWD_KERNELS``) a ``call``:
+    each kernel's mean over ``calls`` profiled calls (after a warm one)
+    times its launches a call — a profile can drop the first event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    us = {name: [] for name in BWD_KERNELS}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in BWD_KERNELS:
+                if f"::{name}_kernel<" in e.name:
+                    us[name].append(e.time_range.elapsed_us())
+    return {name: sum(t) / len(t) * round(len(t) / calls) if t else 0.0
+            for name, t in us.items()}
+
+
+def bwd_plan_summary(B, H, Hkv, Sq, Sk, D, causal, window, dev):
+    """The backward's work plan at a shape on this card: grids, split
+    slots, scratch MB and the resident blocks the plan aimed at."""
+    from repro_torch.kernels import flashprefill as fp
+    from repro_torch.kernels.ref import NO_WINDOW
+    plan, _ = fp._device_plan(dev, B, H, Hkv, Sq, Sk, D, causal,
+                              NO_WINDOW if window is None else window, Sk)
+    kv_b, q_b = plan.scratch_bytes(B, Hkv, D)
+    return dict(resident=fp._card(dev.index, D)[1],
+                dkdv_grid=[len(plan.kv_items), Hkv, B],
+                dkdv_split_tiles=int((plan.kv_tiles[:, 0] > 1).sum()),
+                dkdv_slots=plan.kv_slots,
+                dq_grid=[len(plan.q_items), Hkv, B],
+                dq_split_tiles=int((plan.q_tiles[:, 0] > 1).sum()),
+                dq_slots=plan.q_slots, dq_first=plan.dq_first,
+                scratch_mb=(kv_b + q_b) / 2 ** 20)
+
+
 def flash_bwd_phase(dev, flush):
     """The flash-prefill backward kernels against their plain version
     (``ref.flash_prefill_bwd_ref``) and the forward's lse against the
     walk's, at ``FLASH_BWD_SHAPES``; the gradients must repeat bit for bit
     and the output with the lse written must be the output without it.
-    Yardstick: SDPA's backward through autograd (same mask)."""
+    Yardstick: SDPA's backward through autograd (same mask).  Each row
+    also carries the work plan (``bwd_plan_summary``) and the device µs
+    of each kernel of one profiled call (``bwd_kernel_us``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flashprefill import (flash_prefill,
@@ -841,14 +892,19 @@ def flash_bwd_phase(dev, flush):
         ops = 2.5 * 4 * D * B * H * pairs   # 5 products, 2 D flops a pair
         nbytes = 2 * D * (4 * B * H * Sq + 4 * B * Hkv * Sk) + 4 * B * H * Sq
         b, by = bound_ms(nbytes, ops)
+
+        def kernel():
+            return flash_prefill_bwd(q, k, v, out, lse, do, **kw)
         rows.append(dict(
             shape=f"{name} B={B} H={H} Hkv={Hkv} D={D} causal={causal} "
                   f"window={window}",
             max_abs_err=max(e for e, _ in errs.values()),
             rel_err={k: r for k, (_, r) in errs.items()},
             lse_max_abs_err=lse_err,
-            ms=time_ms(lambda: flash_prefill_bwd(q, k, v, out, lse, do,
-                                                 **kw), flush),
+            plan=bwd_plan_summary(B, H, Hkv, Sq, Sk, D, causal, window,
+                                  dev),
+            kernel_us=bwd_kernel_us(kernel),
+            ms=time_ms(kernel, flush),
             plain_ms=time_ms(plain, flush, iters=5),
             library_ms=time_ms(library, flush),
             bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
@@ -1336,8 +1392,14 @@ def train_profile(cfg, out, dev, steps, batch, seq):
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    bwd = [k for k in by_name
+           if any(f"::{n}_kernel<" in k for n in BWD_KERNELS)]
+    fwd = [k for k in by_name if "::flash_prefill_kernel<" in k]
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_idle_share=1 - busy / wall_us,
+                flash_ms={part: sum(by_name[k][0] for k in ks) / 1e3
+                          for part, ks in (("forward", fwd),
+                                           ("backward", bwd))},
                 top_device=[dict(name=k[:60], ms=t / 1e3, count=n)
                             for k, (t, n) in top])
 
@@ -1464,6 +1526,14 @@ def launch_counters():
 TRAIN_ONLY = ("flash_prefill_bwd",)
 #: the flash libraries, whose D 288 functions must spill no register
 FLASH_LIBS = ("flash_prefill", "flash_prefill_bwd")
+
+
+def spill_checked(lib, kern):
+    """Whether function ``kern`` of library ``lib`` must spill nothing:
+    every backward function at every head dim, and the forward's at
+    gemma3's head dim 288."""
+    return lib == "flash_prefill_bwd" or (
+        lib in FLASH_LIBS and "288" in kern[kern.find("<") + 1:-1].split(", "))
 
 
 def smollm_engine(dev, **kw):
@@ -2035,9 +2105,7 @@ def main() -> int:
         for kern, regs, spill in ptxas_report(
                 p.with_suffix(".log").read_text()):
             print(f"  {lib} {kern}: {regs} registers, {spill} bytes spilled")
-            # the flash kernels at gemma3's head dim fit their registers
-            check(not (lib in FLASH_LIBS and "288" in
-                       kern[kern.find("<") + 1:-1].split(", ") and spill),
+            check(not (spill and spill_checked(lib, kern)),
                   f"{lib} {kern} spills {spill} bytes")
 
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
@@ -2062,6 +2130,9 @@ def main() -> int:
             if "rel_err" in r:
                 print(f"    relative errors {r['rel_err']}, lse |Δ| "
                       f"{r['lse_max_abs_err']:.3g}")
+            if "plan" in r:
+                print(f"    plan {json.dumps(r['plan'])}; kernels (us, "
+                      f"one profiled call) {json.dumps(r['kernel_us'])}")
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     moe_worst, flips = moe_reference(dev)

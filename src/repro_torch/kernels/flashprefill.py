@@ -27,8 +27,14 @@ launch the kernels or raise.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+import heapq
+import math
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -184,16 +190,261 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_prefill.launches = 0
 
 
+#: the backward's blocks (``csrc/flash_prefill_bwd.cu``): a dK/dV block
+#: owns BWD_KEYS keys of one KV head, a dQ block BWD_ROWS packed rows
+BWD_KEYS = BWD_ROWS = 64
+#: the grids the plan weighs, in waves of the card's resident blocks
+#: (besides cutting no walk); it keeps the one whose simulated schedule
+#: ends first
+BWD_WAVES = tuple(w / 4 for w in range(2, 17))
+#: no split walks fewer steps: each split reloads its block's tile and
+#: writes and rereads an f32 partial
+BWD_MIN_STEPS = 2
+#: a block's fixed cost in steps of its walk, for the simulated schedule:
+#: loading its tile and the ring's first stages, writing its output
+BWD_BLOCK_STEPS = 2
+#: f32 partials a pass (dK/dV, dQ) may allocate; the plan takes longer
+#: splits rather than more
+BWD_SCRATCH_CAP = 48 << 20
+
+
+def bwd_kv_step(D: int) -> int:
+    """Packed rows per step of a dK/dV walk at head dim D (``kv_step``
+    of the kernel)."""
+    return 64 if D <= 64 else 32
+
+
+def bwd_q_step(D: int) -> int:
+    """Keys per step of a dQ walk at head dim D (``q_step``)."""
+    return 64 if D <= 128 else 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's work for one shape, the same for every batch row and
+    KV head.  ``kv_items`` (n, 4) int32: one dK/dV block each — key tile,
+    first and end packed row of its walk, slot (-1: the tile's only
+    block, which writes bf16 itself; else its f32 partial's index in the
+    scratch).  ``kv_tiles`` (key tiles, 2): splits, first slot.
+    ``q_items`` / ``q_tiles`` likewise for dQ: row tile, first and end
+    key.  The kernels read these arrays (:meth:`table`).  ``dq_first``:
+    the dQ pass starts with the call, before D_i and dK/dV (its simulated
+    schedule is the longer), else after D_i, beside dK/dV."""
+    kv_items: np.ndarray
+    kv_tiles: np.ndarray
+    q_items: np.ndarray
+    q_tiles: np.ndarray
+    dq_first: bool = False
+
+    @property
+    def kv_slots(self) -> int:
+        """dK/dV blocks that write an f32 partial (one slot each)."""
+        return int((self.kv_items[:, 3] >= 0).sum())
+
+    @property
+    def q_slots(self) -> int:
+        """dQ blocks that write an f32 partial (one slot each)."""
+        return int((self.q_items[:, 3] >= 0).sum())
+
+    def scratch_bytes(self, B: int, Hkv: int, D: int) -> Tuple[int, int]:
+        """f32 bytes of the dK + dV partials and of the dQ partials."""
+        one = B * Hkv * BWD_KEYS * D * 4
+        return 2 * self.kv_slots * one, self.q_slots * one
+
+    def table(self) -> np.ndarray:
+        """The four arrays in one int32 vector, in field order."""
+        return np.concatenate([a.ravel() for a in (
+            self.kv_items, self.kv_tiles, self.q_items, self.q_tiles)])
+
+
+def _kept(t: np.ndarray, k0, k1, causal: bool, window: int) -> np.ndarray:
+    """Keys of [k0, k1) that token(s) ``t`` keep (the mask's kpos < seq
+    folded into k1)."""
+    hi = np.minimum(k1, t + 1) if causal else k1
+    return np.maximum(hi - np.maximum(k0, t - window + 1), 0)
+
+
+def _kv_walks(rep, Sq, Sk, kv_len, causal, window, step):
+    """Per key tile: the packed rows [r_lo, r_hi) whose token can see one
+    of its keys, and the kept pairs of each ``step`` rows of that walk."""
+    out = []
+    for k0 in range(0, Sk, BWD_KEYS):
+        k1 = min(k0 + BWD_KEYS, kv_len)
+        t_lo = k0 if causal else 0
+        t_hi = Sq - 1 if window >= NO_WINDOW else \
+            min(Sq - 1, k1 - 1 + window - 1)
+        r_lo = t_lo * rep
+        r_hi = (t_hi + 1) * rep if k0 < kv_len and t_lo <= t_hi else r_lo
+        kept = _kept(np.arange(r_lo, r_hi) // rep, k0, k1, causal, window)
+        pad = -len(kept) % step
+        out.append((r_lo, r_hi, np.pad(kept, (0, pad)).reshape(-1, step)
+                    .sum(1)))
+    return out
+
+
+def _q_walks(rep, Sq, kv_len, causal, window, step):
+    """Per tile of BWD_ROWS packed rows: its first key slice and the kept
+    pairs of each ``step`` keys from there to the last slice that can
+    hold a kept key."""
+    out = []
+    NR = rep * Sq
+    for r0 in range(0, NR, BWD_ROWS):
+        t = np.arange(r0, min(r0 + BWD_ROWS, NR)) // rep
+        hi = min(kv_len, t[-1] + 1) if causal else kv_len
+        s0 = max(0, t[0] - window + 1) // step
+        s1 = max(s0, -(-hi // step))
+        k0 = np.arange(s0, s1)[:, None] * step
+        kept = _kept(t[None], k0, np.minimum(k0 + step, kv_len), causal,
+                     window).sum(1)
+        out.append((s0, kept))
+    return out
+
+
+def _cut(walks, chunk, reps, slot_bytes):
+    """Each walk (kept pairs per step) cut into splits of near-equal kept
+    pairs, as many as its pairs over ``chunk``, the chunk doubled until
+    the partials of ``reps`` repeats of the walks (batch rows x KV heads)
+    fit in BWD_SCRATCH_CAP.  Returns each walk's step bounds."""
+    while True:
+        bounds = []
+        for w in walks:
+            m = min(len(w), max(1, math.ceil(w.sum() / chunk)))
+            cuts = np.searchsorted(np.cumsum(w), w.sum() * np.arange(1, m)
+                                   / m, side="left") + 1
+            bounds.append([0, *np.unique(np.clip(cuts, 1, len(w) - 1)),
+                           len(w)] if m > 1 else [0, len(w)])
+        slots = sum(len(b) - 1 for b in bounds if len(b) > 2)
+        if slots * reps * slot_bytes <= BWD_SCRATCH_CAP:
+            return bounds
+        chunk *= 2
+
+
+def _items(bounds):
+    """(walk, first step, end step, slot) per split, longest first (the
+    card starts blocks in grid order, so the longest do not come last),
+    and (splits, first slot) per walk; a walk of one split writes its
+    output itself."""
+    items, tiles, slot = [], [], 0
+    for w, b in enumerate(bounds):
+        n = len(b) - 1
+        tiles.append((n, slot if n > 1 else -1))
+        for i in range(n):
+            items.append((w, b[i], b[i + 1], slot + i if n > 1 else -1))
+        slot += n if n > 1 else 0
+    items.sort(key=lambda it: it[1] - it[2])       # stable: longest first
+    return items, np.asarray(tiles, np.int32).reshape(-1, 2)
+
+
+def _makespan(steps, reps, slots):
+    """When the last block ends if ``reps`` repeats of blocks of ``steps``
+    steps (+ BWD_BLOCK_STEPS each) start in grid order, each on the first
+    of ``slots`` resident places to free up."""
+    ends = [0.0] * slots
+    for _ in range(reps):
+        for n in steps:
+            heapq.heapreplace(ends, ends[0] + n + BWD_BLOCK_STEPS)
+    return max(ends)
+
+
+def _split(walks, reps, slots, min_pairs, slot_bytes):
+    """The cut of ``walks`` (kept pairs per step) whose simulated schedule
+    on ``slots`` resident blocks ends first, among no cut and chunks that
+    give BWD_WAVES waves (no split under ``min_pairs``).  Returns that
+    schedule's length in steps and the items and tiles of
+    :func:`_items`."""
+    total = sum(int(w.sum()) for w in walks) * reps
+    best = None
+    for waves in (0, *BWD_WAVES):
+        chunk = max(total / (waves * slots), min_pairs) if waves else \
+            float("inf")
+        items, tiles = _items(_cut(walks, chunk, reps, slot_bytes))
+        t = _makespan([b - a for _, a, b, _ in items], reps, slots)
+        if best is None or t < best[0]:
+            best = (t, items, tiles)
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+             causal: bool, window: int, seq: int, sms: int = 132,
+             resident: Tuple[int, int] = (2, 2)) -> BwdPlan:
+    """The backward's work plan: each dK/dV walk (a key tile's rows) and
+    each dQ walk (a row tile's keys) cut into splits of near-equal kept
+    pairs, so that the walks of the causal triangle balance, as finely as
+    fills the ``resident`` (dK/dV, dQ) blocks of each of ``sms`` SMs best
+    (the card's counts on the card; :func:`_split`).  ``window`` is
+    :data:`NO_WINDOW` for none; keys at or past ``seq`` are masked."""
+    rep, kv_len = H // Hkv, min(seq, Sk)
+    one = BWD_KEYS * D * 4
+    step = bwd_kv_step(D)
+    walks = _kv_walks(rep, Sq, Sk, kv_len, causal, window, step)
+    # the passes run side by side: a block that fills an SM takes turns
+    # with the other pass's, so each is planned for half the SMs; smaller
+    # blocks share an SM with the other pass's and fill their own slots
+    slots = [sms * r if r > 1 else max(1, sms // 2) for r in resident]
+    t_kv, items, kv_tiles = _split([w for _, _, w in walks], B * Hkv,
+                                   slots[0], BWD_MIN_STEPS * BWD_KEYS * step,
+                                   2 * one)
+    t_kv *= 4 * step            # 4 products of BWD_KEYS x step a dK/dV step
+    kv_items = np.asarray(
+        [(x, walks[x][0] + a * step,
+          min(walks[x][0] + b * step, walks[x][1]), s)
+         for x, a, b, s in items], np.int32).reshape(-1, 4)
+    step = bwd_q_step(D)
+    walks = _q_walks(rep, Sq, kv_len, causal, window, step)
+    t_q, items, q_tiles = _split([w for _, w in walks], B * Hkv, slots[1],
+                                 BWD_MIN_STEPS * BWD_ROWS * step, one)
+    t_q *= 3 * step             # 3 products of BWD_ROWS x step a dQ step
+    q_items = np.asarray([(y, (walks[y][0] + a) * step,
+                           (walks[y][0] + b) * step, s)
+                          for y, a, b, s in items], np.int32).reshape(-1, 4)
+    for a in (kv_items, kv_tiles, q_items, q_tiles):
+        a.flags.writeable = False
+    return BwdPlan(kv_items, kv_tiles, q_items, q_tiles, bool(t_q >= t_kv))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int, D: int) -> Tuple[int, Tuple[int, int]]:
+    """(SMs, resident dK/dV and dQ blocks an SM holds at head dim D) of
+    card ``index``, as the CUDA runtime reports them."""
+    fn = _build.load("flash_prefill_bwd").flash_prefill_bwd_occupancy
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        err = fn(ctypes.addressof(out), D)
+    if err:
+        raise RuntimeError(f"flash_prefill_bwd occupancy: CUDA error {err}")
+    return (torch.cuda.get_device_properties(index).multi_processor_count,
+            (max(1, out[0]), max(1, out[1])))
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(dev: torch.device, *shape) -> Tuple[BwdPlan, torch.Tensor]:
+    """:func:`bwd_plan` for ``shape`` on card ``dev`` and its table there
+    (built once per shape: a training step repeats a few shapes)."""
+    sms, resident = _card(dev.index, shape[5])
+    plan = bwd_plan(*shape, sms=sms, resident=resident)
+    return plan, torch.from_numpy(plan.table()).to(dev)
+
+
 def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
                       dout: torch.Tensor, *, causal: bool = True,
                       window: Optional[int] = None):
     """dq, dk, dv (bf16, the shapes of q, k, v) of :func:`flash_prefill`
     from its operands, its output, its lse and the output's gradient
-    ``dout`` (B, H, Sq, D) bf16, with the forward's masks.  Three kernels
-    on the card, in order: D_i = rowsum(dO ∘ O), dK/dV by key tiles, dQ
-    by row tiles (no atomics: the gradients repeat bit for bit).  Counts
-    its CUDA calls in ``flash_prefill_bwd.launches``."""
+    ``dout`` (B, H, Sq, D) bf16, with the forward's masks.  On the card:
+    D_i = rowsum(dO ∘ O) with each row's log2e-scaled lse, packed
+    token-major per KV head, then dK/dV by key tiles, on the caller's
+    stream; beside them dQ by row tiles (each block summing its own rows'
+    D_i) on a second stream, joined back before the call returns, started
+    with the call or after D_i as the plan says; walks cut by
+    :func:`bwd_plan`; where a walk
+    has several splits, each writes an f32 partial to scratch and a sum
+    kernel adds them in split order (no atomics: the gradients repeat
+    bit for bit).  Counts its CUDA calls in
+    ``flash_prefill_bwd.launches``."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     seq = _check_shapes(q, k, v, causal, window, None)
@@ -213,14 +464,25 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ("lse", lse, torch.float32, (B, H, Sq)),
         ("dout", dout, torch.bfloat16, (B, H, Sq, D))))
     _check_aligned(q, k, v, out, dout)
+    dev = q.device if q.device.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    plan, table = _device_plan(dev, B, H, Hkv, Sq, Sk, D, bool(causal), win,
+                               seq)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_prefill_bwd", "flash_prefill_bwd", 10, 9)
+    rows = torch.empty((B, H, Sq, 2), dtype=torch.float32, device=dev)
+    kv_bytes, q_bytes = plan.scratch_bytes(B, Hkv, D)
+    part_kv, part_q = (torch.empty(n // 4, dtype=torch.float32, device=dev)
+                       if n else None for n in (kv_bytes, q_bytes))
+    fn = _build.bind("flash_prefill_bwd", "flash_prefill_bwd", 13, 14)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), delta.data_ptr(), B, H, Hkv, Sq, Sk, D, seq,
-             int(causal), win,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             dv.data_ptr(), rows.data_ptr(), table.data_ptr(),
+             None if part_kv is None else part_kv.data_ptr(),
+             None if part_q is None else part_q.data_ptr(),
+             B, H, Hkv, Sq, Sk, D, seq, int(causal), win,
+             len(plan.kv_items), plan.kv_slots, len(plan.q_items),
+             plan.q_slots, int(plan.dq_first),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
             f"flash_prefill_bwd launch failed: CUDA error {err}")

@@ -43,7 +43,8 @@ Tolerances:
   ``ref.flash_prefill_bwd_ref`` (the same math and bf16 rounding points
   of P and dS, f32 sums in other orders, so a P or dS may round to the
   other side of a bf16 tie): |Δ| ≤ 2e-2 · max|plain| per gradient; the
-  gradients repeat bit for bit (no atomics).
+  gradients repeat bit for bit (no atomics; split walks' partials summed
+  in a fixed order).
 """
 import dataclasses
 
@@ -781,6 +782,12 @@ FLASH_GRAD_CASES = [
     (1, 8, 2, 96, 96, 128, False, 40),        # non-causal window
     (2, 4, 1, 300, 300, 288, True, 128),      # gemma3 local: D 288, ragged
     (1, 4, 1, 200, 200, 288, True, None),     # gemma3 global
+    # the backward's plan splitting walks (bwd_plan): B 1 cross attention
+    # at whisper's 1500 frames (6 dQ walks, each cut in splits) and a
+    # gemma3 global layer at B 1 (both passes split, the triangle's long
+    # walks most)
+    (1, 6, 6, 64, 1500, 64, False, None),
+    (1, 4, 1, 1024, 1024, 288, True, None),
 ]
 
 

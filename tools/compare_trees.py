@@ -3,7 +3,7 @@
 this repository on one card, one tree after another in one run.
 
     python3 tools/compare_trees.py OLD NEW NEW OLD
-        [--phases gemm,serve] [--out chiprun_out/compare.json]
+        [--phases gemm,serve,attn,flash_bwd] [--out chiprun_out/compare.json]
 
 Each TREE is a checkout of the repository (``.`` for this one).  Every
 tree runs in a process of its own, with its own ``src/`` on the path and
@@ -14,13 +14,17 @@ its own ``build/`` directory, through its own ``chip_smoke.py``:
 * ``attn`` (name it in ``--phases``): ``chip_smoke.attn_phase`` — the
   same for the decode-attention kernels (SDPA the yardstick); rows of
   equal shape compare across trees.
+* ``flash_bwd`` (name it in ``--phases``): ``chip_smoke.flash_bwd_phase``
+  — the flash backward at the training shapes (SDPA's backward the
+  yardstick), checked against its plain version in every tree.
 * ``serve``: full-width serves on the dense slab with 4 slots, each after
   a warm-up request, under ``torch.profiler``: recurrentgemma-2b w4a16kv8
   (4 requests of 128-token prompts, 8 new tokens), whisper-tiny w4a16kv8
   (16-token prompts) and smollm-360m w4a8kv4 (32-token prompts): wall,
   device busy, and the device time and count of each GEMM kernel.
 
-Prints each run's rows and writes them all to ``--out``.
+Prints each run's rows, then every kernel row side by side across the
+trees, and writes them all to ``--out``.
 """
 import argparse
 import json
@@ -93,7 +97,8 @@ def worker(tree, phases):
     torch.backends.cuda.matmul.allow_tf32 = False
     out = dict(tree=str(tree))
     kernel_phases = {"gemm": chip_smoke.gemm_phase,
-                     "attn": chip_smoke.attn_phase}
+                     "attn": chip_smoke.attn_phase,
+                     "flash_bwd": chip_smoke.flash_bwd_phase}
     if kernel_phases.keys() & set(phases):
         flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
         for _ in range(1000):                 # clocks up
@@ -109,6 +114,22 @@ def worker(tree, phases):
             serve_profile("whisper-tiny", "w4a16kv8", 256, 4, 16, 8),
             serve_profile("smollm-360m", "w4a8kv4", 256, 4, 32, 8)]
     return out
+
+
+def print_side_by_side(trees, runs):
+    """Each kernel row's µs in every tree, in the order given, and each
+    tree's time over the first tree's."""
+    times = {}
+    for run in runs:
+        for phase in ("gemm", "attn", "flash_bwd"):
+            for kern, rows in run.get(phase, {}).items():
+                for r in rows:
+                    times.setdefault((kern, r["shape"]), []).append(r["ms"])
+    print("side by side (us):", " | ".join(t[-24:] for t in trees))
+    for (kern, shape), ms in times.items():
+        print(f"  {kern:12s} {shape:58s} " + " ".join(
+            f"{m * 1e3:8.1f}" for m in ms) + "  ratio " + " ".join(
+            f"{m / ms[0]:.3f}" for m in ms))
 
 
 def main():
@@ -142,7 +163,8 @@ def main():
         res["card"] = smi
         runs.append(res)
         print(json.dumps({"tree": tree, "serve": res.get("serve")}))
-        kern_rows = {**res.get("gemm", {}), **res.get("attn", {})}
+        kern_rows = {**res.get("gemm", {}), **res.get("attn", {}),
+                     **res.get("flash_bwd", {})}
         for kern, rows in kern_rows.items():
             for r in rows:
                 lib = r["library_ms"]
@@ -150,6 +172,7 @@ def main():
                       f"{r['ms'] * 1e3:7.1f} us  lib "
                       f"{'-' if lib is None else f'{lib * 1e3:.1f}'}  "
                       f"bound {r['bound_ms'] * 1e3:.2f}")
+    print_side_by_side(args.trees, runs)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(runs))
     return 0
