@@ -21,8 +21,11 @@ Phases, in order (any failure raises and exits nonzero):
    on peaked inputs (a few keys carry each row), and time kernel, plain
    version and a library yardstick with CUDA events, L2 flushed before
    every launch; flash prefill is timed at every tile its wrapper can
-   pick.  The dense and paged attention kernels must agree bit for bit,
-   and a 32-token chunk's rows must be the bits of the same tokens fed
+   pick.  Each row's bound divides the work the kernel's wrapper declares
+   to a ``roofline.op_cost`` counter (``kernels.cost.OF``) by the card's
+   peaks (``roofline.analysis.HW``).  The dense and paged attention
+   kernels must agree bit for bit, and a 32-token chunk's rows must be
+   the bits of the same tokens fed
    one at a time and of each slot served alone.  The same for the tiles
    too large to stage whole, walked as sub-tiles (``SUB_TILES``: the
    max_seq-500 slab tile, a 512-token pool block at kv16, 256-token tiles
@@ -132,8 +135,31 @@ Phases, in order (any failure raises and exits nonzero):
    llama4-scout-17b-a16e at full width and 8 of 48 layers, arctic-480b at
    full width and 1 of 35 (8 packed GEMMs a layer and step: its router is
    one).
-8. One JSON line describing each kernel, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+8. Examples phase: ``repro_torch.examples`` quickstart,
+   mixed_precision_formats and serve_continuous_batching with ``--device
+   cuda``: quickstart's kernel rows (``csrc/kvattn.cu`` against the plain
+   attention path, ``csrc/mpgemm.cu`` against the dequantize-then-matmul
+   path) within the kernel phase's bars, every format's logits finite
+   (w4a8kv4 on the A8 GEMM), 16 served requests with prefix-cache hits;
+   launches counted around the phase.
+9. Roofline phase: after checking ``roofline.analysis.HW``'s HBM capacity
+   against the card's, one batched decode step of the smollm-360m paged
+   serve, of the llama4-scout-17b-a16e paged serve (8 of 48 layers) and
+   of the rwkv6-7b serve (all 32 layers), 4 slots, w4a16kv8, and one
+   AdamW step of full-size gemma3-1b at 2 x 2048 tokens
+   (``ROOFLINE_SERVES``, ``ROOFLINE_TRAIN``), each counted by
+   ``roofline.analyze_step`` on the kernel route and again on the plain
+   route on the card (``op_cost.rerouted(kernels.ref.PLAIN)``, llama4's
+   routing held to the kernel route's): equal counts, or the phase fails.
+   One line a step: counted FLOPs (matmul, other), bytes, model FLOPs,
+   compute and memory ms at the card's peaks, the dominant term, the
+   measured ms a step (median of 5) and three shares of peak — model
+   FLOPs (``mfu``), counted FLOPs, counted bytes; a FLOP share above
+   ``SHARE_CAP`` fails, a byte share only where every tensor of the step
+   is larger than the L2.  Launches counted around the phase.
+10. One JSON line describing each kernel (launches: the training, serve,
+    examples and roofline phases), then the result line
+    ``{"ok": true, "device": {...}}`` last.
 
 Exits nonzero with no result when there is no CUDA device or when the
 port's sources are not beside this script.
@@ -148,9 +174,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
-INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak
 GEMM_SHAPES = [  # weights, K, N, bk, bn of smollm-360m's packed GEMMs
     ("wq/wo", 960, 960, 64, 96), ("wk/wv", 960, 320, 64, 64),
     ("w1/w3", 960, 2560, 64, 128), ("w2", 2560, 960, 32, 96)]
@@ -287,6 +310,9 @@ TRAIN_TOL_UPDATE = 0.1
 #: bf16 ulps of the largest output (the kernel's eight splits round p
 #: against other running maxima than the plain walk's single order)
 ATTN_REL_TOL = 2 ** -6
+#: the GEMMs' bar against their plain version: two bf16 ulps of the largest
+#: output
+GEMM_REL_TOL = 2 ** -7
 KV_FORMATS = ("kv8", "kv4", "kvfp8", "kv16")
 #: attention tiles too large to stage whole in a block's 227 KB of shared
 #: memory, walked as sub-tiles: (format, B, Hkv, rep, D, tile, tiles per
@@ -439,9 +465,13 @@ def time_ms(fn, flush, iters=20):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def bound_ms(nbytes, ops, ops_per_s=BF16_OPS_PER_S):
-    """Least time for the work on an H100, and what sets it."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+def bound_ms(nbytes, ops, ops_per_s=None):
+    """Least time for the work on an H100 (``roofline.analysis.HW``: HBM
+    bandwidth, and the bf16 peak unless ``ops_per_s`` says otherwise), and
+    what sets it."""
+    from repro_torch.roofline import HW
+    t_b = nbytes / HW.hbm_bw
+    t_o = ops / (ops_per_s or HW.peak_flops)
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -454,8 +484,10 @@ def gemm_phase(dev, flush):
     from repro_torch.core.packing import (dequantize_packed, pack_weight,
                                           to_kernel_layout)
     from repro_torch.core.quantize import quantize_act_per_token
+    from repro_torch.kernels import cost as KC
     from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
     from repro_torch.kernels.ref import mpgemm_int8_ref, mpgemm_ref
+    from repro_torch.roofline import HW
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = {"mpgemm_a16": [], "mpgemm_int8": []}
@@ -472,26 +504,24 @@ def gemm_phase(dev, flush):
             pw = pack_weight(w, bits=bits, group=bk, block_k=bk, block_n=bn)
             frag = {k: to_kernel_layout(pw, k) for k in ("a16", "a8")}
             wd = dequantize_packed(pw, torch.bfloat16)   # yardstick operand
-            wbytes = K * N * bits // 8 + (K // bk) * N * 4
             for M in Ms:
                 x = torch.randn(M, K, generator=gen, device=dev).to(
                     torch.bfloat16)
                 xq, xs = quantize_act_per_token(x.float(), bits=8)
-                for kern, fn, args, plain, pargs, xbytes, peak, lib in (
+                for kern, fn, args, plain, pargs, peak, lib in (
                         ("mpgemm_a16", mpgemm_a16, (x, frag["a16"]),
-                         mpgemm_ref, (x, pw), M * K * 2, BF16_OPS_PER_S,
+                         mpgemm_ref, (x, pw), HW.peak_flops,
                          lambda: torch.matmul(x, wd)),
                         ("mpgemm_int8", mpgemm_int8, (xq, xs, frag["a8"]),
-                         mpgemm_int8_ref, (xq, xs, pw), M * K + M * 4,
-                         INT8_OPS_PER_S, None)):
+                         mpgemm_int8_ref, (xq, xs, pw), HW.int8_ops,
+                         None)):
                     y, ref = fn(*args), plain(*pargs)
                     torch.cuda.synchronize()
                     err = (y.float() - ref.float()).abs().max().item()
-                    tol = 2 ** -7 * ref.float().abs().max().item()
+                    tol = GEMM_REL_TOL * ref.float().abs().max().item()
                     check(err <= tol, f"{kern} {name} bits={bits} M={M}: "
                                       f"|Δ|={err} > {tol}")
-                    nbytes = xbytes + wbytes + M * N * 2
-                    ops = 2 * M * N * K
+                    ops, nbytes = KC.OF[kern](*args)
                     b, by = bound_ms(nbytes, ops, peak)
                     rows[kern].append(dict(
                         shape=f"{name} bits={bits} M={M} K={K} N={N} "
@@ -575,10 +605,11 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     import torch
     import torch.nn.functional as F
     from repro_torch.core import paged_kvcache as PKV
-    from repro_torch.core.kvcache import store_dim
     from repro_torch.core.precision import get_policy
     from repro_torch.core.quantize import dequantize_kv
+    from repro_torch.kernels import cost as KC
     from repro_torch.kernels.kvattn import kvattn
+    from repro_torch.roofline import HW
     from repro_torch.kernels.paged_kvattn import paged_kvattn
     from repro_torch.kernels.ref import (NO_WINDOW, kvattn_ref,
                                          paged_kvattn_ref)
@@ -611,22 +642,15 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
     sdpa = lambda: F.scaled_dot_product_attention(   # noqa: E731
         qh, kd, vd, attn_mask=mask, enable_gqa=True)
     check(torch.isfinite(sdpa().float()).all().item(), "SDPA not finite")
-    # bytes the data needs: each slot's keys inside some row's window
-    # (stored K and V + two f32 scales), q and out, positions (+ the table
-    # rows); ops: each row's kept keys
-    rb = store_dim(D, spec) * spec.dtype.itemsize
-    keys = sum(c - max(0, p - win + 1) for p, c in zip(pos, ctx))
-    ops = sum(4 * D * Hkv * min(p + r // rep + 1, win) for p in pos
-              for r in range(R))
     shape = (f"{fmt} B={B} Hkv={Hkv} rep={rep} D={D} T={T} R={R} bs={bs} "
              f"n_live={n_live} S={S}" +
              ("" if window is None else f" window={window}"))
     outs = {}
-    for kern, fn, args, plain, extra in (
+    for kern, fn, args, plain in (
             ("paged_kvattn", paged_kvattn, pargs + (spec,),
-             lambda: paged_kvattn_ref(*pargs), B * n_live * 4),
+             lambda: paged_kvattn_ref(*pargs)),
             ("kvattn", kvattn, dargs + (bs, spec),
-             lambda: kvattn_ref(*dargs, bs), 0)):
+             lambda: kvattn_ref(*dargs, bs))):
         out, ref = fn(*args), plain()
         torch.cuda.synchronize()
         check(torch.isfinite(out.float()).all().item(),
@@ -635,8 +659,9 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
         tol = ATTN_REL_TOL * ref.float().abs().max().item()
         check(err <= tol, f"{kern} {shape}: |Δ|={err} > {tol}")
         outs[kern] = out
-        nbytes = keys * Hkv * (2 * rb + 8) + 2 * B * Hkv * R * D * 2 + \
-            B * 4 + extra
+        # what the data needs: each slot's keys inside some row's window,
+        # q and out, positions (+ the table rows); ops: each row's kept keys
+        ops, nbytes = KC.OF[kern](*args)
         b, by = bound_ms(nbytes, ops)
         rows[kern].append(dict(
             shape=shape, max_abs_err=err, tol=tol,
@@ -644,7 +669,7 @@ def attn_rows(dev, flush, gen, fmt, B, Hkv, rep, D, bs, bps, T, pos, rows,
             plain_ms=time_ms(plain, flush, iters=5),
             library_ms=time_ms(sdpa, flush), library=sdpa_backend(sdpa),
             bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
-            ops_per_s=BF16_OPS_PER_S))
+            ops_per_s=HW.peak_flops))
     check(torch.equal(outs["kvattn"], outs["paged_kvattn"]),
           f"dense and paged attention differ ({shape})")
     if chunk_checks:
@@ -690,14 +715,6 @@ def attn_phase(dev, flush):
     return rows
 
 
-def kept_pairs(S, causal, window):
-    """(query, key) pairs the flash-prefill mask keeps at length S: key
-    kpos < S, kpos <= qpos if causal, kpos > qpos - window."""
-    win = S if window is None else window
-    return sum(max(0, (q + 1 if causal else S) - max(0, q - win + 1))
-               for q in range(S))
-
-
 def flash_inputs(gen, B, H, Hkv, S, D, dev, Sk=None):
     """q, k, v whose scores single out a few keys per row: q ~ 4 N(0, 1)
     gives scaled scores of std 4, so one key or a mask edge moves the
@@ -719,8 +736,10 @@ def flash_phase(dev, flush):
     same mask as the library yardstick."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost as KC
     from repro_torch.kernels.flashprefill import flash_prefill, pick_tile, \
         tiles
+    from repro_torch.roofline import HW
     from repro_torch.kernels.ref import NO_WINDOW, flash_prefill_walk
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -749,8 +768,7 @@ def flash_phase(dev, flush):
             q, k, v, attn_mask=mask, enable_gqa=Hkv != H)
         lib = sdpa()
         check(torch.isfinite(lib.float()).all().item(), "SDPA not finite")
-        nbytes = 2 * 2 * B * H * S * D + 2 * 2 * B * Hkv * S * D
-        ops = 4 * D * B * H * kept_pairs(S, causal, window)
+        ops, nbytes = KC.of_flash_prefill(q, k, v, **kw)
         b, by = bound_ms(nbytes, ops)
         rows.append(dict(
             shape=f"{name} B={B} H={H} Hkv={Hkv} D={D} causal={causal} "
@@ -761,7 +779,7 @@ def flash_phase(dev, flush):
             plain_ms=time_ms(plain, flush, iters=5),
             library_ms=time_ms(sdpa, flush),
             bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
-            ops_per_s=BF16_OPS_PER_S,
+            ops_per_s=HW.peak_flops,
             # every tile the wrapper can choose: the evidence for its rule
             tile_sweep_ms={f"{bq}x{bk}": time_ms(
                 lambda: flash_prefill(q, k, v, tile=(bq, bk), **kw),
@@ -839,9 +857,11 @@ def flash_bwd_phase(dev, flush):
     of each kernel of one profiled call (``bwd_kernel_us``)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import cost as KC
     from repro_torch.kernels.flashprefill import (flash_prefill,
                                                   flash_prefill_bwd,
                                                   pick_tile)
+    from repro_torch.roofline import HW
     from repro_torch.kernels.ref import (NO_WINDOW, flash_prefill_bwd_ref,
                                          flash_prefill_walk)
     gen = torch.Generator(device=dev)
@@ -888,9 +908,7 @@ def flash_bwd_phase(dev, flush):
         def library():
             return torch.autograd.grad(lib_out, leaves, do,
                                        retain_graph=True)
-        pairs = Sq * Sk if Sq != Sk else kept_pairs(Sq, causal, window)
-        ops = 2.5 * 4 * D * B * H * pairs   # 5 products, 2 D flops a pair
-        nbytes = 2 * D * (4 * B * H * Sq + 4 * B * Hkv * Sk) + 4 * B * H * Sq
+        ops, nbytes = KC.of_flash_prefill_bwd(q, k, v, out, lse, do, **kw)
         b, by = bound_ms(nbytes, ops)
 
         def kernel():
@@ -908,7 +926,7 @@ def flash_bwd_phase(dev, flush):
             plain_ms=time_ms(plain, flush, iters=5),
             library_ms=time_ms(library, flush),
             bound_ms=b, bound_by=by, bytes=nbytes, ops=ops,
-            ops_per_s=BF16_OPS_PER_S))
+            ops_per_s=HW.peak_flops))
     return {"flash_prefill_bwd": rows}
 
 
@@ -1049,14 +1067,18 @@ class RoutingHold:
 
     @contextlib.contextmanager
     def run(self, replay, eps=0.0):
-        import torch
         from repro_torch.models import moe as MOE
+        from repro_torch.roofline.op_cost import uncounted
         orig = MOE.top_k
         self.replay, self.eps = replay, eps
         todo = list(self.calls) if replay else []
 
         def top_k(probs, k):
             vals, idx = orig(probs, k)
+            with uncounted():        # the hold's ops are not the model's
+                return hold(probs, vals, idx)
+
+        def hold(probs, vals, idx):
             if not self.replay:
                 self.calls.append(idx.cpu())
                 return vals, idx
@@ -2042,6 +2064,224 @@ def serve_phase(dev):
     return runs, totals
 
 
+#: the roofline phase's serve steps, one batched decode step of 4 slots
+#: each, w4a16kv8, at the widths the serve phase runs: (label, arch,
+#: layers or None for all, cache kind, max_seq, prompt length)
+ROOFLINE_SERVES = [
+    ("smollm-360m paged decode", "smollm-360m", None, "paged", 256, 64),
+    ("llama4-scout-17b-a16e L8 paged decode", "llama4-scout-17b-a16e", 8,
+     "paged", 256, 64),
+    ("rwkv6-7b decode", "rwkv6-7b", None, "dense", 256, 129)]
+#: and its training step: (arch, batch, sequence), AdamW
+ROOFLINE_TRAIN = ("gemma3-1b", 2, 2048)
+#: no card does more than its peak: a share of peak above this fails
+SHARE_CAP = 1.05
+#: the card's L2: bytes an eager count charges as HBM traffic may hit it
+L2_BYTES = 50 * 2 ** 20
+
+
+def roofline_row(label, cfg, kind, seq, batch, fn, args, moe=False):
+    """Count one call of step ``fn(*args)`` on the kernel route and again
+    on the plain route (``kernels.ref.PLAIN`` through
+    ``roofline.op_cost.rerouted``), both on the card, routing held to the
+    kernel route's for a moe model: the counts must be equal.  Then time
+    the step (host clock around calls that end in a synchronize, median
+    of 5 after a warm call) and put the counted FLOPs, the model FLOPs
+    and the counted bytes against the card's peaks: no FLOP share may
+    exceed ``SHARE_CAP``, nor the byte share where every tensor of the
+    step is larger than the L2."""
+    import torch
+    from repro_torch.kernels.ref import PLAIN
+    from repro_torch.roofline import HW, analyze_step
+    from repro_torch.roofline.op_cost import rerouted
+    hold = RoutingHold() if moe else None
+
+    def held():
+        return hold.run(replay=True, eps=FLIP_SHARE * TOL) if moe \
+            else contextlib.nullcontext()
+
+    if moe:
+        with hold.run(replay=False):     # the kernel route's routing
+            fn(*args)
+    kw = dict(arch=cfg.name, shape=label, cfg=cfg, seq=seq, batch=batch,
+              kind=kind)
+    with held():
+        terms = analyze_step(fn, *args, **kw)
+    with rerouted(PLAIN), held():
+        plain = analyze_step(fn, *args, **kw)
+    c, p = terms.cost, plain.cost
+    check((c.matmul_flops, c.other_flops, c.bytes, c.kernels) ==
+          (p.matmul_flops, p.other_flops, p.bytes, p.kernels),
+          f"{label}: the kernel route counts {c} and the plain route {p}")
+    fn(*args)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(ms)
+    peak_work = step_ms / 1e3 * HW.peak_flops
+    row = dict(step=label, matmul_flops=c.matmul_flops,
+               other_flops=c.other_flops, bytes=c.bytes,
+               model_flops=terms.model_flops,
+               compute_ms=terms.compute_s * 1e3,
+               memory_ms=terms.memory_s * 1e3, dominant=terms.dominant,
+               ms=step_ms, step_ms=ms,
+               mfu=terms.model_flops / peak_work,
+               flops_share=terms.hlo_flops / peak_work,
+               bw_share=terms.hlo_bytes / (step_ms / 1e3 * HW.hbm_bw),
+               smallest_tensor=c.smallest_tensor,
+               kernels={k: dict(calls=n, ops=o, bytes=b)
+                        for k, (n, o, b) in c.kernels.items()},
+               routing_flips=len(hold.flips) if moe else None)
+    check(row["mfu"] <= SHARE_CAP and row["flops_share"] <= SHARE_CAP,
+          f"{label}: a FLOP share above {SHARE_CAP} of the card's peak "
+          f"({row['mfu']:.3f} model, {row['flops_share']:.3f} counted)")
+    check(row["bw_share"] <= SHARE_CAP or (c.smallest_tensor or 0) <
+          L2_BYTES, f"{label}: {row['bw_share']:.3f} of HBM bandwidth with "
+                    "every tensor larger than the L2")
+    return row
+
+
+def roofline_serve_step(dev, label, arch, layers, kind, max_seq, plen):
+    """Serve 4 requests of ``plen``-token prompts on full-width ``arch``
+    (``layers`` of them when given) and count the engine's first batched
+    decode step (``Engine._step_fn`` with every slot at T 1) when it
+    comes, before it runs (``roofline_row``; the replays rewrite the same
+    KV rows)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    eng = Engine(EngineConfig(model=cfg, policy="w4a16kv8", n_slots=4,
+                              max_seq=max_seq, block_size=16,
+                              prefill_chunk=32, cache_kind=kind, seed=0,
+                              device=dev))
+    prompts = np.random.default_rng(21).integers(
+        1, cfg.vocab, (4, plen)).tolist()
+    step, row = eng._step_fn, {}
+
+    def counted(tokens, pos, valid, *rest):
+        args = (tokens, pos, valid) + rest
+        if not row and tokens.shape[1] == 1 and (valid == 1).all():
+            row.update(roofline_row(label, cfg, "decode", 1, 4, step, args,
+                                    moe=cfg.n_experts > 0))
+        return step(*args)
+
+    eng._step_fn = counted
+    outs = eng.generate(prompts, SamplingParams(max_new_tokens=4))
+    check(row and all(len(o.output_token_ids) == 4 for o in outs),
+          f"{label}: no batched decode step was counted")
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def roofline_train_step(dev):
+    """Count and time one AdamW step of full-size ``ROOFLINE_TRAIN``
+    (``roofline_row``: forward, backward and update, the flash kernels
+    forward and backward)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.loop import make_train_step, tree_map
+    arch, batch, seq = ROOFLINE_TRAIN
+    cfg = get_config(arch)
+    model = build(cfg)
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      model.init_params(0, dev))
+    opt = O.for_config(cfg, lr=3e-4, total_steps=10)
+    state = opt.init(params)
+    toks, tgts = next(D.batches(cfg.vocab, batch, seq, 1, seed=1,
+                                device=dev))
+    row = roofline_row(f"{arch} train {batch} x {seq}", cfg, "train", seq,
+                       batch, make_train_step(model, opt),
+                       (params, state, toks, tgts))
+    del params, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def roofline_phase(dev):
+    """The roofline terms of each full-width step the serve and training
+    phases run (``ROOFLINE_SERVES``, ``ROOFLINE_TRAIN``) beside its time on
+    the card, after checking ``roofline.analysis.HW``'s capacity against
+    the card's.  The launch counters are zeroed before and read after."""
+    import torch
+    from repro_torch.roofline import HW
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(0.97 * HW.hbm_bytes <= total <= HW.hbm_bytes,
+          f"the card holds {total} bytes, HW says {HW.hbm_bytes:.0f}")
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    rows = [roofline_serve_step(dev, *serve) for serve in ROOFLINE_SERVES]
+    rows.append(roofline_train_step(dev))
+    launches = {k: f.launches for k, f in counters.items()}
+    for k in ("mpgemm_a16", "paged_kvattn", "flash_prefill",
+              "flash_prefill_bwd"):
+        check(launches[k] > 0, f"roofline phase: {k} never launched")
+    return rows, launches
+
+
+#: the examples the examples phase runs (``repro_torch.examples``)
+EXAMPLES = ("quickstart", "mixed_precision_formats",
+            "serve_continuous_batching")
+def examples_phase():
+    """Run the three examples with ``--device cuda``: quickstart's kernel
+    rows within the bars the kernel phase holds the kernels to, every
+    format's logits finite, every served request's tokens in the
+    vocabulary and the shared prompt served from the prefix cache.  The
+    launch counters are zeroed before and read after: the examples reach
+    both GEMMs, both decode-attention kernels and flash prefill."""
+    import importlib
+
+    import numpy as np
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    res = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        out = importlib.import_module(f"repro_torch.examples.{name}").main(
+            ["--device", "cuda"])
+        res[name] = dict(seconds=time.perf_counter() - t0)
+        if name == "quickstart":
+            check(out["attn_diff"] <= ATTN_REL_TOL * out["attn_scale"] and
+                  out["gemm_diff"] <= GEMM_REL_TOL * out["gemm_scale"],
+                  f"quickstart: kernel vs plain path {out}")
+            res[name].update(out)
+        elif name == "mixed_precision_formats":
+            check(all(r["finite"] for r in out.values()),
+                  "mixed_precision_formats: logits not finite")
+            res[name]["formats"] = out
+        else:
+            toks = [t for o in out["finished"] for t in o.output_token_ids]
+            check(len(out["finished"]) == 16 and len(toks) == 16 * 16 and
+                  0 <= min(toks) and max(toks) < out["vocab"] and
+                  out["cached_tokens"] > 0 and len(out["streamed"]) == 8,
+                  "serve_continuous_batching: requests, tokens or prefix "
+                  "cache hits missing")
+            res[name].update(
+                cached_tokens=out["cached_tokens"],
+                ttft_p50_s=float(np.median([o.ttft for o in
+                                            out["finished"]])))
+    launches = {k: f.launches for k, f in counters.items()}
+    for k in launches:
+        check((launches[k] > 0) == (k not in TRAIN_ONLY),
+              f"examples: {k} launched {launches[k]} times")
+    return res, launches
+
+
 def ptxas_report(log):
     """(kernel<template ints>, registers, spill-store bytes) of every entry
     function in an ``nvcc -Xptxas -v`` log (kernels are templated on the
@@ -2066,7 +2306,8 @@ def ptxas_report(log):
 
 def summarize(rows, launches, **meta):
     """One kernel's line: sums over its main-path shapes."""
-    t_b = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
+    from repro_torch.roofline import HW
+    t_b = sum(r["bytes"] for r in rows) / HW.hbm_bw
     t_o = sum(r["ops"] / r["ops_per_s"] for r in rows)
     libs = [r["library_ms"] for r in rows]
     return dict(meta, launches=launches,
@@ -2163,6 +2404,28 @@ def main() -> int:
     for r in training.values():           # main-path runs of the kernels
         for k, n in r.get("launches", {}).items():
             totals[k] += n
+    t0 = time.perf_counter()
+    examples, launches = examples_phase()
+    print("examples:", json.dumps(examples))
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(launches)}")
+    for k, n in launches.items():
+        totals[k] += n
+    t0 = time.perf_counter()
+    roofline, launches = roofline_phase(dev)
+    for r in roofline:
+        print("roofline:", json.dumps(r))
+    for r in roofline:
+        print(f"  {r['step']:38s} {r['matmul_flops']:.3e} + "
+              f"{r['other_flops']:.3e} FLOP  {r['bytes']:.3e} B  model "
+              f"{r['model_flops']:.3e}  compute {r['compute_ms']:.3f} ms  "
+              f"memory {r['memory_ms']:.3f} ms ({r['dominant']})  measured "
+              f"{r['ms']:.2f} ms  mfu {r['mfu']:.4f}  FLOPs "
+              f"{r['flops_share']:.4f}  bytes {r['bw_share']:.4f}")
+    print(f"roofline phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(launches)}")
+    for k, n in launches.items():
+        totals[k] += n
 
     src = "src/repro_torch/csrc/"
     kernels = [

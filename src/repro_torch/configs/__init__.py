@@ -2,11 +2,12 @@
 
 ``get_config(arch_id)`` / ``get_reduced(arch_id)`` resolve an arch id to its
 full and CPU-sized configuration; ``ARCHS`` lists all ten of the JAX
-registry's architectures, in its order.
+registry's architectures, in its order, and ``SHAPES`` the reference's four
+input shapes.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 from . import (arctic_480b, chatglm3_6b, gemma3_1b, internvl2_2b,
                llama4_scout_17b_a16e, mistral_large_123b, recurrentgemma_2b,
@@ -18,6 +19,14 @@ ARCHS: List[str] = ["arctic-480b", "rwkv6-7b", "llama4-scout-17b-a16e",
                     "whisper-tiny", "chatglm3-6b", "internvl2-2b",
                     "smollm-360m", "gemma3-1b", "mistral-large-123b",
                     "recurrentgemma-2b"]
+
+#: the four assigned input shapes: name -> (seq_len, global_batch, kind)
+SHAPES: Dict[str, tuple] = {
+    "train_4k":    (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k":  (32_768, 128, "decode"),
+    "long_500k":   (524_288, 1, "decode"),
+}
 
 _MODULES = {"arctic-480b": arctic_480b, "rwkv6-7b": rwkv6_7b,
             "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
@@ -43,3 +52,8 @@ def get_config(arch_id: str) -> ModelConfig:
 def get_reduced(arch_id: str) -> ModelConfig:
     """CPU-sized member of ``arch_id``'s family (2-3 layers)."""
     return _module(arch_id).REDUCED
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every architecture's full-size configuration, in ``ARCHS`` order."""
+    return {a: get_config(a) for a in ARCHS}

@@ -63,3 +63,51 @@ class ModelConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def attn_free(self) -> bool:
+        """True for the attention-free (ssm) family."""
+        return self.family == "ssm"
+
+    def param_count(self) -> int:
+        """Approximate parameter count, the reference's formula term for
+        term (``repro.configs.base``; it feeds ``roofline.model_flops``)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hd, H, Hkv = self.hd, self.n_heads, self.n_kv_heads
+        if self.family == "ssm":
+            # rwkv: time-mix (r, k, v, g, o ~ 5 d^2) + channel-mix (k: d -> f,
+            # v: f -> d, r: d -> d)
+            per = 5 * d * d + 2 * d * f + d * d
+        else:
+            attn = d * H * hd + 2 * d * Hkv * hd + H * hd * d
+            mlp = 3 * d * f
+            if self.n_experts:
+                moe = self.n_experts * 3 * d * f + d * self.n_experts
+                if self.moe_dense_residual or self.shared_expert:
+                    moe += 3 * d * f
+                mlp = moe
+            per = attn + mlp
+            if self.rglru_period:
+                w = self.lru_width or d
+                rec = d * w * 2 + w * d + w * self.conv_width + 2 * w * w
+                att_layers = L // self.rglru_period
+                return int(att_layers * (attn + 3 * d * f)
+                           + (L - att_layers) * (rec + 3 * d * f) + 2 * V * d)
+        total = L * per + V * d * (1 if self.tie_embeddings else 2)
+        if self.enc_layers:
+            total += self.enc_layers * (4 * d * d + 2 * d * f)  # encoder
+            total += L * (d * d + 2 * d * Hkv * hd)             # cross-attn
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (moe: the routed experts only),
+        for MODEL_FLOPS = 6 N_active D; the reference's formula."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        hd, H, Hkv, V = self.hd, self.n_heads, self.n_kv_heads, self.vocab
+        attn = d * H * hd + 2 * d * Hkv * hd + H * hd * d
+        act_mlp = self.topk * 3 * d * f + d * self.n_experts
+        if self.moe_dense_residual or self.shared_expert:
+            act_mlp += 3 * d * f
+        return int(L * (attn + act_mlp) + 2 * V * d)

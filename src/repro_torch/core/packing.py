@@ -80,6 +80,13 @@ class PackedWeight:
                                    scales=self.scales.to(device))
 
     @property
+    def storage_bytes(self) -> int:
+        """Bytes of the packed values and their scales: ``K·N·bits/8 +
+        (K/group)·N·4`` a member, the same in every layout."""
+        return self.data.numel() * self.data.element_size() + \
+            self.scales.numel() * self.scales.element_size()
+
+    @property
     def stacked(self) -> bool:
         """True for a stack of weights (a leading E axis)."""
         return self.scales.dim() == 3

@@ -434,3 +434,29 @@ def gather_view(cache: PagedKVCache, n_ctx: Optional[int] = None) -> KVCache:
 
     return KVCache(k=gath(cache.k), v=gath(cache.v),
                    k_scale=gath(cache.k_scale), v_scale=gath(cache.v_scale))
+
+
+def cache_leaves(cache) -> List[torch.Tensor]:
+    """Every tensor of a cache dataclass (slab, pool, recurrent state),
+    nested caches included, in field order."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for f in dataclasses.fields(cache)
+            for t in cache_leaves(getattr(cache, f.name))]
+
+
+def kv_bytes(cache) -> int:
+    """Resident bytes of a decode state: the sum of ``numel ·
+    element_size`` over its leaves — a pool (+ scales + its one block
+    table), a slab (+ scales) or a recurrent state alike.
+    ``Engine.kv_resident_bytes`` reports this number.
+
+    It counts the tensors the port holds, no more, so it differs from
+    ``repro.core.paged_kvcache.kv_bytes`` exactly where the layouts do
+    (module docstring): a stacked slab by the reference's ``(L, B)`` int32
+    ``length`` leaf, ``4·L·B`` bytes; a stacked pool by the reference's
+    per-layer copies of the block table and its ``(L, n_slots)`` int32
+    ``length``, ``(L − 1)·table bytes + 4·L·n_slots`` bytes.  Pools,
+    slabs and scales themselves count the same bytes in both packages
+    (the scales' dropped unit axis holds no bytes)."""
+    return int(sum(t.numel() * t.element_size() for t in cache_leaves(cache)))

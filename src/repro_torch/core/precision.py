@@ -51,6 +51,11 @@ class FormatSpec:
     is_float: bool
 
     @property
+    def bytes_per_value(self) -> float:
+        """Storage bytes of one value (0.5 for the nibble-packed formats)."""
+        return self.bits / 8.0
+
+    @property
     def qmax(self) -> float:
         """Max representable magnitude for symmetric quantization."""
         if self.is_float:
@@ -103,6 +108,11 @@ class PrecisionPolicy:
         GEMM in bf16, as in the JAX package."""
         return (not self.weights.is_float and self.weights.bits <= 8
                 and not self.acts.is_float and self.acts.bits == 8)
+
+    def weight_bytes(self, n_params: int) -> int:
+        """Storage bytes of ``n_params`` quantized weights (scales not
+        included)."""
+        return int(n_params * self.weights.bytes_per_value)
 
 
 # Paper-faithful default serving format (headline format, §5.2 W4A16KV8).

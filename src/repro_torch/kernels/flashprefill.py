@@ -37,7 +37,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.roofline import op_cost
+
 from . import _build
+from . import cost as KC
 from .ref import NO_WINDOW, flash_prefill_bwd_ref, flash_prefill_walk
 
 #: head dims the kernel is instantiated for (whisper-tiny REDUCED 32,
@@ -151,7 +154,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     overrides :func:`pick_tile` (the tests run every tile it can choose;
     no serving caller sets it).  Without ``return_lse`` the kernel writes
     no lse and its output is the serve path's, bit for bit.  Counts its
-    CUDA launches in ``flash_prefill.launches``."""
+    CUDA launches in ``flash_prefill.launches``; declares its cost to an
+    active ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel(
+            "flash_prefill", KC.of_flash_prefill, flash_prefill, q, k, v,
+            causal=causal, window=window, seq=seq, tile=tile,
+            return_lse=return_lse)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     seq = _check_shapes(q, k, v, causal, window, seq)
@@ -444,7 +453,12 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     has several splits, each writes an f32 partial to scratch and a sum
     kernel adds them in split order (no atomics: the gradients repeat
     bit for bit).  Counts its CUDA calls in
-    ``flash_prefill_bwd.launches``."""
+    ``flash_prefill_bwd.launches``; declares its cost to an active
+    ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel(
+            "flash_prefill_bwd", KC.of_flash_prefill_bwd, flash_prefill_bwd,
+            q, k, v, out, lse, dout, causal=causal, window=window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     seq = _check_shapes(q, k, v, causal, window, None)

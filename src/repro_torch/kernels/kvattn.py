@@ -14,7 +14,10 @@ import torch
 from repro_torch.core.kvcache import store_dim
 from repro_torch.core.precision import FormatSpec
 
+from repro_torch.roofline import op_cost
+
 from . import _build
+from . import cost as KC
 from .ref import kvattn_ref
 
 #: head dims the attention kernels are instantiated for
@@ -59,7 +62,12 @@ def kvattn(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
     stored in ``spec`` with scales (B, S, Hkv) f32; pos (B,) int32; the
     walk takes ``min(block_s, S)``-token tiles, which must divide S.
     Returns (B, Hkv, R, D) bf16.  Counts its CUDA launches in
-    ``kvattn.launches``."""
+    ``kvattn.launches``; declares its cost to an active
+    ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel(
+            "kvattn", KC.of_kvattn, kvattn, q, k, k_scale, v, v_scale, pos,
+            window, rep, block_s, spec)
     B, Hkv, R, D = q.shape
     S = k.shape[1]
     bs = min(int(block_s), S)

@@ -25,7 +25,10 @@ import torch
 from repro_torch.core.packing import (FRAG_K, FRAG_N, KERNEL_LAYOUTS,
                                       PackedWeight)
 
+from repro_torch.roofline import op_cost
+
 from . import _build
+from . import cost as KC
 from .ref import mpgemm_int8_ref, mpgemm_ref
 
 #: weight groups the kernels are built for
@@ -58,7 +61,11 @@ def _check_weight(x: torch.Tensor, w: PackedWeight, kernel: str) -> None:
 def mpgemm_a16(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """y (M, N) bf16 = x (M, K) bf16 @ W, W packed at bits 4 or 8.  Any M
     (ragged token tiles are masked in the kernel).
-    Counts its CUDA launches in ``mpgemm_a16.launches``."""
+    Counts its CUDA launches in ``mpgemm_a16.launches``; declares its
+    cost to an active ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel("mpgemm_a16", KC.of_mpgemm_a16,
+                                      mpgemm_a16, x, w)
     K, N = w.shape
     if x.dim() != 2 or x.shape[1] != K:
         raise ValueError(f"x {tuple(x.shape)} does not match W {w.shape}")
@@ -89,7 +96,11 @@ def mpgemm_int8(xq: torch.Tensor, xscale: torch.Tensor,
                 w: PackedWeight) -> torch.Tensor:
     """y (M, N) bf16 = (xq (M, K) int8 @ W_int) × group scales × xscale
     (M, 1) f32, W packed at bits 4 or 8.  Any M.  Counts
-    its CUDA launches in ``mpgemm_int8.launches``."""
+    its CUDA launches in ``mpgemm_int8.launches``; declares its cost to an
+    active ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel("mpgemm_int8", KC.of_mpgemm_int8,
+                                      mpgemm_int8, xq, xscale, w)
     K, N = w.shape
     if xq.dim() != 2 or xq.shape[1] != K:
         raise ValueError(f"x {tuple(xq.shape)} does not match W {w.shape}")

@@ -13,7 +13,10 @@ import torch
 
 from repro_torch.core.precision import FormatSpec
 
+from repro_torch.roofline import op_cost
+
 from . import _build
+from . import cost as KC
 from .kvattn import HEAD_DIMS, kv_format, raise_on_error
 from .ref import paged_kvattn_ref
 
@@ -26,7 +29,12 @@ def paged_kvattn(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
     block_size, Hkv, Dstore) stored in ``spec`` with scales (n_blocks,
     block_size, Hkv) f32; block_table (B, blocks_per_slot) int32; pos (B,)
     int32; ``n_live`` logical blocks are visited.  Returns (B, Hkv, R, D)
-    bf16.  Counts its CUDA launches in ``paged_kvattn.launches``."""
+    bf16.  Counts its CUDA launches in ``paged_kvattn.launches``; declares
+    its cost to an active ``roofline.op_cost`` counter."""
+    if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
+        return op_cost.COUNTER.kernel(
+            "paged_kvattn", KC.of_paged_kvattn, paged_kvattn, q, k, k_scale,
+            v, v_scale, block_table, pos, window, rep, n_live, spec)
     B, Hkv, R, D = q.shape
     nb, bs = k.shape[0], k.shape[1]
     bps = block_table.shape[1]

@@ -333,3 +333,45 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.float())
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+# -- each kernel wrapper's plain version, taking the wrapper's arguments ----
+# (what a wrapper runs for CPU tensors; ``roofline.op_cost.rerouted(PLAIN)``
+# runs them on the card too, to count a step on the plain route)
+
+def _plain_kvattn(q, k, k_scale, v, v_scale, pos, window, rep, block_s,
+                  spec):
+    return kvattn_ref(q, k, k_scale, v, v_scale, pos, window, rep,
+                      min(int(block_s), k.shape[1]))
+
+
+def _plain_paged_kvattn(q, k, k_scale, v, v_scale, block_table, pos,
+                        window, rep, n_live, spec):
+    return paged_kvattn_ref(q, k, k_scale, v, v_scale, block_table, pos,
+                            window, rep,
+                            max(1, min(int(n_live), block_table.shape[1])))
+
+
+def _plain_flash_prefill(q, k, v, *, causal=True, window=None, seq=None,
+                         tile=None, return_lse=False):
+    from .flashprefill import pick_tile
+    B, H, Sq, D = q.shape
+    block_q, block_k = tile or pick_tile(B, H, k.shape[1], Sq, D)
+    return flash_prefill_walk(
+        q, k, v, causal, NO_WINDOW if window is None else int(window),
+        k.shape[2] if seq is None else seq, block_q, block_k,
+        return_lse=return_lse)
+
+
+def _plain_flash_prefill_bwd(q, k, v, out, lse, dout, *, causal=True,
+                             window=None):
+    return flash_prefill_bwd_ref(
+        q, k, v, out, lse, dout, causal,
+        NO_WINDOW if window is None else int(window), k.shape[2])
+
+
+#: the plain version of each kernel wrapper, by the wrapper's name
+PLAIN = {"mpgemm_a16": mpgemm_ref, "mpgemm_int8": mpgemm_int8_ref,
+         "kvattn": _plain_kvattn, "paged_kvattn": _plain_paged_kvattn,
+         "flash_prefill": _plain_flash_prefill,
+         "flash_prefill_bwd": _plain_flash_prefill_bwd}

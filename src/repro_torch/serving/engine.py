@@ -66,7 +66,6 @@ the sampled-token fetch.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
@@ -124,14 +123,6 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     return t
 
 
-def _leaves(cache) -> List[torch.Tensor]:
-    """Every tensor of a cache dataclass, nested caches included."""
-    if isinstance(cache, torch.Tensor):
-        return [cache]
-    return [t for f in dataclasses.fields(cache)
-            for t in _leaves(getattr(cache, f.name))]
-
-
 def _slot_insert(batch_cache, slot_cache, slot: int) -> None:
     """Write a B=1 cache into the batched cache at ``slot``, in place.
 
@@ -139,7 +130,8 @@ def _slot_insert(batch_cache, slot_cache, slot: int) -> None:
     stacked ``(L, B, ...)``).  The splice covers only the slot cache's
     extent along the other axes and leaves the rest untouched (causally
     masked).  Used only by the one-shot prefill path."""
-    for buf, val in zip(_leaves(batch_cache), _leaves(slot_cache)):
+    for buf, val in zip(PKV.cache_leaves(batch_cache),
+                        PKV.cache_leaves(slot_cache)):
         idx = (slice(None), slice(slot, slot + 1)) + tuple(
             slice(0, n) for n in val.shape[2:])
         buf[idx].copy_(val)
@@ -691,9 +683,9 @@ class Engine:
     def kv_resident_bytes(self) -> int:
         """Resident bytes of the decode state: slab or pool + scales +
         table, an ssm or hybrid model's recurrent state, or an audio
-        model's cross-attention slab.  The JAX slab also holds a (L, B) int32
-        ``length`` the port does not keep."""
-        return sum(t.numel() * t.element_size() for t in _leaves(self.cache))
+        model's cross-attention slab (``core.paged_kvcache.kv_bytes``, which
+        says where it differs from the JAX engine's count)."""
+        return PKV.kv_bytes(self.cache)
 
 
 def percentile_stats(vals: List[float]) -> Dict[str, float]:

@@ -51,7 +51,8 @@ from repro_torch.models import rglru as TG
 from repro_torch.models.registry import build
 from repro_torch.serving import (Engine, EngineConfig, EngineError,
                                  SamplingParams)
-from repro_torch.serving.engine import _leaves, _slot_insert
+from repro_torch.core.paged_kvcache import cache_leaves
+from repro_torch.serving.engine import _slot_insert
 from repro_torch.serving.engine import quantize_params as t_quantize
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
@@ -276,14 +277,14 @@ def test_slot_splice_isolated(engine):
     model, pol = engine.model, engine.policy
     gen = torch.Generator().manual_seed(5)
     big = model.init_cache(pol, 3, 32, "cpu")
-    for t in _leaves(big):
+    for t in cache_leaves(big):
         t.copy_(torch.randint(-100, 100, t.shape, generator=gen).to(t.dtype))
     small = model.init_cache(pol, 1, 16, "cpu")
-    for t in _leaves(small):
+    for t in cache_leaves(small):
         t.copy_(torch.randint(-100, 100, t.shape, generator=gen).to(t.dtype))
-    before = [t.clone() for t in _leaves(big)]
+    before = [t.clone() for t in cache_leaves(big)]
     _slot_insert(big, small, 1)
-    for b, a, s in zip(before, _leaves(big), _leaves(small)):
+    for b, a, s in zip(before, cache_leaves(big), cache_leaves(small)):
         for other in (0, 2):
             assert torch.equal(a[:, other].float(), b[:, other].float())
         ext = (slice(None), 1) + tuple(slice(0, n) for n in s.shape[2:])
@@ -301,7 +302,7 @@ def test_one_shot_engine_shape(engine):
     assert engine.scheduler.running()[0].pos == 5     # 4 prefilled + 1 fed
     engine.abort(rid)
     assert engine.kv_resident_bytes() == sum(
-        t.numel() * t.element_size() for t in _leaves(engine.cache))
+        t.numel() * t.element_size() for t in cache_leaves(engine.cache))
 
 
 @pytest.mark.parametrize("arch", FAMS)

@@ -59,7 +59,8 @@ from repro_torch.models import rwkv6 as TR
 from repro_torch.models.registry import build
 from repro_torch.serving import (Engine, EngineConfig, EngineError,
                                  SamplingParams)
-from repro_torch.serving.engine import _leaves, _slot_insert
+from repro_torch.core.paged_kvcache import cache_leaves
+from repro_torch.serving.engine import _slot_insert
 from repro_torch.serving.engine import quantize_params as t_quantize
 
 torch.set_num_threads(1)
@@ -442,11 +443,11 @@ def test_slot_splice_writes_one_slot():
     cfg = t_reduced(ARCH)
     big, small = TR.init_state(cfg, 3, "cpu"), TR.init_state(cfg, 1, "cpu")
     gen = torch.Generator().manual_seed(0)
-    for t in _leaves(big) + _leaves(small):
+    for t in cache_leaves(big) + cache_leaves(small):
         t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
-    before = [t.clone() for t in _leaves(big)]
+    before = [t.clone() for t in cache_leaves(big)]
     _slot_insert(big, small, 2)
-    for b, a, s in zip(before, _leaves(big), _leaves(small)):
+    for b, a, s in zip(before, cache_leaves(big), cache_leaves(small)):
         assert torch.equal(a[:, :2], b[:, :2])
         assert torch.equal(a[:, 2], s[:, 0])
     assert build(cfg).init_paged_cache is None
