@@ -157,9 +157,24 @@ Phases, in order (any failure raises and exits nonzero):
    FLOPs (``mfu``), counted FLOPs, counted bytes; a FLOP share above
    ``SHARE_CAP`` fails, a byte share only where every tensor of the step
    is larger than the L2.  Launches counted around the phase.
-10. One JSON line describing each kernel (launches: the training, serve,
-    examples and roofline phases), then the result line
-    ``{"ok": true, "device": {...}}`` last.
+10. Multidevice phase (``multidevice_phase``): sequence-parallel prefill
+    rank by rank on the one card at full width (``SP_SHAPES``: arctic-480b
+    attention on 16 ranks, gemma3-1b's local layer on 4), each rank's
+    rows through ``launch.spattn.sp_local`` — the flash kernels at the
+    rank's position offset, forward and backward — the counters zeroed
+    just before and read just after; the ranks' output and gradients
+    against one whole-sequence call, each rank's kernels against their
+    plain versions; per rank and whole call: kernel µs, the bound of
+    ``kernels.cost`` at that offset, plain µs and SDPA's µs with the
+    explicit mask, beside the card's name and power limit.  Then the
+    sharded train step (``launch.train.train_sharded``) on a 1 x 1 NCCL
+    mesh (world size 1 through ``dist.HashStore``): full-size
+    smollm-360m, losses against ``train()``'s, ms a step of both; the
+    process group is destroyed after.
+11. One JSON line describing each kernel (launches: the training, serve,
+    examples, roofline and multidevice phases; rows 5 and 5b with the
+    offset shapes), then the result line ``{"ok": true, "device":
+    {...}}`` last.
 
 Exits nonzero with no result when there is no CUDA device or when the
 port's sources are not beside this script.
@@ -2282,6 +2297,253 @@ def examples_phase():
     return res, launches
 
 
+#: sequence-parallel prefill rank by rank (``launch.spattn.sp_local``):
+#: (name, B, S, H, Hkv, D, window, model-axis ranks) — arctic-480b's
+#: attention on the production 16-way model axis (56 / 8 heads divide
+#: neither way), gemma3-1b's local layer on 4 ranks (D 288, the window
+#: crossing rank boundaries)
+SP_SHAPES = [("arctic-480b S4096", 1, 4096, 56, 8, 128, None, 16),
+             ("gemma3-1b local S2048", 2, 2048, 4, 1, 288, 1024, 4)]
+#: the ranks' concatenated output against one whole-sequence flash call,
+#: relative to its largest element: the reference's 0.03 bound
+#: (tests/test_sharding.py) tightened by scale; the gradients (dQ per
+#: rank, dK / dV summed over the ranks in f32, as a reduce-scatter sums
+#: them) against the whole call's at the backward's bar
+SP_REL_TOL = 2e-2
+#: the sharded train step on a 1 x 1 NCCL mesh (``launch.train.
+#: train_sharded``) against ``train()``: (arch, steps, batch, sequence) —
+#: the first step is cold, the last two give ms a step; its losses equal
+#: or within TRAIN_TOL_LOSS
+SHARDED_TRAIN = ("smollm-360m", 3, 8, 128)
+
+
+def offset_mask(Sq, Sk, off, window, dev):
+    """SDPA's boolean mask of causal flash attention with query row t at
+    position ``off + t`` (SDPA's ``is_causal`` aligns the diagonal top
+    left when Sq != Sk)."""
+    import torch
+    qpos = off + torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def sp_rows(dev, flush, smi):
+    """Sequence-parallel prefill at ``SP_SHAPES``, each rank's rows through
+    the kernels at its offset (``sp_local``, forward and backward under
+    autograd), against one whole-sequence call and against the plain
+    versions on the card; times each rank's and the whole call's forward
+    and backward kernels, their plain versions, SDPA with the explicit
+    mask (forward; backward through autograd), and the bounds of
+    ``kernels.cost`` at each offset.  Returns the per-rank rows, the
+    kernel rows (sums over the ranks, for the kernel line) and the launch
+    counts of the ``sp_local`` drive."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cost as KC
+    from repro_torch.kernels.flashprefill import (flash_prefill,
+                                                  flash_prefill_bwd,
+                                                  pick_tile)
+    from repro_torch.kernels.ref import (NO_WINDOW, flash_prefill_bwd_ref,
+                                         flash_prefill_walk)
+    from repro_torch.launch.spattn import sp_local
+    from repro_torch.roofline import HW
+    counters = launch_counters()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    lines, fwd_rows, bwd_rows = [], [], []
+    launches = {k: 0 for k in counters}
+    for name, B, S, H, Hkv, D, window, n in SP_SHAPES:
+        q, k, v = flash_inputs(gen, B, H, Hkv, S, D, dev)     # head-major
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        win = NO_WINDOW if window is None else window
+        Sl = S // n
+        kw = dict(causal=True, window=window)
+        out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+        whole = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+        # the drive: sp_local rank by rank under autograd, counted
+        for f in counters.values():
+            f.launches = 0
+        kf, vf = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (k, v))
+        outs, dqs = [], []
+        for r in range(n):
+            ql = q[:, :, r * Sl:(r + 1) * Sl].transpose(1, 2).detach() \
+                .requires_grad_(True)
+            o = sp_local(ql, kf, vf, r, causal=True, window=window)
+            o.backward(do[:, :, r * Sl:(r + 1) * Sl].transpose(1, 2))
+            outs.append(o.detach().transpose(1, 2))
+            dqs.append(ql.grad.transpose(1, 2))
+        torch.cuda.synchronize()
+        got = {kk: f.launches for kk, f in counters.items()}
+        check(got["flash_prefill"] == n and got["flash_prefill_bwd"] == n,
+              f"sp {name}: launches {got}, want {n} forward and backward")
+        for kk in launches:
+            launches[kk] += got[kk]
+        pairs = [("out", torch.cat(outs, 2), out),
+                 ("dq", torch.cat(dqs, 2), whole[0]),
+                 ("dk", kf.grad.transpose(1, 2), whole[1]),
+                 ("dv", vf.grad.transpose(1, 2), whole[2])]
+        sp_err = {}
+        for label, a, b in pairs:
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            check(torch.isfinite(a.float()).all().item() and
+                  err <= SP_REL_TOL * top,
+                  f"sp {name} {label}: |Δ|={err} > {SP_REL_TOL} x {top}")
+            sp_err[label] = err / top
+        per_rank = []
+        for r in [*range(n), None]:          # each rank, then the whole
+            off, rows_q = (0, q) if r is None else \
+                (r * Sl, q[:, :, r * Sl:(r + 1) * Sl].contiguous())
+            Sq = rows_q.shape[2]
+            rdo = do if r is None else \
+                do[:, :, r * Sl:(r + 1) * Sl].contiguous()
+            okw = dict(kw, pos_offset=off)
+            o, ls = flash_prefill(rows_q, k, v, return_lse=True, **okw)
+            tile = pick_tile(B, H, Hkv, Sq, D)
+
+            def plain_f():
+                return flash_prefill_walk(rows_q, k, v, True, win, S, *tile,
+                                          pos_offset=off)
+
+            def plain_b():
+                return flash_prefill_bwd_ref(rows_q, k, v, o, ls, rdo, True,
+                                             win, S, pos_offset=off)
+            ref = plain_f()
+            err_f = (o.float() - ref.float()).abs().max().item()
+            check(err_f <= FLASH_REL_TOL * ref.float().abs().max().item(),
+                  f"sp {name} rank {r}: forward |Δ|={err_f} vs plain")
+            g = flash_prefill_bwd(rows_q, k, v, o, ls, rdo, **okw)
+            err_b = 0.0
+            for gname, a, b in zip(("dq", "dk", "dv"), g, plain_b()):
+                e = (a.float() - b.float()).abs().max().item()
+                top = b.float().abs().max().item()
+                check(e <= FLASH_BWD_REL_TOL * top,
+                      f"sp {name} rank {r} {gname}: |Δ|={e} vs plain")
+                err_b = max(err_b, e)
+            mask = offset_mask(Sq, S, off, window, dev)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (rows_q, k, v)]
+            sdpa = F.scaled_dot_product_attention
+            lib_out = sdpa(*leaves, attn_mask=mask, enable_gqa=Hkv != H)
+            ops_f, bytes_f = KC.of_flash_prefill(rows_q, k, v, **okw)
+            ops_b, bytes_b = KC.of_flash_prefill_bwd(rows_q, k, v, o, ls,
+                                                     rdo, **okw)
+            bf, byf = bound_ms(bytes_f, ops_f)
+            bb, byb = bound_ms(bytes_b, ops_b)
+            row = dict(
+                shape=f"sp {name} rank {'whole' if r is None else r}/{n} "
+                      f"offset {off} Sq={Sq} Sk={S} H={H} Hkv={Hkv} D={D} "
+                      f"window={window}",
+                fwd=dict(max_abs_err=err_f,
+                         ms=time_ms(lambda: flash_prefill(
+                             rows_q, k, v, **okw), flush),
+                         plain_ms=time_ms(plain_f, flush, iters=3),
+                         library_ms=time_ms(lambda: sdpa(
+                             rows_q, k, v, attn_mask=mask,
+                             enable_gqa=Hkv != H), flush),
+                         bound_ms=bf, bound_by=byf, bytes=bytes_f,
+                         ops=ops_f, ops_per_s=HW.peak_flops),
+                bwd=dict(max_abs_err=err_b,
+                         ms=time_ms(lambda: flash_prefill_bwd(
+                             rows_q, k, v, o, ls, rdo, **okw), flush),
+                         plain_ms=time_ms(plain_b, flush, iters=3),
+                         library_ms=time_ms(lambda: torch.autograd.grad(
+                             lib_out, leaves, rdo, retain_graph=True),
+                             flush),
+                         bound_ms=bb, bound_by=byb, bytes=bytes_b,
+                         ops=ops_b, ops_per_s=HW.peak_flops))
+            per_rank.append(row)
+            lines.append(dict(card=smi, shape=row["shape"], **{
+                f"{p}_{m}": row[p][m] for p in ("fwd", "bwd")
+                for m in ("ms", "bound_ms", "bound_by", "library_ms",
+                          "plain_ms")}))
+        ranks = per_rank[:-1]
+        for part, out_rows in (("fwd", fwd_rows), ("bwd", bwd_rows)):
+            rs = [x[part] for x in ranks]
+            libs = [x["library_ms"] for x in rs]
+            out_rows.append(dict(
+                shape=f"sp {name}: {n} ranks at offsets 0..{S - Sl} "
+                      f"(sums over ranks)",
+                max_abs_err=max(x["max_abs_err"] for x in rs),
+                ms=sum(x["ms"] for x in rs),
+                plain_ms=sum(x["plain_ms"] for x in rs),
+                library_ms=sum(libs), bound_ms=sum(x["bound_ms"] for x in rs),
+                bound_by=bound_ms(sum(x["bytes"] for x in rs),
+                                  sum(x["ops"] for x in rs))[1],
+                bytes=sum(x["bytes"] for x in rs),
+                ops=sum(x["ops"] for x in rs), ops_per_s=HW.peak_flops,
+                sp_rel_err=sp_err))
+    return lines, fwd_rows, bwd_rows, launches
+
+
+def sharded_train_check(dev):
+    """``launch.train.train_sharded`` on a 1 x 1 NCCL mesh (world size 1
+    through ``dist.HashStore``, no port) against ``train()``, both from
+    the same seed: full-size smollm-360m, ``SHARDED_TRAIN`` AdamW steps;
+    the launch counters zeroed just before the sharded run and read just
+    after (one forward and one backward flash launch a layer and step).
+    The process group is destroyed afterwards."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_sharded
+    from repro_torch.training.loop import train
+    arch, steps, batch, seq = SHARDED_TRAIN
+    cfg = get_config(arch)
+    ref = train(cfg, n_steps=steps, batch=batch, seq=seq, lr=3e-4, seed=0,
+                log_every=1, device=dev)
+    single = [v for _, v in ref["losses"]]
+    counters = launch_counters()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh((1, 1), "cuda")
+        for f in counters.values():
+            f.launches = 0
+        res = train_sharded(cfg, mesh, n_steps=steps, batch=batch, seq=seq,
+                            lr=3e-4, seed=0, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counters.items()}
+    finally:
+        dist.destroy_process_group()
+    want = {k: 0 for k in launches}
+    want["flash_prefill"] = want["flash_prefill_bwd"] = cfg.n_layers * steps
+    check(launches == want, f"sharded step: launches {launches} != {want}")
+    sharded = res["losses"]
+    diff = max(abs(a - b) for a, b in zip(sharded, single))
+    check(len(sharded) == steps and all(math.isfinite(v) for v in sharded)
+          and diff <= TRAIN_TOL_LOSS,
+          f"sharded step: losses {sharded} vs train() {single}")
+    return dict(arch=cfg.name, mesh=[1, 1], steps=steps, batch=batch,
+                seq=seq, losses=sharded, single_device_losses=single,
+                bitwise=sharded == single, max_abs_diff=diff,
+                step_ms=[t * 1e3 for t in res["step_s"]],
+                single_device_step_ms=[t * 1e3 for t in ref["step_s"]],
+                launches=launches)
+
+
+def multidevice_phase(dev, smi):
+    """Multi-device launch on the one card: sequence-parallel prefill
+    rank by rank at full width (``sp_rows``) and the sharded train step
+    on a 1 x 1 NCCL mesh (``sharded_train_check``).  Returns the printed
+    lines, the kernel rows and the launches of both drives."""
+    import torch
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    lines, fwd, bwd, launches = sp_rows(dev, flush, smi)
+    del flush
+    train = sharded_train_check(dev)
+    for k, n in train["launches"].items():
+        launches[k] += n
+    return lines, train, {"flash_prefill": fwd, "flash_prefill_bwd": bwd}, \
+        launches
+
+
 def ptxas_report(log):
     """(kernel<template ints>, registers, spill-store bytes) of every entry
     function in an ``nvcc -Xptxas -v`` log (kernels are templated on the
@@ -2426,6 +2688,26 @@ def main() -> int:
           f"{json.dumps(launches)}")
     for k, n in launches.items():
         totals[k] += n
+    t0 = time.perf_counter()
+    lines, sharded, md_rows, launches = multidevice_phase(dev, smi)
+    for line in lines:
+        print("multidevice sp:", json.dumps(line))
+    for line in lines:
+        print(f"  {line['shape']:70s} fwd {line['fwd_ms'] * 1e3:8.1f} us "
+              f"(bound {line['fwd_bound_ms'] * 1e3:7.2f} "
+              f"{line['fwd_bound_by']}, SDPA "
+              f"{line['fwd_library_ms'] * 1e3:8.1f})  bwd "
+              f"{line['bwd_ms'] * 1e3:8.1f} us (bound "
+              f"{line['bwd_bound_ms'] * 1e3:7.2f} {line['bwd_bound_by']}, "
+              f"SDPA "
+              f"{line['bwd_library_ms'] * 1e3:8.1f})  [{smi}]")
+    print("multidevice sharded step:", json.dumps(sharded))
+    print(f"multidevice phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps(launches)}")
+    for k, n in launches.items():
+        totals[k] += n
+    for k, rs in md_rows.items():
+        rows[k] += rs
 
     src = "src/repro_torch/csrc/"
     kernels = [

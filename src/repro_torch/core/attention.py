@@ -4,12 +4,16 @@ and cross attention.
 Port of ``repro.core.attention``:
 
 * :func:`flash_attention` — memory-bounded prefill and training
-  attention.  On CUDA tensors it runs the hand-written flash-prefill
-  kernel (``csrc/flash_prefill.cu``) and, where a gradient is wanted, its
-  backward kernel (``csrc/flash_prefill_bwd.cu``); on CPU tensors their
-  plain versions, the port of the JAX function's ``q_chunk × kv_chunk``
-  online-softmax walk and the same backward math in PyTorch ops.  The
-  reference differentiates its walk with XLA.
+  attention, at any query position offset.  On CUDA tensors it runs the
+  hand-written flash-prefill kernel (``csrc/flash_prefill.cu``) and,
+  where a gradient is wanted, its backward kernel
+  (``csrc/flash_prefill_bwd.cu``); on CPU tensors their plain versions,
+  the port of the JAX function's ``q_chunk × kv_chunk`` online-softmax
+  walk and the same backward math in PyTorch ops.  The reference
+  differentiates its walk with XLA.  On DTensor operands (the sharded
+  training step, ``launch/train.py``) the kernels run on each rank's
+  local shard (:func:`_flash_local`), or the installed sequence-parallel
+  prefill takes the call (:data:`SP_PREFILL`, ``launch/spattn.py``).
 * :func:`decode_attention` (``impl="fused"`` and the paper's
   ``"dequant_first"`` baseline) and :func:`cross_attention` — the JAX
   package computes them with XLA outside any Pallas kernel; here they are
@@ -17,10 +21,8 @@ Port of ``repro.core.attention``:
   alike.
 * :func:`prefill_attention` — the full-matrix oracle.
 
-Not ported: ``_flash_triangle`` / ``BLOCK_SKIP`` / ``SP_PREFILL`` (dry-run
-and multi-device knobs), a nonzero ``pos_offset``, causal or windowed
-Sq != Sk (chunked or offset prefill, ``launch/spattn.py``) and traced
-windows: ROADMAP queue 1 item 12.
+Not ported: ``_flash_triangle`` / ``BLOCK_SKIP`` (the dry-run's knob):
+ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -35,6 +37,31 @@ from .kvcache import KVCache, dequant_k, dequant_v
 from .precision import FormatSpec
 
 NEG_INF = -1e30
+
+#: sequence-parallel prefill attention, installed by launch code for meshes
+#: whose head counts do not divide the model axis
+#: (``launch.spattn.build_sp_prefill``): ``fn(q, k, v, causal, window) ->
+#: out`` or None (the call falls back to the flash path)
+SP_PREFILL = None
+#: the reference's default ``q_chunk``: only longer prefills go to
+#: :data:`SP_PREFILL`
+SP_MIN_ROWS = 512
+#: placements of flash attention's DTensor operands, installed by launch
+#: code (``launch/train.py``, from ``ShardingRules.activation``):
+#: ``fn(q, k) -> placements`` for q, k and v; replicated when None
+FLASH_PLACEMENTS = None
+
+
+def set_sp_prefill(fn) -> None:
+    """Install (or, with None, remove) :data:`SP_PREFILL`."""
+    global SP_PREFILL
+    SP_PREFILL = fn
+
+
+def set_flash_placements(fn) -> None:
+    """Install (or, with None, remove) :data:`FLASH_PLACEMENTS`."""
+    global FLASH_PLACEMENTS
+    FLASH_PLACEMENTS = fn
 
 
 def _unpack_if_needed(x: torch.Tensor, spec: FormatSpec) -> torch.Tensor:
@@ -65,29 +92,81 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(B, S, H, D)
 
 
+def _as_int(x, name: str) -> int:
+    """An int, or a 0-d integer tensor read once (the reference's traced
+    scalars; the port's callers pass ints, so none pays for the read)."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() or x.is_floating_point() or x.is_complex():
+            raise ValueError(f"{name}: expected an int or a 0-d integer "
+                             f"tensor, got {x.dtype} {tuple(x.shape)}")
+        return int(x)
+    if isinstance(x, bool) or not isinstance(x, int):
+        raise ValueError(f"{name}: expected an int, got {x!r}")
+    return x
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None,
-                    pos_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, window=None,
+                    pos_offset=0) -> torch.Tensor:
     """Online-softmax attention over tiles of keys, differentiable.
     q (B, Sq, H, D), k/v (B, Sk, Hkv, D) → (B, Sq, H, D) in q's dtype.
 
-    The flash-prefill kernel's wrapper picks the tile from the shapes
-    (the JAX default of 512 × 512 chunks does not fit in a block's shared
-    memory at D 256); tiles wholly masked are skipped.  The kernels'
-    contract is every caller's in the ported families: ``pos_offset ==
-    0``, an int or no window, and as many queries as keys — or, without
-    a mask (``causal=False``, no window), any Sk: whisper's training cross
-    attention.  Chunked or offset prefill (``launch/spattn.py``) is
-    ROADMAP queue 1 item 12."""
-    cross = not causal and window is None
-    if not isinstance(pos_offset, int) or pos_offset != 0 or \
-            (q.shape[1] != k.shape[1] and not cross) or not (
-                window is None or isinstance(window, int)):
-        raise NotImplementedError(
-            "flash_attention takes pos_offset 0, an int or no window, and "
-            "Sq == Sk unless causal=False without a window; the rest is not "
-            "yet ported: ROADMAP queue 1 item 12")
-    return ops.flash_prefill_attention(q, k, v, causal=causal, window=window)
+    Query row t sits at position ``pos_offset + t`` (>= 0): a key is kept
+    when ``kpos <= qpos`` (causal) and ``kpos > qpos - window``, as in the
+    reference's walk (``repro/core/attention.py:140-151``).  ``window``
+    and ``pos_offset`` are ints or 0-d integer tensors.  The flash-prefill
+    kernel's wrapper picks the tile from the shapes (the JAX default of
+    512 × 512 chunks does not fit in a block's shared memory at D 256);
+    tiles wholly masked are skipped.  With :data:`SP_PREFILL` installed,
+    a causal call at offset 0 of more than :data:`SP_MIN_ROWS` rows goes
+    to it first (the reference's guard).  DTensor operands run the
+    kernels on each rank's shard (:func:`_flash_local`)."""
+    window = None if window is None else _as_int(window, "window")
+    pos_offset = _as_int(pos_offset, "pos_offset")
+    if pos_offset < 0:
+        raise ValueError(f"pos_offset={pos_offset} < 0")
+    if (SP_PREFILL is not None and causal and pos_offset == 0
+            and q.shape[1] > SP_MIN_ROWS):
+        out = SP_PREFILL(q, k, v, causal=causal, window=window)
+        if out is not None:
+            return out
+    if is_dtensor(q):
+        return _flash_local(q, k, v, causal, window, pos_offset)
+    return ops.flash_prefill_attention(q, k, v, causal=causal, window=window,
+                                       pos_offset=pos_offset)
+
+
+def is_dtensor(t) -> bool:
+    """True for a DTensor (the sharded step's operands; torch.distributed
+    is imported only when a tensor subclass is seen)."""
+    if type(t) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _flash_local(q, k, v, causal: bool, window: Optional[int],
+                 pos_offset: int) -> torch.Tensor:
+    """Flash attention on DTensor operands: the one place a sharded step
+    leaves DTensor.  q, k and v go on the placements of
+    :data:`FLASH_PLACEMENTS` (replicated if none is installed) and each
+    rank runs the kernels on its local shard through ``local_map`` (the
+    kernels launch through ctypes and never see a DTensor)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    place = tuple(FLASH_PLACEMENTS(q, k)) if FLASH_PLACEMENTS is not None \
+        else (Replicate(),) * mesh.ndim
+    q, k, v = (t.redistribute(mesh, place) for t in (q, k, v))
+
+    def local(ql, kl, vl):
+        return ops.flash_prefill_attention(ql, kl, vl, causal=causal,
+                                           window=window,
+                                           pos_offset=pos_offset)
+
+    return local_map(local, out_placements=(place,),
+                     in_placements=(place, place, place),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _scale_rows(scale: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@
 // Replaces repro/kernels/flashprefill.py:82 flash_prefill (kernel body
 // _flash_kernel, :33), whose contract and numerics it keeps:
 //   * q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16; head h reads KV head
-//     h / rep (:111); Sq == Sk unless non-causal without a window
-//     (whisper's training cross attention, repro/models/encdec.py:294);
+//     h / rep (:111); query row t sits at position qpos = pos_offset + t
+//     (repro/core/attention.py:140: a rank's rows of sequence-parallel
+//     prefill; 0 on the serve and training paths);
 //   * a key is kept when kpos < seq, kpos <= qpos if causal and
 //     kpos > qpos - window (:56-61; window = NO_WINDOW turns it off);
 //   * scores are bf16 x bf16 products summed in f32, times rsqrt(D) (:53);
@@ -77,7 +78,6 @@ constexpr int MAX_SMEM = 232448;   // bytes of shared memory a block may use
 constexpr int ERR_SMEM = -1;       // launch refused: the tile needs more
 constexpr int STAGES = 2;          // K/V tiles in the ring
 constexpr int PAD = 8;             // bf16 padding per shared-memory row
-constexpr int NO_WINDOW = 1 << 30; // window operand: no sliding window
 
 constexpr int MAX_WARPS = 8;       // threads per block <= 256
 
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     int seq, int causal, int window, int bk) {
+                     int seq, int causal, int window, int off, int bk) {
   constexpr int LD = D + PAD;
   constexpr int WD = d_warps(D);     // warps per 16-row group
   constexpr int NT = D / 8 / WD;     // n8 tiles of the output a warp keeps
@@ -140,8 +140,8 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto row_off = [&](int r) { return row_idx(r) * D; };
 
-  // KV tiles that can hold a kept key of tokens [tq0, tq1]
-  const int tq0 = r0 / rep, tq1 = (min(r0 + bq, NR) - 1) / rep;
+  // KV tiles that can hold a kept key of positions [tq0, tq1]
+  const int tq0 = off + r0 / rep, tq1 = off + (min(r0 + bq, NR) - 1) / rep;
   int hi = kv_len;
   if (causal) hi = min(hi, tq1 + 1);
   const int lo = max(0, tq0 - window + 1);
@@ -175,8 +175,9 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const int rw = r0 + wgrp * 16;           // this warp's first row
-  const int qa = (rw + g) / rep, qb = (rw + g + 8) / rep;   // row tokens
-  const int tw0 = rw / rep, tw1 = (rw + 15) / rep;
+  // the positions of the warp's fragment rows and of its first and last row
+  const int qa = off + (rw + g) / rep, qb = off + (rw + g + 8) / rep;
+  const int tw0 = off + rw / rep, tw1 = off + (rw + 15) / rep;
   const bf16* Qw = Qs + wgrp * 16 * LD;
   const float inv_sqrt_d = rsqrtf(static_cast<float>(D));
   uint32_t qf[QREG ? D / 16 : 1][4];
@@ -275,7 +276,7 @@ flash_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int H, int Hkv, int Sq, int Sk, int seq, int causal,
-           int window, int bq, int bk, cudaStream_t stream) {
+           int window, int off, int bq, int bk, cudaStream_t stream) {
   const size_t smem = smem_bytes(D, bq, bk);
   if (smem > size_t(MAX_SMEM)) return ERR_SMEM;
   auto kern = flash_prefill_kernel<D>;
@@ -291,15 +292,15 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Sq, Sk, seq, causal,
-      window, bk);
+      window, off, bk);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out (B, H, Sq, D), all bf16 and
-// contiguous; H a multiple of Hkv; Sq == Sk unless causal = 0 and window
-// = NO_WINDOW; keys at or past seq (<= Sk) masked; window = 1 << 30 for
+// contiguous; H a multiple of Hkv; query row t at position pos_offset + t
+// (>= 0); keys at or past seq (<= Sk) masked; window = 1 << 30 for
 // none.  lse: (B, H, Sq) f32 log-sum-exp of each row, or null (the serve
 // path: nothing written, out unchanged).  bq: token-major rows (t * rep +
 // g) per block, a multiple of 16 up to max_rows(D) (128; 64 at D 288);
@@ -310,29 +311,30 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int H, int Hkv,
                              int Sq, int Sk, int D, int seq, int causal,
-                             int window, int bq, int bk, void* stream) {
+                             int window, int pos_offset, int bq, int bk,
+                             void* stream) {
   if (bq < 16 || bq > max_rows(D) || bq % 16 || bk < 1 ||
       bk % slice_keys(D) || Hkv < 1 || H % Hkv || seq > Sk || Sq < 1 ||
-      Sk < 1 || (Sq != Sk && (causal || window < NO_WINDOW)))
+      Sk < 1 || pos_offset < 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (D) {
     case 32:
       return launch<32>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
-                        window, bq, bk, st);
+                        window, pos_offset, bq, bk, st);
     case 64:
       return launch<64>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
-                        window, bq, bk, st);
+                        window, pos_offset, bq, bk, st);
     case 128:
       return launch<128>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
-                         window, bq, bk, st);
+                         window, pos_offset, bq, bk, st);
     case 256:
       return launch<256>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
-                         window, bq, bk, st);
+                         window, pos_offset, bq, bk, st);
     case 288:
       return launch<288>(q, k, v, out, l, B, H, Hkv, Sq, Sk, seq, causal,
-                         window, bq, bk, st);
+                         window, pos_offset, bq, bk, st);
     default:
       return int(cudaErrorInvalidValue);
   }

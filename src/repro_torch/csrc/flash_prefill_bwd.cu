@@ -6,8 +6,8 @@
 // (jax.vjp of repro/core/attention.py:92 flash_attention).  This kernel
 // computes the same gradients from the forward's saved q, k, v, out and
 // per-row log-sum-exp, with the forward's masks (kpos < seq, kpos <= qpos
-// if causal, kpos > qpos - window; Sq != Sk only without either) and its
-// rounding habit (bf16 operands into the tensor cores, f32 sums):
+// if causal, kpos > qpos - window; query row t at qpos = pos_offset + t)
+// and its rounding habit (bf16 operands into the tensor cores, f32 sums):
 //   P    = exp(S * rsqrt(D) - lse)          (0 under the mask)
 //   D_i  = rowsum(dO o O)
 //   dV   = sum_i bf16(P)^T dO
@@ -78,7 +78,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int NO_WINDOW = 1 << 30;   // window operand: no sliding window
 constexpr int MAX_SMEM = 232448;     // bytes of shared memory a block may use
 constexpr int PAD = 8;               // bf16 padding per shared-memory row
 constexpr int BK = 64;               // keys of a dK/dV block
@@ -197,7 +196,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const float2* __restrict__ rows_in, const int* __restrict__ items,
             bf16* __restrict__ dk, bf16* __restrict__ dv,
             float* __restrict__ part_k, float* __restrict__ part_v, int H,
-            int Hkv, int Sq, int Sk, int kv_len, int causal, int window) {
+            int Hkv, int Sq, int Sk, int kv_len, int causal, int window,
+            int off) {
   constexpr int CW = cw(D), BQ = kv_step(D), ST = kv_stages(D);
   constexpr int LD = D + PAD, LDP = BQ + PAD;
   constexpr int DC = D / CW;         // columns a warp accumulates
@@ -321,9 +321,9 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     // P^T (into s) and dS^T (into dp); column c of tile j is packed row
-    // rw0 + 8 j + 2 t + c.  A step every row and key of the block keeps
-    // needs no mask.
-    const int t_first = rr0 / rep, t_last = (rr0 + BQ - 1) / rep;
+    // rw0 + 8 j + 2 t + c, at position off + its token.  A step every row
+    // and key of the block keeps needs no mask.
+    const int t_first = off + rr0 / rep, t_last = off + (rr0 + BQ - 1) / rep;
     const bool full = rr0 + BQ <= re && k0 + BK <= kv_len &&
                       (!causal || k0 + BK - 1 <= t_first) &&
                       k0 > t_last - window;
@@ -333,7 +333,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int c = 0; c < 2; ++c) {
         const float2 ld = ldw[j * 8 + 2 * t + c];
         const int rr = rw0 + j * 8 + 2 * t + c;
-        const int tok = full ? 0 : rr / rep;
+        const int tok = full ? 0 : off + rr / rep;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {      // fragment rows g, g + 8
           const int e = 2 * h + c;
@@ -454,7 +454,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float2* __restrict__ rows_in,
           const int* __restrict__ items, bf16* __restrict__ dq,
           float* __restrict__ part_q, int H, int Hkv, int Sq, int Sk,
-          int kv_len, int causal, int window) {
+          int kv_len, int causal, int window, int off) {
   constexpr int CW = cw(D), SL = q_step(D), ST = q_stages(D);
   constexpr int LD = D + PAD, LDS = SL + PAD;
   constexpr int KW = SL / CW;        // keys of a slice a warp scores
@@ -510,8 +510,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int rw = r0 + rg * 16;
   const int ra = rw + g, rb = ra + 8;
-  const int qa = ra / rep, qb = rb / rep;
-  const int tw0 = rw / rep, tw1 = (min(rw + 16, NR) - 1) / rep;
+  // positions of the fragment rows and of the group's first and last row
+  const int qa = off + ra / rep, qb = off + rb / rep;
+  const int tw0 = off + rw / rep, tw1 = off + (min(rw + 16, NR) - 1) / rep;
   // (lse log2(e), D_i) of rows ra and rb: delta_kernel's, or without
   // them (dq_first) the block sums its own rows' D_i, D / 4 columns a lane
   // of the row's quad, and starts without waiting for delta_kernel
@@ -788,7 +789,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
            const float* lse, const bf16* dout, bf16* dq, bf16* dk, bf16* dv,
            float2* rows, const int* plan, float* part_kv, float* part_q,
            int B, int H, int Hkv, int Sq, int Sk, int seq, int causal,
-           int window, int n_kv, int kv_slots, int n_q, int q_slots,
+           int window, int off, int n_kv, int kv_slots, int n_q, int q_slots,
            int dq_first, cudaStream_t stream) {
   const int kv_len = seq < Sk ? seq : Sk;
   const int n_kv_tiles = (Sk + BK - 1) / BK;
@@ -814,7 +815,7 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
     dq_kernel<D><<<dim3(n_q, Hkv, B), warps(D) * 32, dq_smem(D),
                    side->stream>>>(q, k, v, out, dout, lse, dq_rows, q_items,
                                    dq, part_q, H, Hkv, Sq, Sk, kv_len, causal,
-                                   window);
+                                   window, off);
     return int(cudaGetLastError());
   };
   if (dq_first && ((err = int(cudaEventRecord(side->fork, stream))) ||
@@ -830,7 +831,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
   if ((err = set_smem(dkdv_kernel<D>, dkdv_smem(D)))) return err;
   dkdv_kernel<D><<<dim3(n_kv, Hkv, B), warps(D) * 32, dkdv_smem(D),
                    stream>>>(q, k, v, dout, rows, kv_items, dk, dv, part_kv,
-                             part_v, H, Hkv, Sq, Sk, kv_len, causal, window);
+                             part_v, H, Hkv, Sq, Sk, kv_len, causal, window,
+                             off);
   if ((err = int(cudaGetLastError()))) return err;
   if (!dq_first && (err = launch_dq(rows))) return err;
 
@@ -860,20 +862,19 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
 // (BwdPlan.table: n_kv dK/dV items, the key tiles, n_q dQ items, the row
 // tiles); part_kv 2 * kv_slots and part_q q_slots f32 partials of (B,
 // Hkv, 64, D) each (null when 0); dq_first as BwdPlan's.  H a multiple
-// of Hkv; Sq == Sk unless
-// causal = 0 and window = NO_WINDOW; keys at or past seq (<= Sk) masked;
-// window = 1 << 30 for none.  D in {32, 64, 128, 256, 288}.  Launches the
-// kernels in order on `stream`; returns the first CUDA error (0 on
-// success).
+// of Hkv; query row t at position pos_offset + t (>= 0); keys at or past
+// seq (<= Sk) masked; window = 1 << 30 for none.  D in {32, 64, 128,
+// 256, 288}.  Launches the kernels in order on `stream`; returns the
+// first CUDA error (0 on success).
 extern "C" int flash_prefill_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
     void* rows, const void* plan, void* part_kv, void* part_q, int B, int H,
     int Hkv, int Sq, int Sk, int D, int seq, int causal, int window,
-    int n_kv, int kv_slots, int n_q, int q_slots, int dq_first,
-    void* stream) {
+    int pos_offset, int n_kv, int kv_slots, int n_q, int q_slots,
+    int dq_first, void* stream) {
   if (Hkv < 1 || H % Hkv || seq > Sk || seq < 1 || Sq < 1 || Sk < 1 ||
-      B < 1 || (Sq != Sk && (causal || window < NO_WINDOW)) || n_kv < 1 ||
+      B < 1 || pos_offset < 0 || n_kv < 1 ||
       n_q < 1 || (kv_slots && !part_kv) || (q_slots && !part_q))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -888,8 +889,8 @@ extern "C" int flash_prefill_bwd(
   case DIM:                                                                 \
     return launch<DIM>(c(q), c(k), c(v), c(out), l, c(dout), m(dq), m(dk), \
                        m(dv), r, pl, pkv, pq, B, H, Hkv, Sq, Sk, seq,       \
-                       causal, window, n_kv, kv_slots, n_q, q_slots,        \
-                       dq_first, st);
+                       causal, window, pos_offset, n_kv, kv_slots, n_q,     \
+                       q_slots, dq_first, st);
   switch (D) {
     FP_BWD_CASE(32)
     FP_BWD_CASE(64)

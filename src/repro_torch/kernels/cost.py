@@ -49,34 +49,52 @@ def decode_attention(pos: Sequence[int], T: int, rep: int, Hkv: int, D: int,
 
 
 def kept_pairs(Sq: int, seq: int, causal: bool,
-               window: Optional[int]) -> int:
+               window: Optional[int], pos_offset: int = 0) -> int:
     """(query, key) pairs flash attention keeps: key ``kpos < seq``,
-    ``kpos <= qpos`` if causal, ``kpos > qpos - window``."""
-    q = np.arange(Sq, dtype=np.int64)
+    ``kpos <= qpos`` if causal, ``kpos > qpos - window``, query row t at
+    ``qpos = pos_offset + t``."""
+    q = pos_offset + np.arange(Sq, dtype=np.int64)
     hi = np.minimum(q + 1, seq) if causal else np.full(Sq, seq)
     lo = np.zeros(Sq, np.int64) if window is None else \
         np.maximum(0, q - int(window) + 1)
     return int(np.maximum(0, hi - lo).sum())
 
 
+def key_range(Sq: int, seq: int, causal: bool, window: Optional[int],
+              pos_offset: int = 0) -> Tuple[int, int]:
+    """``[lo, hi)``: the keys some query row keeps (:func:`kept_pairs`'s
+    mask), the only ones the flash kernels read — ``lo = pos_offset -
+    window + 1`` (0 without a window), ``hi = pos_offset + Sq`` if causal,
+    both clipped to ``[0, seq)``."""
+    hi = min(seq, pos_offset + Sq) if causal else seq
+    lo = 0 if window is None else max(0, pos_offset - int(window) + 1)
+    return min(lo, hi), hi
+
+
 def flash_forward(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
                   seq: int, causal: bool, window: Optional[int],
-                  lse: bool) -> Cost:
-    """Flash attention's forward: 4·D operations a kept pair; q, k, v read
-    and the output written (bf16), each row's f32 lse written if asked."""
-    ops = 4 * D * B * H * kept_pairs(Sq, seq, causal, window)
-    nbytes = 2 * 2 * B * H * Sq * D + 2 * 2 * B * Hkv * Sk * D + \
+                  lse: bool, pos_offset: int = 0) -> Cost:
+    """Flash attention's forward: 4·D operations a kept pair; q read, the
+    keys of :func:`key_range` of k and v read and the output written
+    (bf16), each row's f32 lse written if asked."""
+    ops = 4 * D * B * H * kept_pairs(Sq, seq, causal, window, pos_offset)
+    lo, hi = key_range(Sq, min(seq, Sk), causal, window, pos_offset)
+    nbytes = 2 * 2 * B * H * Sq * D + 2 * 2 * B * Hkv * (hi - lo) * D + \
         (4 * B * H * Sq if lse else 0)
     return ops, nbytes
 
 
 def flash_backward(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
-                   seq: int, causal: bool, window: Optional[int]) -> Cost:
+                   seq: int, causal: bool, window: Optional[int],
+                   pos_offset: int = 0) -> Cost:
     """Flash attention's backward: five products of 2·D operations a kept
-    pair (S, dP, dV, dK, dQ); q, out, dout read and dq written, k, v read
-    and dk, dv written (bf16), the lse read (f32)."""
-    ops = 10 * D * B * H * kept_pairs(Sq, seq, causal, window)
-    nbytes = 2 * D * (4 * B * H * Sq + 4 * B * Hkv * Sk) + 4 * B * H * Sq
+    pair (S, dP, dV, dK, dQ); q, out, dout read and dq written, the keys
+    of :func:`key_range` of k and v read and all of dk, dv written (bf16),
+    the lse read (f32)."""
+    ops = 10 * D * B * H * kept_pairs(Sq, seq, causal, window, pos_offset)
+    lo, hi = key_range(Sq, min(seq, Sk), causal, window, pos_offset)
+    nbytes = 2 * D * (4 * B * H * Sq + 2 * B * Hkv * (hi - lo) +
+                      2 * B * Hkv * Sk) + 4 * B * H * Sq
     return ops, nbytes
 
 
@@ -113,20 +131,21 @@ def of_paged_kvattn(q, k, k_scale, v, v_scale, block_table, pos, window,
 
 
 def of_flash_prefill(q, k, v, *, causal=True, window=None, seq=None,
-                     tile=None, return_lse=False) -> Cost:
+                     tile=None, return_lse=False, pos_offset=0) -> Cost:
     """``kernels.flashprefill.flash_prefill``."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     return flash_forward(B, H, Hkv, Sq, Sk, D, Sk if seq is None else seq,
-                         causal, window, return_lse)
+                         causal, window, return_lse, pos_offset)
 
 
 def of_flash_prefill_bwd(q, k, v, out, lse, dout, *, causal=True,
-                         window=None) -> Cost:
+                         window=None, pos_offset=0) -> Cost:
     """``kernels.flashprefill.flash_prefill_bwd``."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    return flash_backward(B, H, Hkv, Sq, Sk, D, Sk, causal, window)
+    return flash_backward(B, H, Hkv, Sq, Sk, D, Sk, causal, window,
+                          pos_offset)
 
 
 #: each kernel wrapper's cost, by the wrapper's name

@@ -5,10 +5,12 @@
 ``repro.kernels.flashprefill.flash_prefill``: causal, sliding-window or
 non-causal bf16 attention over head-major q (B, H, Sq, D) and k/v (B, Hkv,
 Sk, D), head h reading KV head ``h // rep``, keys at or past the true
-length ``seq`` masked; Sq == Sk, except non-causal attention without a
-window (whisper's cross attention in training: T queries against the
-encoder's frames).  It can also write each row's log-sum-exp, which
-:func:`flash_prefill_bwd` recomputes the probabilities from.  The
+length ``seq`` masked, query row t at position ``pos_offset + t`` (a
+rank's rows of sequence-parallel prefill, ``launch/spattn.py``; 0 on the
+serve and training paths, where Sq == Sk or the attention is non-causal
+without a window: whisper's cross attention in training).  It can also
+write each row's log-sum-exp, which :func:`flash_prefill_bwd` recomputes
+the probabilities from.  The
 reference has no Pallas backward: it differentiates its XLA walk
 (``jax.vjp`` of ``repro/core/attention.py:92``); :class:`FlashPrefill`
 binds the two kernels as one ``torch.autograd.Function``.  The forward
@@ -115,8 +117,7 @@ def check_tile(D: int, block_q: int, block_k: int) -> None:
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool, window: Optional[int],
-                  seq: Optional[int]) -> int:
+                  seq: Optional[int], pos_offset: int) -> int:
     """Validate the operands of either pass; return ``seq`` (default
     Sk)."""
     B, H, Sq, D = q.shape
@@ -125,9 +126,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)}: expected (B, H, Sq, D) and "
                          "(B, Hkv, Sk, D) with Hkv dividing H")
-    if Sq != Sk and (causal or window is not None):
-        raise ValueError(f"Sq={Sq} != Sk={Sk} needs causal=False and no "
-                         "window")
+    if pos_offset < 0:
+        raise ValueError(f"pos_offset={pos_offset} < 0")
     seq = Sk if seq is None else int(seq)
     if not 0 < seq <= Sk:
         raise ValueError(f"seq={seq} outside (0, Sk={Sk}]")
@@ -144,13 +144,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   seq: Optional[int] = None,
                   tile: Optional[Tuple[int, int]] = None,
-                  return_lse: bool = False):
+                  return_lse: bool = False, pos_offset: int = 0):
     """q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16 → (B, H, Sq, D) bf16
     (and, with ``return_lse``, each row's f32 log-sum-exp (B, H, Sq)).
 
-    A key is kept when ``kpos < seq`` (default Sk), ``kpos <= qpos`` if
-    ``causal`` and ``kpos > qpos - window`` when ``window`` is an int;
-    Sq != Sk only without either.  ``tile`` = (block_q, block_k)
+    Query row t sits at position ``qpos = pos_offset + t``.  A key is
+    kept when ``kpos < seq`` (default Sk), ``kpos <= qpos`` if
+    ``causal`` and ``kpos > qpos - window`` when ``window`` is an int.
+    ``tile`` = (block_q, block_k)
     overrides :func:`pick_tile` (the tests run every tile it can choose;
     no serving caller sets it).  Without ``return_lse`` the kernel writes
     no lse and its output is the serve path's, bit for bit.  Counts its
@@ -160,15 +161,17 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return op_cost.COUNTER.kernel(
             "flash_prefill", KC.of_flash_prefill, flash_prefill, q, k, v,
             causal=causal, window=window, seq=seq, tile=tile,
-            return_lse=return_lse)
+            return_lse=return_lse, pos_offset=pos_offset)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    seq = _check_shapes(q, k, v, causal, window, seq)
+    off = int(pos_offset)
+    seq = _check_shapes(q, k, v, seq, off)
     win = NO_WINDOW if window is None else int(window)
     block_q, block_k = tile or pick_tile(B, H, Hkv, Sq, D)
     if q.device.type == "cpu":
         return flash_prefill_walk(q, k, v, causal, win, seq, block_q,
-                                  block_k, return_lse=return_lse)
+                                  block_k, return_lse=return_lse,
+                                  pos_offset=off)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_prefill: unsupported device {q.device}")
     check_tile(D, block_q, block_k)
@@ -180,10 +183,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    fn = _build.bind("flash_prefill", "flash_prefill", 5, 11)
+    fn = _build.bind("flash_prefill", "flash_prefill", 5, 12)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk, D,
-             seq, int(causal), win, block_q, block_k,
+             seq, int(causal), win, off, block_q, block_k,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err == ERR_SMEM:
         raise ValueError(
@@ -267,38 +270,40 @@ class BwdPlan:
 
 
 def _kept(t: np.ndarray, k0, k1, causal: bool, window: int) -> np.ndarray:
-    """Keys of [k0, k1) that token(s) ``t`` keep (the mask's kpos < seq
-    folded into k1)."""
+    """Keys of [k0, k1) that query position(s) ``t`` keep (the mask's
+    kpos < seq folded into k1)."""
     hi = np.minimum(k1, t + 1) if causal else k1
     return np.maximum(hi - np.maximum(k0, t - window + 1), 0)
 
 
-def _kv_walks(rep, Sq, Sk, kv_len, causal, window, step):
-    """Per key tile: the packed rows [r_lo, r_hi) whose token can see one
-    of its keys, and the kept pairs of each ``step`` rows of that walk."""
+def _kv_walks(rep, Sq, Sk, kv_len, causal, window, step, off):
+    """Per key tile: the packed rows [r_lo, r_hi) whose token (at position
+    ``off + t``) can see one of its keys, and the kept pairs of each
+    ``step`` rows of that walk."""
     out = []
     for k0 in range(0, Sk, BWD_KEYS):
         k1 = min(k0 + BWD_KEYS, kv_len)
-        t_lo = k0 if causal else 0
+        t_lo = min(max(0, k0 - off), Sq) if causal else 0
         t_hi = Sq - 1 if window >= NO_WINDOW else \
-            min(Sq - 1, k1 - 1 + window - 1)
+            min(Sq - 1, k1 - 1 + window - 1 - off)
         r_lo = t_lo * rep
         r_hi = (t_hi + 1) * rep if k0 < kv_len and t_lo <= t_hi else r_lo
-        kept = _kept(np.arange(r_lo, r_hi) // rep, k0, k1, causal, window)
+        kept = _kept(off + np.arange(r_lo, r_hi) // rep, k0, k1, causal,
+                     window)
         pad = -len(kept) % step
         out.append((r_lo, r_hi, np.pad(kept, (0, pad)).reshape(-1, step)
                     .sum(1)))
     return out
 
 
-def _q_walks(rep, Sq, kv_len, causal, window, step):
+def _q_walks(rep, Sq, kv_len, causal, window, step, off):
     """Per tile of BWD_ROWS packed rows: its first key slice and the kept
     pairs of each ``step`` keys from there to the last slice that can
-    hold a kept key."""
+    hold a kept key (row tokens at positions ``off + t``)."""
     out = []
     NR = rep * Sq
     for r0 in range(0, NR, BWD_ROWS):
-        t = np.arange(r0, min(r0 + BWD_ROWS, NR)) // rep
+        t = off + np.arange(r0, min(r0 + BWD_ROWS, NR)) // rep
         hi = min(kv_len, t[-1] + 1) if causal else kv_len
         s0 = max(0, t[0] - window + 1) // step
         s1 = max(s0, -(-hi // step))
@@ -376,17 +381,19 @@ def _split(walks, reps, slots, min_pairs, slot_bytes):
 @functools.lru_cache(maxsize=256)
 def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
              causal: bool, window: int, seq: int, sms: int = 132,
-             resident: Tuple[int, int] = (2, 2)) -> BwdPlan:
+             resident: Tuple[int, int] = (2, 2),
+             pos_offset: int = 0) -> BwdPlan:
     """The backward's work plan: each dK/dV walk (a key tile's rows) and
     each dQ walk (a row tile's keys) cut into splits of near-equal kept
     pairs, so that the walks of the causal triangle balance, as finely as
     fills the ``resident`` (dK/dV, dQ) blocks of each of ``sms`` SMs best
     (the card's counts on the card; :func:`_split`).  ``window`` is
-    :data:`NO_WINDOW` for none; keys at or past ``seq`` are masked."""
+    :data:`NO_WINDOW` for none; keys at or past ``seq`` are masked; query
+    token t sits at position ``pos_offset + t``."""
     rep, kv_len = H // Hkv, min(seq, Sk)
     one = BWD_KEYS * D * 4
     step = bwd_kv_step(D)
-    walks = _kv_walks(rep, Sq, Sk, kv_len, causal, window, step)
+    walks = _kv_walks(rep, Sq, Sk, kv_len, causal, window, step, pos_offset)
     # the passes run side by side: a block that fills an SM takes turns
     # with the other pass's, so each is planned for half the SMs; smaller
     # blocks share an SM with the other pass's and fill their own slots
@@ -400,7 +407,7 @@ def bwd_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
           min(walks[x][0] + b * step, walks[x][1]), s)
          for x, a, b, s in items], np.int32).reshape(-1, 4)
     step = bwd_q_step(D)
-    walks = _q_walks(rep, Sq, kv_len, causal, window, step)
+    walks = _q_walks(rep, Sq, kv_len, causal, window, step, pos_offset)
     t_q, items, q_tiles = _split([w for _, w in walks], B * Hkv, slots[1],
                                  BWD_MIN_STEPS * BWD_ROWS * step, one)
     t_q *= 3 * step             # 3 products of BWD_ROWS x step a dQ step
@@ -429,21 +436,25 @@ def _card(index: int, D: int) -> Tuple[int, Tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=256)
-def _device_plan(dev: torch.device, *shape) -> Tuple[BwdPlan, torch.Tensor]:
-    """:func:`bwd_plan` for ``shape`` on card ``dev`` and its table there
-    (built once per shape: a training step repeats a few shapes)."""
+def _device_plan(dev: torch.device, *shape,
+                 pos_offset: int = 0) -> Tuple[BwdPlan, torch.Tensor]:
+    """:func:`bwd_plan` for ``shape`` at ``pos_offset`` on card ``dev``
+    and its table there (built once per shape: a training step repeats a
+    few shapes)."""
     sms, resident = _card(dev.index, shape[5])
-    plan = bwd_plan(*shape, sms=sms, resident=resident)
+    plan = bwd_plan(*shape, sms=sms, resident=resident,
+                    pos_offset=pos_offset)
     return plan, torch.from_numpy(plan.table()).to(dev)
 
 
 def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
                       dout: torch.Tensor, *, causal: bool = True,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None, pos_offset: int = 0):
     """dq, dk, dv (bf16, the shapes of q, k, v) of :func:`flash_prefill`
     from its operands, its output, its lse and the output's gradient
-    ``dout`` (B, H, Sq, D) bf16, with the forward's masks.  On the card:
+    ``dout`` (B, H, Sq, D) bf16, with the forward's masks and
+    ``pos_offset``.  On the card:
     D_i = rowsum(dO ∘ O) with each row's log2e-scaled lse, packed
     token-major per KV head, then dK/dV by key tiles, on the caller's
     stream; beside them dQ by row tiles (each block summing its own rows'
@@ -458,14 +469,16 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
         return op_cost.COUNTER.kernel(
             "flash_prefill_bwd", KC.of_flash_prefill_bwd, flash_prefill_bwd,
-            q, k, v, out, lse, dout, causal=causal, window=window)
+            q, k, v, out, lse, dout, causal=causal, window=window,
+            pos_offset=pos_offset)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    seq = _check_shapes(q, k, v, causal, window, None)
+    off = int(pos_offset)
+    seq = _check_shapes(q, k, v, None, off)
     win = NO_WINDOW if window is None else int(window)
     if q.device.type == "cpu":
         return flash_prefill_bwd_ref(q, k, v, out, lse, dout, causal, win,
-                                     seq)
+                                     seq, pos_offset=off)
     if q.device.type != "cuda":
         raise RuntimeError(
             f"flash_prefill_bwd: unsupported device {q.device}")
@@ -481,19 +494,19 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device if q.device.index is not None else \
         torch.device("cuda", torch.cuda.current_device())
     plan, table = _device_plan(dev, B, H, Hkv, Sq, Sk, D, bool(causal), win,
-                               seq)
+                               seq, pos_offset=off)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     rows = torch.empty((B, H, Sq, 2), dtype=torch.float32, device=dev)
     kv_bytes, q_bytes = plan.scratch_bytes(B, Hkv, D)
     part_kv, part_q = (torch.empty(n // 4, dtype=torch.float32, device=dev)
                        if n else None for n in (kv_bytes, q_bytes))
-    fn = _build.bind("flash_prefill_bwd", "flash_prefill_bwd", 13, 14)
+    fn = _build.bind("flash_prefill_bwd", "flash_prefill_bwd", 13, 15)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), rows.data_ptr(), table.data_ptr(),
              None if part_kv is None else part_kv.data_ptr(),
              None if part_q is None else part_q.data_ptr(),
-             B, H, Hkv, Sq, Sk, D, seq, int(causal), win,
+             B, H, Hkv, Sq, Sk, D, seq, int(causal), win, off,
              len(plan.kv_items), plan.kv_slots, len(plan.q_items),
              plan.q_slots, int(plan.dq_first),
              torch.cuda.current_stream(dev).cuda_stream)
@@ -515,11 +528,12 @@ class FlashPrefill(torch.autograd.Function):
     pick."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int],
+                pos_offset: int = 0):
         out, lse = flash_prefill(q, k, v, causal=causal, window=window,
-                                 return_lse=True)
+                                 return_lse=True, pos_offset=pos_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.pos_offset = causal, window, pos_offset
         return out
 
     @staticmethod
@@ -527,5 +541,5 @@ class FlashPrefill(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_prefill_bwd(
             q, k, v, out, lse, dout.to(q.dtype).contiguous(),
-            causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+            causal=ctx.causal, window=ctx.window, pos_offset=ctx.pos_offset)
+        return dq, dk, dv, None, None, None

@@ -54,8 +54,10 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
 
 def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True,
-                            window: Optional[int] = None) -> torch.Tensor:
-    """Fused flash prefill.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D).
+                            window: Optional[int] = None,
+                            pos_offset: int = 0) -> torch.Tensor:
+    """Fused flash prefill.  q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D); query
+    row t at position ``pos_offset + t``.
 
     The kernel takes head-major bf16 operands and masks the ragged tail
     itself, so S needs no padding (the JAX wrapper pads S to a block
@@ -67,9 +69,10 @@ def flash_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     hm = [t.transpose(1, 2).to(torch.bfloat16).contiguous()
           for t in (q, k, v)]
     if torch.is_grad_enabled() and any(t.requires_grad for t in hm):
-        out = FlashPrefill.apply(*hm, causal, window)
+        out = FlashPrefill.apply(*hm, causal, window, pos_offset)
     else:
-        out = flash_prefill(*hm, causal=causal, window=window)
+        out = flash_prefill(*hm, causal=causal, window=window,
+                            pos_offset=pos_offset)
     return out.transpose(1, 2).to(q.dtype)
 
 

@@ -168,16 +168,18 @@ def paged_kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
 
 
 def prefill_kv_tiles(q0: int, qc: int, S: int, seq: int, causal: bool,
-                     window: int, block_k: int) -> range:
+                     window: int, block_k: int, pos_offset: int = 0
+                     ) -> range:
     """First keys of the ``block_k``-key tiles that can hold a kept key of
-    query rows ``[q0, q0 + qc)`` among ``S`` keys: tiles wholly past
-    ``seq``, above the diagonal (causal) or before the window are skipped,
-    as the kernel skips them (each is an exact no-op of the online
-    softmax)."""
+    query rows ``[q0, q0 + qc)`` (at positions ``pos_offset + q0`` on)
+    among ``S`` keys: tiles wholly past ``seq``, above the diagonal
+    (causal) or before the window are skipped, as the kernel skips them
+    (each is an exact no-op of the online softmax)."""
+    p0 = pos_offset + q0
     hi = min(seq, S)
     if causal:
-        hi = min(hi, q0 + qc)
-    lo = max(0, q0 - window + 1)
+        hi = min(hi, p0 + qc)
+    lo = max(0, p0 - window + 1)
     return range(lo // block_k * block_k, hi, block_k)
 
 
@@ -203,16 +205,17 @@ def _keep(qpos: torch.Tensor, kpos: torch.Tensor, seq: int, causal: bool,
 
 def flash_prefill_walk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool, window: int, seq: int, block_q: int,
-                       block_k: int, return_lse: bool = False):
+                       block_k: int, return_lse: bool = False,
+                       pos_offset: int = 0):
     """Flash prefill over ``block_q × block_k`` tiles: the port of
     ``repro.core.attention.flash_attention``'s ``q_chunk × kv_chunk``
     walk (attention.py:118-173) on the kernel's head-major operands.
 
-    q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16 (Sq == Sk unless non-causal
-    without a window); head h reads KV head ``h // rep``; a key is kept
-    when ``kpos < seq``, ``kpos <= qpos`` if ``causal`` and ``kpos > qpos
-    - window`` (NO_WINDOW: no window).  Rounding points of the kernel:
-    scores f32 times ``rsqrt(D)``, masked to ``NEG_INF``, p zeroed under
+    q (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16; head h reads KV head ``h //
+    rep``; query row t sits at position ``qpos = pos_offset + t``; a key
+    is kept when ``kpos < seq``, ``kpos <= qpos`` if ``causal`` and
+    ``kpos > qpos - window`` (NO_WINDOW: no window).  Rounding points of
+    the kernel: scores f32 times ``rsqrt(D)``, masked to ``NEG_INF``, p zeroed under
     the mask, l summing the unrounded p, p rounded to bf16 before the PV
     product, ``bf16(acc / max(l, 1e-20))``.  Rows and keys need no
     padding: the last tiles are cut short.  ``return_lse`` also returns
@@ -233,13 +236,13 @@ def flash_prefill_walk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, Sq, block_q):
         qb = qg[:, :, :, q0:q0 + block_q]                   # (B,Hkv,rep,qc,D)
         qc = qb.shape[3]
-        qpos = (q0 + torch.arange(qc, device=dev))[:, None]
+        qpos = (pos_offset + q0 + torch.arange(qc, device=dev))[:, None]
         m = torch.full((B, Hkv, rep, qc, 1), NEG_INF, dtype=acc_t,
                        device=dev)
         l = torch.zeros((B, Hkv, rep, qc, 1), dtype=acc_t, device=dev)
         acc = torch.zeros((B, Hkv, rep, qc, D), dtype=acc_t, device=dev)
         for k0 in prefill_kv_tiles(q0, qc, Sk, seq, causal, window,
-                                   block_k):
+                                   block_k, pos_offset):
             kb = kf[:, :, None, k0:k0 + block_k]            # (B,Hkv,1,kc,D)
             vb = vf[:, :, None, k0:k0 + block_k]
             kpos = k0 + torch.arange(kb.shape[3], device=dev)
@@ -264,14 +267,15 @@ def flash_prefill_walk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           out: torch.Tensor, lse: torch.Tensor,
                           dout: torch.Tensor, causal: bool, window: int,
-                          seq: int, block_q: int = 128):
+                          seq: int, block_q: int = 128, pos_offset: int = 0):
     """dq, dk, dv of :func:`flash_prefill_walk` from its saved operands:
     the plain version of ``csrc/flash_prefill_bwd.cu``, and the CPU path
     of the autograd function (the reference differentiates its XLA walk,
     ``jax.vjp`` of ``core/attention.py:92``).
 
     q / out / dout (B, H, Sq, D), k/v (B, Hkv, Sk, D) bf16, lse (B, H, Sq)
-    f32.  Per block of ``block_q`` query tokens, in f32:
+    f32; query row t at position ``pos_offset + t``.  Per block of
+    ``block_q`` query tokens, in f32:
     ``P = exp(S · rsqrt(D) − lse)`` (0 under the mask), ``D_i =
     rowsum(dO ∘ O)``, ``dV = Σ bf16(P)ᵀ dO``, ``dP = dO Vᵀ``, ``dS = P ∘
     (dP − D_i)``, ``dQ = rsqrt(D) · bf16(dS) K`` and ``dK = rsqrt(D) ·
@@ -297,7 +301,8 @@ def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, Sq, block_q):
         sl = slice(q0, q0 + block_q)
         qb, dob = qg[:, :, :, sl], dog[:, :, :, sl]
-        qpos = (q0 + torch.arange(qb.shape[3], device=dev))[:, None]
+        qpos = (pos_offset + q0 + torch.arange(qb.shape[3],
+                                               device=dev))[:, None]
         mask = _keep(qpos, kpos, seq, causal, window)
         s = torch.matmul(qb, kf.transpose(-1, -2)) * inv
         p = torch.where(mask, torch.exp(s - lg[:, :, :, sl]),
@@ -313,26 +318,28 @@ def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True, window=None) -> torch.Tensor:
+                      causal: bool = True, window=None,
+                      pos_offset: int = 0) -> torch.Tensor:
     """Oracle for the flash-prefill kernel: full f32 attention (port of
-    ``repro.kernels.ref.flash_prefill_ref``).  q (B, S, H, D); k/v
-    (B, S, Hkv, D); returns (B, S, H, D) in q's dtype."""
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    ``repro.kernels.ref.flash_prefill_ref``).  q (B, Sq, H, D); k/v
+    (B, Sk, Hkv, D); query row t at position ``pos_offset + t``; returns
+    (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Hkv, Sk = k.shape[2], k.shape[1]
     rep = H // Hkv
-    qf = q.float().reshape(B, S, Hkv, rep, D)
+    qf = q.float().reshape(B, Sq, Hkv, rep, D)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.float())
     scores = scores / torch.sqrt(torch.tensor(float(D)))
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
+    qpos = pos_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = (kpos <= qpos) if causal else torch.ones(
-        (S, S), dtype=torch.bool, device=q.device)
+        (Sq, Sk), dtype=torch.bool, device=q.device)
     if window is not None:
         mask &= kpos > (qpos - window)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 # -- each kernel wrapper's plain version, taking the wrapper's arguments ----
@@ -353,21 +360,22 @@ def _plain_paged_kvattn(q, k, k_scale, v, v_scale, block_table, pos,
 
 
 def _plain_flash_prefill(q, k, v, *, causal=True, window=None, seq=None,
-                         tile=None, return_lse=False):
+                         tile=None, return_lse=False, pos_offset=0):
     from .flashprefill import pick_tile
     B, H, Sq, D = q.shape
     block_q, block_k = tile or pick_tile(B, H, k.shape[1], Sq, D)
     return flash_prefill_walk(
         q, k, v, causal, NO_WINDOW if window is None else int(window),
         k.shape[2] if seq is None else seq, block_q, block_k,
-        return_lse=return_lse)
+        return_lse=return_lse, pos_offset=pos_offset)
 
 
 def _plain_flash_prefill_bwd(q, k, v, out, lse, dout, *, causal=True,
-                             window=None):
+                             window=None, pos_offset=0):
     return flash_prefill_bwd_ref(
         q, k, v, out, lse, dout, causal,
-        NO_WINDOW if window is None else int(window), k.shape[2])
+        NO_WINDOW if window is None else int(window), k.shape[2],
+        pos_offset=pos_offset)
 
 
 #: the plain version of each kernel wrapper, by the wrapper's name

@@ -20,6 +20,40 @@ from repro_torch.core.packing import PackedWeight, pack_stack, pack_weight
 from repro_torch.core.precision import FormatSpec, PrecisionPolicy
 from repro_torch.kernels import ops
 
+#: activation-sharding hook: launch code installs a function that puts the
+#: HEAD axis of (B, S, H, dh) tensors on the model axis (``launch/train.py``
+#: installs a DTensor redistribution); the identity when None
+_HEAD_CONSTRAINT = None
+
+
+def set_head_constraint(fn) -> None:
+    """Install (or, with None, remove) the head-axis constraint."""
+    global _HEAD_CONSTRAINT
+    _HEAD_CONSTRAINT = fn
+
+
+def constrain_heads(x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, dh): apply the installed head-axis constraint."""
+    if _HEAD_CONSTRAINT is None:
+        return x
+    return _HEAD_CONSTRAINT(x)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows ``table[tokens]`` of an embedding table.  A DTensor table (the
+    sharded step) goes through ``F.embedding``, whose sharding rule DTensor
+    has on every torch version (the indexing's backward ``index_put`` has
+    none on some), from the table gathered whole (a vocab-sharded lookup's
+    masked partial rows have no backward redistribution); a plain table
+    is indexed, as before."""
+    if A.is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+        whole = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+        return F.embedding(tokens.long(), whole)
+    return table[tokens.long()]
+
+
 # ---------------------------------------------------------------------------
 # Linear application — quantization-transparent
 # ---------------------------------------------------------------------------

@@ -163,7 +163,7 @@ def _dec_pos_embed(params, pos: torch.Tensor) -> torch.Tensor:
     """Learned decoder positions, clamped to the table (positions past
     whisper's 448 reuse the last row)."""
     table = params["dec_pos"]
-    return table[pos.long().clamp(0, table.shape[0] - 1)]
+    return C.embed_rows(table, pos.long().clamp(0, table.shape[0] - 1))
 
 
 def _decoder(params, cfg: ModelConfig, policy, x, cache: EncDecCache,
@@ -265,7 +265,7 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
     enc_out = encode(params, cfg, frames, policy)
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = torch.arange(T, device=tokens.device)
-    x = params["embed"][tokens.long()].to(torch.bfloat16)
+    x = C.embed_rows(params["embed"], tokens).to(torch.bfloat16)
     x = x + _dec_pos_embed(params, pos)[None]
 
     def body(x, lp):

@@ -40,12 +40,13 @@ Top-k ties go to the lower expert index, as ``jax.lax.top_k`` breaks them
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attention as A
 from repro_torch.core.packing import PackedWeight, dequantize_packed
 
 from . import common as C
@@ -173,11 +174,49 @@ def dispatch_sort(gate_idx: torch.Tensor, E: int, cap: int
     return keep
 
 
+#: expert parallelism for DTensor operands (the sharded training step),
+#: installed by launch code (``launch/train.py``): ``fn(x, lp, cfg,
+#: policy) -> out``
+_SHARDED_FFN = None
+
+
+def set_sharded_ffn(fn) -> None:
+    """Install (or, with None, remove) the DTensor path of :func:`moe_ffn`."""
+    global _SHARDED_FFN
+    _SHARDED_FFN = fn
+
+
+def rows_route_alone() -> bool:
+    """Whether a shard of batch rows routes as it would in the whole
+    batch: the einsum dispatch's capacity is per row, the sort dispatch's
+    the whole call's."""
+    return _DISPATCH_IMPL == "einsum"
+
+
 def moe_ffn(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
             policy=None) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d), groups = batch rows (module docstring)."""
+    """x: (B, S, d) → (B, S, d), groups = batch rows (module docstring).
+    DTensor operands go to the installed :func:`set_sharded_ffn`."""
+    if A.is_dtensor(x):
+        if _SHARDED_FFN is None:
+            raise ValueError("moe_ffn of DTensors needs the sharded step's "
+                             "expert parallelism (set_sharded_ffn)")
+        return _SHARDED_FFN(x, lp, cfg, policy)
+    return moe_partial(x, lp, cfg, policy).to(x.dtype)
+
+
+def moe_partial(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
+                policy=None, experts: Optional[range] = None
+                ) -> torch.Tensor:
+    """The combine's sums (B, S, d) before :func:`moe_ffn` rounds them to
+    x's dtype — f32 (einsum) or bf16 (sort) — over the experts in
+    ``experts`` (default all), whose weights ``lp``'s stacks hold in that
+    order.  Routing and capacity are computed over all of x's tokens and
+    all experts either way, so the sums of disjoint ranges of experts add
+    up to the whole (the sharded step's expert parallelism)."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.topk
+    experts = range(E) if experts is None else experts
     _, gates, gate_idx = route(x, lp, cfg, policy)
     xt = x.to(torch.bfloat16).reshape(B * S, d)
     tok = torch.arange(B * S, device=x.device).repeat_interleave(K)
@@ -192,13 +231,15 @@ def moe_ffn(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
     # one host read: which experts hold a kept token
     kept = torch.nonzero(keep).reshape(-1)
     for e in torch.unique(eid[kept]).tolist():
+        if e not in experts:
+            continue
         sel = kept[eid[kept] == e]
-        out = _expert_ffn(xt[tok[sel]], lp, e)
+        out = _expert_ffn(xt[tok[sel]], lp, e - experts.start)
         if _DISPATCH_IMPL == "sort":
             y.index_add_(0, tok[sel], out * g[sel, None])
         else:
             y.index_add_(0, tok[sel], out.float() * g[sel, None].float())
-    return y.to(x.dtype).reshape(B, S, d)
+    return y.reshape(B, S, d)
 
 
 def load_balance_loss(probs: torch.Tensor, gate_idx: torch.Tensor,

@@ -372,7 +372,7 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                                device=dev),
         conv=torch.zeros((n_rec, B, cfg.conv_width - 1, W),
                          dtype=torch.bfloat16, device=dev))
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     x, _ = _run(params, cfg, policy, x, state, _rec_block_seq,
                 _attn_block_seq, remat=remat)
     return C.rms_norm(x, params["final_norm"], cfg.norm_eps)

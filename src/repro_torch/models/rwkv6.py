@@ -189,12 +189,12 @@ def _time_mix_seq(x, x_prev_last, lp, cfg: ModelConfig, policy, s0):
     def proj(name, mu):
         return C.linear(_lerp(x, xs, lp[mu]), lp[name], policy)
 
-    r = proj("wr", "mu_r").reshape(B, S, H, dh)
-    k = proj("wk", "mu_k").reshape(B, S, H, dh)
-    v = proj("wv", "mu_v").reshape(B, S, H, dh)
+    r = C.constrain_heads(proj("wr", "mu_r").reshape(B, S, H, dh))
+    k = C.constrain_heads(proj("wk", "mu_k").reshape(B, S, H, dh))
+    v = C.constrain_heads(proj("wv", "mu_v").reshape(B, S, H, dh))
     g = F.silu(proj("wg", "mu_g").float())
-    logw = _log_decay(_lerp(x, xs, lp["mu_w"]), lp, policy).reshape(
-        B, S, H, dh)
+    logw = C.constrain_heads(_log_decay(_lerp(x, xs, lp["mu_w"]), lp,
+                                        policy).reshape(B, S, H, dh))
     y, s_fin = _wkv_chunked(r, k, v, logw, lp["u"], s0)
     y = C.group_norm(y.reshape(B, S, d).to(x.dtype), lp["ln_x"], H)
     y = (y.float() * g).to(x.dtype)
@@ -221,7 +221,7 @@ def _forward_seq(params, cfg: ModelConfig, tokens, policy,
                  ) -> Tuple[torch.Tensor, RWKVState]:
     """tokens (B, S) from ``state`` → (final-normed hidden states, the new
     state); ``remat`` recomputes each layer in the backward pass."""
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
 
     def body(x, lp, tm_s, cm_s, wkv_s):
         h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)

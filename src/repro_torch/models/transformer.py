@@ -184,7 +184,7 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
     :func:`repro_torch.core.attention.flash_attention` with each layer's
     window (the kernels on the card, forward and backward); ``remat``
     recomputes each layer in the backward pass."""
-    x = params["embed"][tokens.long()]
+    x = C.embed_rows(params["embed"], tokens)
     if img_embeds is not None:
         proj = C.linear(img_embeds.to(x.dtype), params["img_proj"], policy)
         x = torch.cat([proj.to(x.dtype), x], dim=1)

@@ -20,6 +20,14 @@ gathers each stack's members into one (L, ...) f32 tensor
 (:func:`leaf_groups`), applies the reference's arithmetic to it and
 writes the rows back.  The state holds one stacked tensor per group,
 keyed by its path (``"layers/wq"``, ``"encoder/ln1/g"``, ``"embed"``).
+
+**DTensors** (the sharded step, ``launch/train.py``).  The same code runs
+on DTensor parameters, gradients and state: each gradient is first put on
+its parameter's placements (a replicated parameter's gradient arrives
+``Partial`` over the data axes and is summed there), an updated row is put
+back on its member's placements before the copy, and new state on the
+placements of the state it replaces (:func:`_placed`), so every leaf
+keeps its sharding across steps.  On plain tensors these are no-ops.
 """
 from __future__ import annotations
 
@@ -69,15 +77,30 @@ def _gather(group: Group) -> torch.Tensor:
     return members[0].detach().float()
 
 
+def _placed(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` on the placements of ``like`` where both are DTensors (a
+    ``Partial`` sum reduced, a shard cut or gathered), else ``t``."""
+    placements = getattr(like, "placements", None)
+    if placements is None or getattr(t, "placements", None) == placements:
+        return t
+    return t.redistribute(like.device_mesh, placements)
+
+
 def _scatter(group: Group, new: torch.Tensor) -> None:
     """Write an updated f32 group back into its members (cast to each
     member's dtype, rounding to nearest)."""
     stacked, members = group
     if stacked:
+        placements = getattr(members[0], "placements", None)
+        if placements is not None:     # the members' shards, one dim in
+            from torch.distributed.tensor import Shard
+            new = new.redistribute(members[0].device_mesh, [
+                Shard(p.dim + 1) if isinstance(p, Shard) else p
+                for p in placements])
         for m, row in zip(members, new.unbind(0)):
-            m.copy_(row)
+            m.copy_(_placed(row, m))
     else:
-        members[0].copy_(new)
+        members[0].copy_(_placed(new, members[0]))
 
 
 def _stacked_shape(group: Group) -> Tuple[int, ...]:
@@ -87,11 +110,12 @@ def _stacked_shape(group: Group) -> Tuple[int, ...]:
 
 def _grads(grads, params) -> Dict[str, torch.Tensor]:
     """Each group's gradient as one f32 tensor (zeros where a member got
-    none, e.g. an expert no token reached)."""
+    none, e.g. an expert no token reached), on its parameters'
+    placements."""
     pg = leaf_groups(params)
     out = {}
     for name, (stacked, members) in leaf_groups(grads).items():
-        members = [torch.zeros_like(p) if g is None else g
+        members = [torch.zeros_like(p) if g is None else _placed(g, p)
                    for g, p in zip(members, pg[name][1])]
         out[name] = _gather((stacked, members))
     return out
@@ -134,8 +158,10 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         mu, nu = {}, {}
         for name, group in leaf_groups(params).items():
             g = gs[name]
-            mu[name] = b1 * state["mu"][name] + (1 - b1) * g
-            nu[name] = b2 * state["nu"][name] + (1 - b2) * g * g
+            mu[name] = _placed(b1 * state["mu"][name] + (1 - b1) * g,
+                               state["mu"][name])
+            nu[name] = _placed(b2 * state["nu"][name] + (1 - b2) * g * g,
+                               state["nu"][name])
             p = _gather(group)
             upd = (mu[name] / bc1) / (torch.sqrt(nu[name] / bc2) + eps)
             if p.dim() >= 2:    # decoupled weight decay on matrices only
@@ -187,11 +213,12 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps1: float = 1e-30,
                 denom = vr.mean(-1, keepdim=True)
                 u = g / (torch.sqrt(vr / torch.clamp_min(denom, eps1))[
                     ..., None] * torch.sqrt(vc)[..., None, :] + eps1)
-                m[name] = {"vr": vr, "vc": vc}
+                m[name] = {"vr": _placed(vr, s["vr"]),
+                           "vc": _placed(vc, s["vc"])}
             else:
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g / (torch.sqrt(v) + eps1)
-                m[name] = {"v": v}
+                m[name] = {"v": _placed(v, s["v"])}
             rms_u = torch.sqrt(torch.mean(u * u) + eps1)
             u = u / torch.clamp_min(rms_u / clip_threshold, 1.0)
             scale = torch.clamp_min(torch.sqrt(torch.mean(p * p)), eps2)

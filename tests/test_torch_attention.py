@@ -177,14 +177,16 @@ def test_prefill_attention_oracle_matches_jax():
         assert np.abs(_f32(out_t) - _f32(out_j)).max() <= 2e-2
 
 
-@pytest.mark.parametrize("kw", [dict(pos_offset=4), dict(window=jnp.int32(3)),
-                                dict(k_len=24)])
+@pytest.mark.parametrize("kw", [dict(pos_offset=-4),
+                                dict(window=torch.tensor([3, 4])),
+                                dict(pos_offset=torch.tensor(2.0))])
 def test_flash_attention_outside_contract_raises(kw):
-    """Offset / chunked prefill and traced windows are multi-device and
-    training knobs, not yet ported."""
+    """A negative offset, and a window or offset that is not an int or a
+    0-d integer tensor, are refused (any offset >= 0, Sq != Sk and a 0-d
+    window run: ``test_torch_flash_offset.py``)."""
     q = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
-    k = torch.zeros((1, kw.pop("k_len", 16), 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    k = torch.zeros((1, 24, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
         TA.flash_attention(q, k, k, **kw)
 
 

@@ -742,15 +742,15 @@ def test_flash_prefill_matches_plain(dev, case, tile):
 
 
 def test_flash_prefill_refuses(dev):
-    """Sq != Sk is outside the kernel's contract (flash_attention raises);
-    a tile past 227 KB of shared memory and an unbuilt head dim raise
-    ValueError without launching."""
+    """A negative offset is outside the kernel's contract (flash_attention
+    raises); a tile past 227 KB of shared memory and an unbuilt head dim
+    raise ValueError without launching."""
     from repro_torch.core.attention import flash_attention
     q, k, v = _flash_inputs(FLASH_CASES[0], dev)
     before = flash_prefill.launches
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="pos_offset"):
         flash_attention(q.transpose(1, 2), k[:, :, :64].transpose(1, 2),
-                        v[:, :, :64].transpose(1, 2))
+                        v[:, :, :64].transpose(1, 2), pos_offset=-1)
     with pytest.raises(ValueError, match="shared memory"):
         flash_prefill(q, k, v, tile=(128, 256))   # D 256: 608 KB
     with pytest.raises(ValueError, match="head_dim"):
@@ -856,3 +856,38 @@ def test_flash_attention_grad_runs_the_kernels(dev):
     with torch.no_grad():
         flash_attention(*leaves, causal=True)
     assert flash_prefill_bwd.launches - bwd == 2
+
+
+#: B, H, Hkv, Sq, Sk, D, causal, window, offset: sequence-parallel ranks'
+#: rows (arctic's 56 / 8 heads cut to 2 ranks' depth, gemma3's D 288 with
+#: its window crossing rank boundaries), o + Sq < Sk, Sq > Sk
+FLASH_OFFSET_CASES = [
+    (1, 56, 8, 256, 1024, 128, True, None, 768),
+    (1, 56, 8, 256, 1024, 128, True, None, 256),
+    (2, 4, 1, 512, 2048, 288, True, 1024, 1536),
+    (2, 4, 1, 512, 2048, 288, True, 1024, 512),
+    (1, 8, 2, 100, 700, 64, True, 130, 333),
+    (2, 6, 6, 96, 64, 32, True, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES)
+def test_flash_kernels_at_offset_match_plain(dev, case):
+    """Both kernels at a query position offset against their plain
+    versions, at the bars of the offset-0 cases."""
+    q, k, v, do = _grad_inputs(case, dev)
+    kw = dict(causal=case[6], window=case[7], pos_offset=case[8])
+    out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+    got = flash_prefill_bwd(q, k, v, out, lse, do, **kw)
+    ref_out, ref_lse = flash_prefill(q.cpu(), k.cpu(), v.cpu(),
+                                     return_lse=True, **kw)
+    ref = flash_prefill_bwd(*(t.cpu() for t in (q, k, v, out, lse, do)),
+                            **kw)
+    torch.cuda.synchronize()
+    err = (out.float().cpu() - ref_out.float()).abs().max().item()
+    assert err <= FLASH_REL_TOL * ref_out.float().abs().max().item()
+    torch.testing.assert_close(lse.cpu(), ref_lse, rtol=1e-5, atol=2e-4)
+    for name, a, r in zip("qkv", got, ref):
+        err = (a.float().cpu() - r.float()).abs().max().item()
+        assert err <= FLASH_BWD_REL_TOL * r.float().abs().max().item(), \
+            (name, err)

@@ -30,6 +30,7 @@ from repro_torch.convert import to_tensor
 from repro_torch.core import attention as TA
 from repro_torch.kernels.flashprefill import (FlashPrefill, flash_prefill,
                                               flash_prefill_bwd)
+from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.ref import NEG_INF
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
@@ -148,9 +149,19 @@ def test_no_grad_calls_save_nothing():
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(window=8,
                                                         causal=False)])
 def test_masked_sq_ne_sk_still_refused(kw):
-    """Sq != Sk with a causal mask or a window (chunked or offset
-    prefill) stays ROADMAP item 12."""
-    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16)
-    k = torch.zeros((1, 12, 2, 32), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TA.flash_attention(q, k, k, **kw)
+    """Sq != Sk with a causal mask or a window is refused only at a
+    negative offset; at offset Sk - Sq its gradient is autograd's of the
+    f32 oracle (bf16 operands: 2e-2 of the largest gradient)."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v = (torch.randn(s, generator=g).bfloat16()
+               for s in ((1, 8, 2, 32), (1, 12, 2, 32), (1, 12, 2, 32)))
+    with pytest.raises(ValueError, match="pos_offset"):
+        TA.flash_attention(q, k, v, pos_offset=-1, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = TA.flash_attention(*leaves, pos_offset=4, **kw)
+    ref = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+    TREF.flash_prefill_ref(*ref, pos_offset=4, **kw).float().sum().backward()
+    out.float().sum().backward()
+    for a, r in zip(leaves, ref):
+        err = (a.grad.float() - r.grad).abs().max().item()
+        assert err <= 2e-2 * r.grad.abs().max().item() + 1e-3, err

@@ -33,7 +33,7 @@ optimizers, checkpoints, the loop, the CLI and the examples.
   Adafactor state is factored, ``for_config`` picks Adafactor for
   ``big_model``, the loss descends, a whisper step runs; remat gives the
   same gradients bit for bit; the CLI and the examples run on the CPU,
-  and the multi-device flags are refused naming ROADMAP item 12.
+  and a multi-device mesh whose size is not ``--devices`` is refused.
 """
 import dataclasses
 import json
@@ -508,10 +508,13 @@ def test_cli_trains_on_the_cpu(capsys, tmp_path):
     assert "step     0  loss" in out and "tokens/s" in out and ck in out
 
 
-@pytest.mark.parametrize("flag", [["--devices", "4"], ["--mesh", "2,2"]])
+@pytest.mark.parametrize("flag", [["--devices", "4", "--mesh", "3,1"],
+                                  ["--devices", "2", "--mesh", "2,2"]])
 def test_cli_refuses_multi_device(flag):
+    """A mesh whose size is not ``--devices`` is refused before any rank
+    starts (``--devices`` / ``--mesh`` run: test_torch_sharding.py)."""
     from repro_torch.launch import train as cli
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="--mesh"):
         cli.main(["--device", "cpu", "--reduced"] + flag)
 
 
