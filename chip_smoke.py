@@ -181,6 +181,7 @@ port's sources are not beside this script.
 """
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2544,6 +2545,317 @@ def multidevice_phase(dev, smi):
         launches
 
 
+#: decode attention over a sequence-sharded slab, rank by rank (the
+#: sharded serve step's call on a 16-way model axis, whose KV heads never
+#: divide it): (label, format, B, Hkv, rep, D, context, ranks, window); every
+#: slot at the last position, so each rank's range is full (the dry-run's
+#: decode_32k) — gemma3's local layers keep only the last ranks' keys, the
+#: others give lse -inf and an output of 0
+SEQ_SHARDED_DECODE = [
+    ("smollm-360m decode_32k", "kv8", 8, 5, 3, 64, 32768, 16, None),
+    ("gemma3-1b decode_32k global", "kv8", 8, 1, 4, 288, 32768, 16, None),
+    ("gemma3-1b decode_32k local", "kv8", 8, 1, 4, 288, 32768, 16, 1024)]
+#: the ranks' lse-combined output against one whole call, relative to its
+#: largest element (each rank's output rounded to bf16 before the f32
+#: combine)
+SEQ_COMBINE_TOL = 2e-2
+
+
+def seq_sharded_slab(dev, gen, spec, B, S, Hkv, D):
+    """A (B, S, Hkv, Dstore) slab of random tokens stored in ``spec``,
+    every cell written (a per-layer view)."""
+    import torch
+    from repro_torch.core import kvcache as KV
+    from repro_torch.core.quantize import quantize_kv
+    slab = KV.init_cache(B, S, Hkv, D, spec, device=dev).layer(0)
+    for buf, sc in ((slab.k, slab.k_scale), (slab.v, slab.v_scale)):
+        for b in range(B):
+            g = torch.randn((S, Hkv, D), generator=gen, device=dev)
+            q, s = quantize_kv(g.to(torch.bfloat16), spec)
+            buf[b].copy_(q)
+            sc[b].copy_(s[..., 0])
+    return slab
+
+
+def seq_sharded_rows(dev, flush, smi):
+    """Decode attention over a sequence-sharded slab at full width
+    (``SEQ_SHARDED_DECODE``): each rank's key range through the kernel at
+    its key offset with the lse (the drive, launches counted), each
+    against the plain version at the same offset; the ranks' outputs
+    combined by their lse against one whole-slab call; the whole call
+    without the lse equal, bit for bit, to its outputs with it.  Times
+    each rank's call beside its bound and SDPA with the explicit mask over
+    the rank's dequantized range.  Returns the printed lines, the kernel
+    rows and the launches of the drive."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.precision import get_policy
+    from repro_torch.core.quantize import dequantize_kv
+    from repro_torch.kernels import cost as KC
+    from repro_torch.kernels.kvattn import kvattn
+    from repro_torch.kernels.ref import NO_WINDOW, combine_lse, kvattn_ref
+    from repro_torch.roofline import HW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    lines, rows, launches = [], [], 0
+    for name, fmt, B, Hkv, rep, D, S, n, window in SEQ_SHARDED_DECODE:
+        t0 = time.perf_counter()
+        spec = {"kv8": get_policy("w4a16kv8"),
+                "kv16": get_policy("w16a16kv16")}[fmt].kv
+        slab = seq_sharded_slab(dev, gen, spec, B, S, Hkv, D)
+        q = torch.randn((B, Hkv, rep, D), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        win = NO_WINDOW if window is None else window
+        Sl, bs = S // n, 256
+        whole = kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale, pos,
+                       win, rep, bs, spec)
+        w_out, w_lse = kvattn(q, slab.k, slab.k_scale, slab.v, slab.v_scale,
+                              pos, win, rep, bs, spec, return_lse=True)
+        check(w_out.dtype == torch.float32 and
+              torch.equal(whole, w_out.to(torch.bfloat16)),
+              f"seq {name}: the whole call's f32 output with the lse does "
+              "not round to the output without it")
+        parts = []
+        for r in range(n):
+            sl = slice(r * Sl, (r + 1) * Sl)
+            parts.append(tuple(t[:, sl].contiguous() for t in (
+                slab.k, slab.k_scale, slab.v, slab.v_scale)))
+        kvattn.launches = 0
+        outs = [kvattn(q, *p, pos, win, rep, bs, spec, key_offset=r * Sl,
+                       return_lse=True) for r, p in enumerate(parts)]
+        torch.cuda.synchronize()
+        check(kvattn.launches == n,
+              f"seq {name}: {kvattn.launches} launches, want {n}")
+        launches += n
+        comb = combine_lse([o for o, _ in outs], [ls for _, ls in outs])
+        top = whole.float().abs().max().item()
+        c_err = (comb.float() - whole.float()).abs().max().item()
+        check(torch.isfinite(comb.float()).all().item() and
+              c_err <= SEQ_COMBINE_TOL * top,
+              f"seq {name}: combined |Δ|={c_err} > {SEQ_COMBINE_TOL} x {top}")
+        qh = q.reshape(B, Hkv * rep, 1, D)
+        rank_rows = []
+        for r, (p, (o, ls)) in enumerate(zip(parts, outs)):
+            args = (q, *p, pos, win, rep, bs, spec)
+            ref, ref_lse = kvattn_ref(q, *p, pos, win, rep, bs, r * Sl, True)
+            err = (o.float() - ref.float()).abs().max().item()
+            tol = ATTN_REL_TOL * max(ref.float().abs().max().item(), 1e-30)
+            check(err <= tol, f"seq {name} rank {r}: |Δ|={err} > {tol}")
+            none = torch.isinf(ref_lse)
+            check(torch.equal(torch.isinf(ls), none) and
+                  (ls[none] < 0).all().item() and
+                  (o.float()[none] == 0).all().item(),
+                  f"seq {name} rank {r}: rows with no key differ")
+            l_err = (ls[~none] - ref_lse[~none]).abs().max().item() \
+                if (~none).any() else 0.0
+            check(l_err <= 1e-3, f"seq {name} rank {r}: lse |Δ|={l_err}")
+            kd, vd = (dequantize_kv(t, sc[..., None], spec)
+                      .permute(0, 2, 1, 3).contiguous()
+                      for t, sc in ((p[0], p[1]), (p[2], p[3])))
+            kpos = r * Sl + torch.arange(Sl, device=dev)
+            mask = ((kpos <= S - 1) & (kpos > S - 1 - win))[None, None, None]
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kd, vd, attn_mask=mask, enable_gqa=True)
+            ops, nbytes = KC.of_kvattn(*args, key_offset=r * Sl,
+                                       return_lse=True)
+            b, by = bound_ms(nbytes, ops)
+            rank_rows.append(dict(
+                shape=f"seq {name} rank {r}/{n} keys {r * Sl}..{(r + 1) * Sl}"
+                      f" {fmt} B={B} Hkv={Hkv} rep={rep} D={D}"
+                      f" window={window}",
+                max_abs_err=err, lse_max_abs_err=l_err,
+                rows_without_keys=int(none.sum().item()),
+                ms=time_ms(lambda: kvattn(*args, key_offset=r * Sl,
+                                          return_lse=True), flush),
+                plain_ms=time_ms(lambda: kvattn_ref(
+                    q, *p, pos, win, rep, bs, r * Sl, True), flush, iters=3),
+                library_ms=time_ms(sdpa, flush), bound_ms=b, bound_by=by,
+                bytes=nbytes, ops=ops, ops_per_s=HW.peak_flops))
+        for rr in rank_rows:
+            lines.append(dict(card=smi, **{k: rr[k] for k in (
+                "shape", "ms", "bound_ms", "bound_by", "library_ms",
+                "plain_ms", "max_abs_err", "lse_max_abs_err",
+                "rows_without_keys")}))
+        rs = rank_rows
+        rows.append(dict(
+            shape=f"seq {name}: {n} ranks of {Sl} keys (sums over ranks)",
+            max_abs_err=max(x["max_abs_err"] for x in rs),
+            combined_rel_err=c_err / top,
+            ms=sum(x["ms"] for x in rs),
+            plain_ms=sum(x["plain_ms"] for x in rs),
+            library_ms=sum(x["library_ms"] for x in rs),
+            bound_ms=sum(x["bound_ms"] for x in rs),
+            bound_by=bound_ms(sum(x["bytes"] for x in rs),
+                              sum(x["ops"] for x in rs))[1],
+            bytes=sum(x["bytes"] for x in rs), ops=sum(x["ops"] for x in rs),
+            ops_per_s=HW.peak_flops))
+        print(f"  seq {name}: combined rel err {c_err / top:.3g} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del slab, parts
+    return lines, rows, launches
+
+
+#: the dry-run's count on a 1-rank mesh against the eager count of the
+#: same step on the card: (arch, (seq, batch, kind)) — ROOFLINE_TRAIN's
+#: step with remat (the dry-run's), rwkv6-7b's decode step
+DRYRUN_COUNTS = [(ROOFLINE_TRAIN[0], (ROOFLINE_TRAIN[2], ROOFLINE_TRAIN[1],
+                                      "train")),
+                 ("rwkv6-7b", (256, 4, "decode"))]
+#: the dry-run's other FLOPs and bytes against the eager count (matmul
+#: FLOPs exactly), and its peak against the card's, relative
+DRYRUN_COUNT_TOL, DRYRUN_MEM_TOL = 0.01, 0.2
+#: production pairs the dry-run's CLI runs, each in a process of its own:
+#: (arch, shape, multi-pod)
+DRYRUN_PAIRS = [("smollm-360m", "decode_32k", False),
+                ("arctic-480b", "train_4k", False),
+                ("rwkv6-7b", "long_500k", False),
+                ("gemma3-1b", "decode_32k", True)]
+
+
+def dryrun_cli_start():
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_PAIRS`` (CPU only, no card), all at once; returns the
+    processes and their record files."""
+    out = ROOT / "build" / "dryrun_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for arch, shape, multi in DRYRUN_PAIRS:
+        rec = out / f"{arch}-{shape}-{'2x16x16' if multi else '16x16'}.jsonl"
+        rec.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(rec)] + \
+            (["--multi-pod"] if multi else [])
+        procs.append((rec, subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                                CUDA_VISIBLE_DEVICES=""))))
+    return procs
+
+
+def dryrun_cli_wait(procs, timeout=600):
+    """Each pair's record (its process's exit code checked, the status
+    "ok"), the processes stopped either way."""
+    recs = []
+    try:
+        for rec, p in procs:
+            log, _ = p.communicate(timeout=timeout)
+            check(p.returncode == 0 and rec.exists(),
+                  f"dryrun CLI {rec.name}: exit {p.returncode}\n"
+                  f"{log[-3000:]}")
+            r = json.loads(rec.read_text().splitlines()[-1])
+            check(r["status"] == "ok", f"dryrun CLI {rec.name}: {r}")
+            recs.append(r)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return recs
+
+
+def dryrun_count_check(dev):
+    """``DRYRUN_COUNTS``: the dry-run's count of each step on a 1-rank
+    fake mesh (CPU, fake tensors) against the eager count of the same step
+    on the card (``roofline.analyze_step``, kernels launched): matmul
+    FLOPs exactly, other FLOPs and bytes within ``DRYRUN_COUNT_TOL``; the
+    dry-run's ``peak_bytes`` against ``torch.cuda.max_memory_allocated``
+    of the step (parameters, state and inputs resident), within
+    ``DRYRUN_MEM_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.precision import get_policy
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.registry import build
+    from repro_torch.roofline import analyze_step
+    from repro_torch.serving.engine import quantize_params
+    from repro_torch.training import data as D
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.loop import make_train_step, tree_map
+    out = []
+    for arch, (seq, batch, kind) in DRYRUN_COUNTS:
+        t0 = time.perf_counter()
+        rec = DR.run_pair(arch, (seq, batch, kind), mesh_shape=(1, 1),
+                          cfg=get_config(arch))
+        t_dry = time.perf_counter() - t0
+        cfg = get_config(arch)
+        model = build(cfg)
+        kw = dict(arch=arch, shape=kind, cfg=cfg, seq=seq, batch=batch,
+                  kind=kind)
+        torch.cuda.empty_cache()
+        if kind == "train":
+            params = tree_map(lambda p: p.requires_grad_(True),
+                              model.init_params(0, dev))
+            opt = O.for_config(cfg)
+            state = opt.init(params)
+            toks, tgts = next(D.batches(cfg.vocab, batch, seq, 1, seed=1,
+                                        device=dev))
+            step = make_train_step(model, opt, remat=True)
+            args = (params, state, toks, tgts)
+        else:
+            pol = get_policy(DR.SERVING_POLICY)
+            params = quantize_params(model.init_params(0, dev), pol, dev)
+            state = model.init_cache(pol, batch, seq, dev)
+            toks = torch.ones((batch, 1), dtype=torch.int32, device=dev)
+            pos = torch.full((batch,), seq - 1, dtype=torch.int32,
+                             device=dev)
+            args = (params, pol, toks, state, pos)
+
+            def step(*a):
+                with torch.no_grad():
+                    return model.decode_step(*a)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        eager = analyze_step(step, *args, **kw).cost
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated(dev)
+        del params, state, args
+        torch.cuda.empty_cache()
+        got = rec["device_counts"]
+        label = f"{arch} {kind} {batch} x {seq}"
+        check(got["matmul_flops"] == eager.matmul_flops,
+              f"dryrun count {label}: matmul FLOPs {got} vs {eager}")
+        for k, v in (("other_flops", eager.other_flops),
+                     ("bytes", eager.bytes)):
+            check(abs(got[k] - v) <= DRYRUN_COUNT_TOL * v,
+                  f"dryrun count {label}: {k} {got[k]} vs eager {v}")
+        peak = rec["memory"]["peak_bytes"]
+        check(abs(peak - card_peak) <= DRYRUN_MEM_TOL * card_peak,
+              f"dryrun count {label}: peak {peak} B vs the card's "
+              f"{card_peak} B")
+        out.append(dict(step=label, dryrun=got, eager=dict(
+            matmul_flops=eager.matmul_flops, other_flops=eager.other_flops,
+            bytes=eager.bytes), dryrun_peak_bytes=peak,
+            card_peak_bytes=card_peak, peak_ratio=peak / card_peak,
+            dryrun_s=t_dry, dryrun_record=rec))
+    return out
+
+
+def dryrun_phase(dev, smi):
+    """The dry-run's phase: (a) decode attention over a sequence-sharded
+    slab rank by rank at full width (``seq_sharded_rows``: the kernel at
+    each rank's key offset with the lse, combined), (b) the dry-run's
+    count against the card's (``dryrun_count_check``), (c) production
+    pairs through the dry-run's CLI (``dryrun_cli_start``, started first:
+    they run on the host beside (a) and (b)).  Returns the printed lines,
+    the kvattn rows, the launches of (a)'s drive, (b)'s rows and (c)'s
+    records."""
+    import torch
+    t0 = time.perf_counter()
+    procs = dryrun_cli_start()
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    lines, rows, launches = seq_sharded_rows(dev, flush, smi)
+    del flush
+    t_a = time.perf_counter() - t0
+    counts = dryrun_count_check(dev)
+    t_b = time.perf_counter() - t0 - t_a
+    recs = dryrun_cli_wait(procs)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    print(f"dryrun phase parts: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+          f"{t_c:.1f} s more", flush=True)
+    return lines, rows, launches, counts, recs
+
+
 def ptxas_report(log):
     """(kernel<template ints>, registers, spill-store bytes) of every entry
     function in an ``nvcc -Xptxas -v`` log (kernels are templated on the
@@ -2708,6 +3020,33 @@ def main() -> int:
         totals[k] += n
     for k, rs in md_rows.items():
         rows[k] += rs
+    t0 = time.perf_counter()
+    lines, seq_rows, n_seq, counts, recs = dryrun_phase(dev, smi)
+    for line in lines:
+        print("dryrun seq-sharded decode:", json.dumps(line))
+    for line in lines:
+        print(f"  {line['shape']:82s} {line['ms'] * 1e3:7.1f} us (bound "
+              f"{line['bound_ms'] * 1e3:6.2f} {line['bound_by']}, SDPA "
+              f"{line['library_ms'] * 1e3:7.1f}, plain "
+              f"{line['plain_ms'] * 1e3:8.1f})  [{smi}]")
+    for r in counts:
+        print("dryrun count:", json.dumps(r))
+        print(f"  {r['step']}: dry-run peak {r['dryrun_peak_bytes'] / 2**30:.2f}"
+              f" GiB vs the card's {r['card_peak_bytes'] / 2**30:.2f} GiB "
+              f"(ratio {r['peak_ratio']:.3f}); dry-run {r['dryrun_s']:.1f} s")
+    for r in recs:
+        print("dryrun pair:", json.dumps(r))
+        m, t = r["memory"], r["roofline"]
+        print(f"  {r['arch']} {r['shape']} {r['mesh']}: peak "
+              f"{m['peak_bytes'] / 2**30:.2f} GiB a device, "
+              f"{t['dominant']} (compute {t['compute_s'] * 1e3:.2f} ms, "
+              f"memory {t['memory_s'] * 1e3:.2f} ms, collective "
+              f"{t['collective_s'] * 1e3:.2f} ms), build {r['lower_s']} s, "
+              f"count {r['compile_s']} s")
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s, launches "
+          f"{json.dumps({'kvattn': n_seq})}")
+    totals["kvattn"] += n_seq
+    rows["kvattn"] += seq_rows
 
     src = "src/repro_torch/csrc/"
     kernels = [

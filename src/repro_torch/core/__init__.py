@@ -10,8 +10,8 @@
                                           recurrent state
   prefill_attention / decode_attention  — mixed-precision attention pipeline
 
-The reference's ``cache_spec`` (a shape-only skeleton for its dry-run) is
-not here: it belongs to the dry-run, which is not ported yet.
+``cache_spec`` is the slab with no storage (meta tensors), the dry-run's
+stand-in (``launch/dryrun.py``).
 
 ``gemm`` and ``attention`` call the kernel wrappers, which import this
 package's other modules, so their names load at first use (an eager import
@@ -24,7 +24,7 @@ from .precision import (PrecisionPolicy, FormatSpec, get_policy,
                         DEFAULT_SERVING)
 from .packing import (PackedWeight, pack_weight, unpack_weight,
                       dequantize_packed, quantize_rowmajor)
-from .kvcache import KVCache, init_cache, append, store_dim
+from .kvcache import KVCache, init_cache, cache_spec, append, store_dim
 from .paged_kvcache import (PagedKVCache, BlockAllocator, OutOfBlocksError,
                             init_paged, append_paged, gather_view,
                             blocks_needed, kv_bytes)
@@ -47,7 +47,7 @@ __all__ = [
     "PrecisionPolicy", "FormatSpec", "get_policy", "DEFAULT_SERVING",
     "PackedWeight", "pack_weight", "unpack_weight", "dequantize_packed",
     "quantize_rowmajor", "mp_matmul", "dense_matmul",
-    "KVCache", "init_cache", "append", "store_dim",
+    "KVCache", "init_cache", "cache_spec", "append", "store_dim",
     "PagedKVCache", "BlockAllocator", "OutOfBlocksError", "init_paged",
     "append_paged", "gather_view", "blocks_needed", "kv_bytes",
     "prefill_attention", "decode_attention", "cross_attention",

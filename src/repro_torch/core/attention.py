@@ -20,9 +20,12 @@ Port of ``repro.core.attention``:
   plain PyTorch (``einsum`` over the slab) on the card and on the CPU
   alike.
 * :func:`prefill_attention` — the full-matrix oracle.
-
-Not ported: ``_flash_triangle`` / ``BLOCK_SKIP`` (the dry-run's knob):
-ROADMAP queue 1 item 15.
+* :func:`_flash_triangle`: the reference's causal-triangle walk, which
+  it takes under the dry-run's ``block_skip``.  Here it is the plain
+  walk (``kernels.ref.flash_prefill_walk``) at the reference's square
+  512-row blocks: that walk, like the kernels, already skips every key
+  tile above the diagonal, so no flag chooses it and the port's count is
+  the skipping count always, where the reference's halves with the flag.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from . import quantize as Q
 from .kvcache import KVCache, dequant_k, dequant_v
@@ -92,6 +95,61 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(B, S, H, D)
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum``, and for DTensor operands sharded only on indices
+    that every operand and the output carry (batch and head indices: the
+    work is independent per shard), the einsum of each rank's local
+    shards through ``local_map``, the output on the same indices — no
+    sharding rule then has to flatten a sharded dim into the product's
+    batch (which some torch versions refuse).  Other DTensor cases take
+    DTensor's own rule."""
+    if not any(is_dtensor(t) for t in ops):
+        return torch.einsum(eq, *ops)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = next(t for t in ops if is_dtensor(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    ops = [t if is_dtensor(t) else DTensor.from_local(t, mesh, rep,
+                                                      run_check=False)
+           for t in ops]
+    common = set(out).intersection(*map(set, ins))
+    letters = []                     # per mesh dim: the sharded index or None
+    for i in range(mesh.ndim):
+        on = {idx[p.dim] for t, idx in zip(ops, ins)
+              for p in (t.placements[i],) if isinstance(p, Shard)}
+        mixed = any(t.placements[i].is_partial() or
+                    type(t.placements[i]) not in (Shard, Replicate)
+                    for t in ops)
+        if mixed or len(on) > 1 or (on and not on <= common):
+            return torch.einsum(eq, *ops)
+        letters.append(next(iter(on)) if on else None)
+    pl = [tuple(Shard(idx.index(x)) if x else Replicate() for x in letters)
+          for idx in ins]
+    out_pl = tuple(Shard(out.index(x)) if x else Replicate() for x in letters)
+    ops = [t.redistribute(mesh, p) for t, p in zip(ops, pl)]
+    return local_map(lambda *ls: torch.einsum(eq, *ls),
+                     out_placements=(out_pl,), in_placements=tuple(pl),
+                     device_mesh=mesh)(*ops)
+
+
+def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum``; a DTensor not sharded along ``dim`` sums each
+    rank's local shard through ``local_map`` (its backward, a flipped
+    cumsum, has no sharding rule on some torch versions)."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x) or any(isinstance(p, Shard) and
+                                p.dim % x.ndim == dim % x.ndim
+                                for p in x.placements):
+        return torch.cumsum(x, dim=dim)
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(lambda t: torch.cumsum(t, dim=dim),
+                     out_placements=(x.placements,),
+                     in_placements=(x.placements,),
+                     device_mesh=x.device_mesh)(x)
+
+
 def _as_int(x, name: str) -> int:
     """An int, or a 0-d integer tensor read once (the reference's traced
     scalars; the port's callers pass ints, so none pays for the read)."""
@@ -134,6 +192,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _flash_local(q, k, v, causal, window, pos_offset)
     return ops.flash_prefill_attention(q, k, v, causal=causal, window=window,
                                        pos_offset=pos_offset)
+
+
+def _flash_triangle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    block: int = 512) -> torch.Tensor:
+    """Causal flash attention over only the (query block, key block) pairs
+    on or below the diagonal, square ``block``-row blocks (the reference's
+    ``_flash_triangle`` at its q_chunk = kv_chunk = 512): the plain walk
+    (``kernels.ref.flash_prefill_walk``), which skips the tiles above the
+    diagonal, on head-major views.  q (B, S, H, D), k/v (B, S, Hkv, D) →
+    (B, S, H, D) in q's dtype."""
+    out = ref.flash_prefill_walk(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=ref.NO_WINDOW if window is None else window,
+        seq=k.shape[1], block_q=block, block_k=block)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def is_dtensor(t) -> bool:
@@ -192,7 +266,7 @@ def _attend_slab(q: torch.Tensor, cache: KVCache, spec: FormatSpec,
         kq = dequant_k(cache, spec, q.dtype).float()
     else:
         kq = _unpack_if_needed(cache.k, spec).to(q.dtype).float()
-    scores = torch.einsum("bthrd,bshd->bhrts", qg, kq)
+    scores = einsum("bthrd,bshd->bhrts", qg, kq)
     if not dequant_first:
         scores = scores * _scale_rows(cache.k_scale)
     scores = scores * (1.0 / torch.sqrt(torch.tensor(float(D))))
@@ -206,7 +280,7 @@ def _attend_slab(q: torch.Tensor, cache: KVCache, spec: FormatSpec,
     else:
         pv = (probs * _scale_rows(cache.v_scale)).to(q.dtype).float()
         vq = _unpack_if_needed(cache.v, spec).to(q.dtype).float()
-    out = torch.einsum("bhrts,bshd->bthrd", pv, vq)
+    out = einsum("bhrts,bshd->bthrd", pv, vq)
     return out.to(q.dtype).reshape(B, T, H, D)
 
 

@@ -25,6 +25,32 @@ from . import quantize as Q
 from .precision import FormatSpec
 
 
+#: the sharded serve step's cache write, installed by launch code
+#: (``launch/shardserve.py``): ``fn(cache_l, k_new, v_new, pos, spec,
+#: valid)`` writes a (B, T) update at ``pos`` (an int: every slot, or (B,)
+#: per slot) into a per-layer slab of DTensors, in place
+_SHARDED_APPEND = None
+
+
+def set_sharded_append(fn) -> None:
+    """Install (or, with None, remove) the sharded cache write."""
+    global _SHARDED_APPEND
+    _SHARDED_APPEND = fn
+
+
+def is_sharded(cache) -> bool:
+    """True for a slab of DTensors (the sharded serve step's)."""
+    return type(cache.k).__name__ == "DTensor"
+
+
+def _sharded_append(cache, k_new, v_new, pos, spec, valid=None):
+    if _SHARDED_APPEND is None:
+        raise ValueError("a sharded slab needs the sharded serve step's "
+                         "cache write (set_sharded_append)")
+    _SHARDED_APPEND(cache, k_new, v_new, pos, spec, valid)
+    return cache
+
+
 def store_dim(head_dim: int, spec: FormatSpec) -> int:
     """Stored last-axis width: kv4 packs head_dim two values per byte."""
     return head_dim // 2 if spec.packed else head_dim
@@ -64,6 +90,16 @@ def init_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
     )
 
 
+def cache_spec(batch: int, max_seq: int, kv_heads: int, head_dim: int,
+               spec: FormatSpec, n_layers: int = 1) -> KVCache:
+    """The slab of :func:`init_cache` with no storage (meta tensors): the
+    dry-run's stand-in, as the reference's ``ShapeDtypeStruct`` skeleton
+    (without its ``length`` counter and the scales' unit axis, module
+    docstring)."""
+    return init_cache(batch, max_seq, kv_heads, head_dim, spec,
+                      n_layers=n_layers, device="meta")
+
+
 def scatter_rows(cache, k_new: torch.Tensor, v_new: torch.Tensor,
                  spec: FormatSpec, src: torch.Tensor, dst: torch.Tensor
                  ) -> None:
@@ -90,6 +126,8 @@ def append(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     every slot, into a per-layer cache.  Like JAX's
     ``dynamic_update_slice``, a start that would overrun the slab is
     clamped to ``S - T``.  k_new/v_new: (B, T, H, D)."""
+    if is_sharded(cache):
+        return _sharded_append(cache, k_new, v_new, int(pos), spec)
     B, T = k_new.shape[:2]
     S = cache.max_seq
     start = min(max(int(pos), 0), S - T)
@@ -109,7 +147,10 @@ def write_rows(cache: KVCache, pos: torch.Tensor, T: int,
     ``b*S + pos[b] + t``.  Rows past ``valid[b]`` or past ``S`` are
     dropped (JAX's ``mode="drop"`` scatter), never clamped onto a live
     cell.  The same for every layer; the filter reads the device mask back
-    (one sync)."""
+    (one sync).  None for a sharded slab (its write finds its own
+    rows)."""
+    if is_sharded(cache):
+        return None
     B, S = pos.shape[0], cache.max_seq
     t = torch.arange(T, device=pos.device)
     tok = pos.long()[:, None] + t[None]
@@ -132,6 +173,8 @@ def append_per_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     ``rows`` is a precomputed :func:`write_rows` result for these
     arguments.  Same quantization and drop rule as the JAX package, bit
     for bit."""
+    if is_sharded(cache):
+        return _sharded_append(cache, k_new, v_new, pos, spec, valid)
     if rows is None:
         rows = write_rows(cache, pos, k_new.shape[1], valid)
     scatter_rows(cache, k_new, v_new, spec, *rows)

@@ -154,12 +154,27 @@ def pack_stack(w: torch.Tensor, bits: int = 4, group: int = 128,
                block_k: int = DEFAULT_BLOCK_K,
                block_n: int = DEFAULT_BLOCK_N) -> PackedWeight:
     """Pack an (E, K, N) stack member by member (one (K, N) matrix's f32
-    transients at a time) into one stacked PackedWeight."""
+    transients at a time) into one stacked PackedWeight.  A stack with no
+    values (meta or fake tensors: the dry-run's stand-ins) packs its first
+    member and repeats its shapes: every member's are the same."""
+    if w.device.type == "meta" or _is_fake(w):
+        m = pack_weight(w[0].float(), bits=bits, group=group,
+                        block_k=block_k, block_n=block_n)
+        E = w.shape[0]
+        return dataclasses.replace(
+            m, data=m.data[None].expand((E,) + tuple(m.data.shape)).clone(),
+            scales=m.scales[None].expand((E,) + tuple(m.scales.shape))
+            .clone())
     members = [pack_weight(m.float(), bits=bits, group=group, block_k=block_k,
                            block_n=block_n) for m in w.unbind(0)]
     return dataclasses.replace(
         members[0], data=torch.stack([m.data for m in members]),
         scales=torch.stack([m.scales for m in members]))
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    """True for a ``FakeTensor`` (shapes and dtypes, no storage)."""
+    return type(t).__name__ == "FakeTensor"
 
 
 #: K depth and column width of one fragment-order block

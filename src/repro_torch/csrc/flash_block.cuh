@@ -172,8 +172,16 @@ __host__ __device__ inline int sub_rows(int D, int rb, int bs) {
 // (sub_rows): sub-tile u is tokens [j0, j0 + len) of tile u / nsub, j0 =
 // (u % nsub) * sub; without it (the tile fits) u is the tile itself.
 // Rows are token-major (r = t * rep + g): row r's frontier is pos[b] + r
-// / rep.  Stored rows are copied as 16-byte words (ROW_BYTES is a
-// multiple of 16 for every format at D in {32, 64, 128, 288}).
+// / rep, an absolute position; the tiles hold the keys from absolute
+// position key0 on (a rank's range of a sequence-sharded slab: key0 > 0
+// shifts every frontier by -key0, and a frontier before key0 keeps
+// nothing).  With lse non-null each row's log-sum-exp of its kept scaled
+// scores, mx + log(l) in f32, goes to lse[row] ((B, Hkv, R)), -inf for a
+// row that keeps no key (its output is then 0), and the output goes
+// unrounded to out32 (f32) instead of out, so partial results over
+// disjoint key ranges combine exactly and are rounded once.  Stored rows
+// are copied as 16-byte words (ROW_BYTES is a multiple of 16 for every
+// format at D in {32, 64, 128, 288}).
 template <Fmt F, int D, bool SUB, class TileTok>
 __device__ void decode_rows(const bf16* __restrict__ q,
                             const uint8_t* __restrict__ k,
@@ -183,7 +191,9 @@ __device__ void decode_rows(const bf16* __restrict__ q,
                             const int* __restrict__ pos,
                             bf16* __restrict__ out, int Hkv, int R, int rep,
                             int bs, int n_tiles, int window,
-                            TileTok tile_tok0) {
+                            TileTok tile_tok0, int key0 = 0,
+                            float* __restrict__ lse = nullptr,
+                            float* __restrict__ out32 = nullptr) {
   constexpr int RB = row_bytes<F>(D);
   constexpr int VEC = RB / 16;           // 16-byte words per stored row
   constexpr int LD = D + PAD;
@@ -213,7 +223,7 @@ __device__ void decode_rows(const bf16* __restrict__ q,
   const int dpart = WD == 1 ? 0 : warp / (ROW_TILE / 16);
   const int g = lane >> 2, t = lane & 3;
   const size_t q_off = (size_t(b) * Hkv + h) * R + row0;   // in rows
-  const int p0 = pos[b];
+  const int p0 = pos[b] - key0;            // frontiers in tile positions
 
   // sub-tiles that can hold a kept key of rows [row0, row0 + rows), and
   // the first of them that belongs to split c
@@ -222,7 +232,8 @@ __device__ void decode_rows(const bf16* __restrict__ q,
     return SUB ? key / bs * nsub + key % bs / sub : key / bs;
   };
   const int u_lo = unit_of(max(0, f_lo - window + 1));
-  const int u_hi = min(n_tiles * nsub - 1, unit_of(f_hi));
+  // (a frontier before the first key: the rows keep nothing here)
+  const int u_hi = f_hi < 0 ? -1 : min(n_tiles * nsub - 1, unit_of(f_hi));
   const int u_first = u_lo + ((c - u_lo % SPLITS) + SPLITS) % SPLITS;
 
   auto load_tile = [&](int u, int stage) {
@@ -415,7 +426,13 @@ __device__ void decode_rows(const bf16* __restrict__ q,
       lsum += rp[ROW_TILE + r] * w;
       a += rp[2 * ROW_TILE + r * D + d] * w;
     }
-    out[(q_off + r) * D + d] = __float2bfloat16_rn(a / fmaxf(lsum, 1e-20f));
+    const float o = a / fmaxf(lsum, 1e-20f);
+    if (lse == nullptr) {
+      out[(q_off + r) * D + d] = __float2bfloat16_rn(o);
+    } else {
+      out32[(q_off + r) * D + d] = o;
+      if (d == 0) lse[q_off + r] = lsum > 0.f ? mx + logf(lsum) : -INFINITY;
+    }
   }
   cluster.sync();                          // partials read by every block
 }

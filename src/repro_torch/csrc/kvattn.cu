@@ -39,16 +39,19 @@ kvattn_kernel(const __nv_bfloat16* __restrict__ q,
               const uint8_t* __restrict__ k, const float* __restrict__ k_scale,
               const uint8_t* __restrict__ v, const float* __restrict__ v_scale,
               const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
-              int Hkv, int R, int rep, int S, int bs, int window) {
+              float* __restrict__ lse, int Hkv, int R, int rep, int S,
+              int bs, int window, int key0) {
   flash::decode_rows<F, D, SUB>(
-      q, k, k_scale, v, v_scale, pos, out, Hkv, R, rep, bs, S / bs, window,
-      [=](int b, int s) { return size_t(b) * S + size_t(s) * bs; });
+      q, k, k_scale, v, v_scale, pos, lse == nullptr ? out : nullptr, Hkv,
+      R, rep, bs, S / bs, window,
+      [=](int b, int s) { return size_t(b) * S + size_t(s) * bs; }, key0,
+      lse, lse == nullptr ? nullptr : reinterpret_cast<float*>(out));
 }
 
 struct Launch {
   const void *q, *k, *ks, *v, *vs, *pos;
-  void* out;
-  int B, Hkv, R, rep, S, bs, window;
+  void *out, *lse;
+  int B, Hkv, R, rep, S, bs, window, key0;
   cudaStream_t stream;
 
   template <Fmt F, int D>
@@ -59,7 +62,8 @@ struct Launch {
         static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(k),
         static_cast<const float*>(ks), static_cast<const uint8_t*>(v),
         static_cast<const float*>(vs), static_cast<const int*>(pos),
-        static_cast<__nv_bfloat16*>(out), Hkv, R, rep, S, bs, window);
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Hkv, R,
+        rep, S, bs, window, key0);
   }
 };
 
@@ -67,15 +71,18 @@ struct Launch {
 
 // fmt: 0 kv8, 1 kv4, 2 kvfp8, 3 kv16 (flash::Fmt).  q (B, Hkv, R, D) bf16;
 // k/v (B, S, Hkv, ROW_BYTES) stored; scales (B, S, Hkv) f32; pos (B,)
-// int32; out (B, Hkv, R, D) bf16; bs divides S.  Returns the CUDA error of
-// the launch (0 on success), or flash::ERR_SMEM when not even a 16-token
-// sub-tile fits in shared memory.
+// int32; out (B, Hkv, R, D) bf16, or f32 (unrounded) with lse (B, Hkv, R)
+// f32 non-null; bs divides S.  The slab holds the keys at absolute positions key0 .. key0 + S - 1
+// (flash::decode_rows).  Returns the CUDA error of the launch (0 on
+// success), or flash::ERR_SMEM when not even a 16-token sub-tile fits in
+// shared memory.
 extern "C" int kvattn(const void* q, const void* k, const void* ks,
                       const void* v, const void* vs, const void* pos,
-                      void* out, int fmt, int B, int Hkv, int R, int D,
-                      int rep, int S, int bs, int window, void* stream) {
+                      void* out, void* lse, int fmt, int B, int Hkv, int R,
+                      int D, int rep, int S, int bs, int window, int key0,
+                      void* stream) {
   if (bs < 1 || S % bs) return int(cudaErrorInvalidValue);
-  const Launch l{q, k, ks, v, vs, pos, out, B, Hkv, R, rep, S, bs, window,
-                 static_cast<cudaStream_t>(stream)};
+  const Launch l{q, k, ks, v, vs, pos, out, lse, B, Hkv, R, rep, S, bs,
+                 window, key0, static_cast<cudaStream_t>(stream)};
   return flash::dispatch(fmt, D, l);
 }

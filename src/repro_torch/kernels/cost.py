@@ -27,24 +27,35 @@ def gemm(M: int, K: int, N: int, weight_bytes: int, a8: bool) -> Cost:
     return 2 * M * N * K, x_bytes + weight_bytes + M * N * 2
 
 
+def _kept(lo: int, hi: int, key_lo: int, key_hi: int) -> int:
+    """Keys of ``[lo, hi)`` inside ``[key_lo, key_hi)``."""
+    return max(0, min(hi, key_hi) - max(lo, key_lo))
+
+
 def decode_attention(pos: Sequence[int], T: int, rep: int, Hkv: int, D: int,
                      window: int, row_bytes: int,
-                     table_bytes: int = 0) -> Cost:
+                     table_bytes: int = 0, key_lo: int = 0,
+                     key_hi: int = 1 << 62, lse: bool = False) -> Cost:
     """Decode / chunked-prefill attention of T tokens a slot, slot b's
     first at ``pos[b]``, ``rep`` query heads on each of ``Hkv`` KV heads:
-    row ``r`` (token r // rep) keeps ``min(pos + r // rep + 1, window)``
-    keys, 4·D operations each (QKᵀ and PV); ``window`` is the kernels'
-    operand (``ref.NO_WINDOW`` when off).  Bytes: each slot's keys inside
-    some row's window (stored K and V rows of ``row_bytes`` each, two f32
-    scales), q and the output (bf16), the positions, and
+    row ``r`` (token r // rep) keeps the keys of ``[pos + r // rep + 1 -
+    window, pos + r // rep]`` inside the range ``[key_lo, key_hi)`` the
+    call holds (a rank's share of a sequence-sharded slab; all keys by
+    default), 4·D operations each (QKᵀ and PV); ``window`` is the
+    kernels' operand (``ref.NO_WINDOW`` when off).  Bytes: each slot's
+    keys of the range inside some row's window (stored K and V rows of
+    ``row_bytes`` each, two f32 scales), q (bf16), the output (bf16, or f32
+    with the lse), the positions, each row's f32 lse if asked, and
     ``table_bytes`` of block-table rows (paged)."""
     R = T * rep
-    ops = sum(4 * D * Hkv * min(p + r // rep + 1, window) for p in pos
-              for r in range(R))
-    keys = sum(p + T - max(0, p - window + 1) for p in pos)
+    ops = sum(4 * D * Hkv * _kept(p + r // rep + 1 - window, p + r // rep + 1,
+                                  key_lo, key_hi)
+              for p in pos for r in range(R))
+    keys = sum(_kept(p - window + 1, p + T, key_lo, key_hi) for p in pos)
     B = len(pos)
-    nbytes = keys * Hkv * (2 * row_bytes + 8) + 2 * B * Hkv * R * D * 2 + \
-        B * 4 + table_bytes
+    nbytes = keys * Hkv * (2 * row_bytes + 8) + B * Hkv * R * D * \
+        (2 + (4 if lse else 2)) + B * 4 + table_bytes + \
+        (4 * B * Hkv * R if lse else 0)
     return ops, nbytes
 
 
@@ -112,11 +123,18 @@ def of_mpgemm_int8(xq, xscale, w) -> Cost:
 
 
 def of_kvattn(q, k, k_scale, v, v_scale, pos, window, rep, block_s,
-              spec) -> Cost:
-    """``kernels.kvattn.kvattn``: reads the positions (a host copy)."""
+              spec, key_offset=0, return_lse=False, host_pos=None) -> Cost:
+    """``kernels.kvattn.kvattn``: reads the positions (a host copy, or
+    ``host_pos`` where the caller knows them: the dry-run's fake tensors
+    hold no values); charges only the keys of the slab's range
+    ``[key_offset, key_offset + S)``."""
     B, Hkv, R, D = q.shape
-    return decode_attention(pos.tolist(), R // rep, rep, Hkv, D, window,
-                            k.shape[-1] * k.element_size())
+    key_offset = int(key_offset)
+    return decode_attention(pos.tolist() if host_pos is None else host_pos,
+                            R // rep, rep, Hkv, D, window,
+                            k.shape[-1] * k.element_size(),
+                            key_lo=key_offset,
+                            key_hi=key_offset + k.shape[1], lse=return_lse)
 
 
 def of_paged_kvattn(q, k, k_scale, v, v_scale, block_table, pos, window,

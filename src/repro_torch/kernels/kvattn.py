@@ -56,18 +56,24 @@ def raise_on_error(name: str, err: int, D: int, bs: int) -> None:
 
 def kvattn(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
            v: torch.Tensor, v_scale: torch.Tensor, pos: torch.Tensor,
-           window: int, rep: int, block_s: int,
-           spec: FormatSpec) -> torch.Tensor:
+           window: int, rep: int, block_s: int, spec: FormatSpec,
+           key_offset: int = 0, return_lse: bool = False):
     """q (B, Hkv, R, D) bf16 token-major rows; slab k/v (B, S, Hkv, Dstore)
     stored in ``spec`` with scales (B, S, Hkv) f32; pos (B,) int32; the
     walk takes ``min(block_s, S)``-token tiles, which must divide S.
-    Returns (B, Hkv, R, D) bf16.  Counts its CUDA launches in
+    The slab holds the keys at positions ``key_offset`` .. ``key_offset +
+    S - 1`` (a rank's range of a sequence-sharded cache; pos stays
+    absolute).  Returns (B, Hkv, R, D) bf16 or, with ``return_lse``, the
+    output unrounded in f32 (a partial result, rounded once by whoever
+    combines the ranges: ``ref.combine_lse``) and each row's log-sum-exp
+    (B, Hkv, R) f32 (-inf where the range holds no kept key; the output
+    is then 0).  Counts its CUDA launches in
     ``kvattn.launches``; declares its cost to an active
     ``roofline.op_cost`` counter."""
     if op_cost.COUNTER is not None and not op_cost.COUNTER.paused:
         return op_cost.COUNTER.kernel(
             "kvattn", KC.of_kvattn, kvattn, q, k, k_scale, v, v_scale, pos,
-            window, rep, block_s, spec)
+            window, rep, block_s, spec, key_offset, return_lse)
     B, Hkv, R, D = q.shape
     S = k.shape[1]
     bs = min(int(block_s), S)
@@ -76,8 +82,12 @@ def kvattn(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
     if R % rep:
         raise ValueError(f"R={R} is not a multiple of rep={rep}")
     fmt = kv_format(spec, k, D)
+    key_offset = int(key_offset)
+    if key_offset < 0:
+        raise ValueError(f"key_offset={key_offset} < 0")
     if q.device.type == "cpu":
-        return kvattn_ref(q, k, k_scale, v, v_scale, pos, window, rep, bs)
+        return kvattn_ref(q, k, k_scale, v, v_scale, pos, window, rep, bs,
+                          key_offset, return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"kvattn: unsupported device {q.device}")
     if D not in HEAD_DIMS:
@@ -93,15 +103,18 @@ def kvattn(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("the kernel stages K/V in 16-byte words: "
                          "misaligned slab storage offset")
-    out = torch.empty_like(q)
-    fn = _build.bind("kvattn", "kvattn", 7, 9)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else None)
+    lse = torch.empty((B, Hkv, R), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    fn = _build.bind("kvattn", "kvattn", 8, 10)
     err = fn(q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-             v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(), fmt, B, Hkv,
-             R, D, rep, S, bs, int(window),
+             v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), fmt, B, Hkv, R, D, rep,
+             S, bs, int(window), key_offset,
              torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("kvattn", err, D, bs)
     kvattn.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 kvattn.launches = 0

@@ -42,8 +42,8 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
     K, N = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
-    if x2.data_ptr() % 16:         # the kernels copy x in 16-byte pieces
-        x2 = x2.clone()
+    if x2.storage_offset() * x2.element_size() % 16:
+        x2 = x2.clone()            # the kernels copy x in 16-byte pieces
     if policy.int8_matmul:
         xq, xs = Q.quantize_act_per_token(x2.float(), bits=8)
         y = mpgemm_int8(xq, xs, w)
@@ -109,20 +109,29 @@ def _ungroup_rows(out: torch.Tensor, B: int, T: int, Hkv: int, rep: int,
 
 
 def kvattn_decode(q: torch.Tensor, cache: KVCache, spec: FormatSpec, pos,
-                  window=None, block_s: int = 256) -> torch.Tensor:
+                  window=None, block_s: int = 256, key_offset: int = 0,
+                  return_lse: bool = False):
     """Dense-slab decode / chunked-prefill attention.  q: (B, T, H, D);
     ``cache`` a per-layer view; ``pos`` the per-slot first query position
     (token t attends through ``pos + t``).  The kernel walks the
     ``min(block_s, S)``-token tiles of the slab up to each slot's
-    frontier."""
+    frontier.  The slab holds the keys from position ``key_offset`` on (a
+    rank's range of a sequence-sharded cache); ``return_lse`` returns the
+    output unrounded in f32 and each (token, head)'s log-sum-exp (B, T,
+    H) f32."""
     B, T, H, D = q.shape
     Hkv = cache.k.shape[2]
     rep = H // Hkv
     qg = _group_rows(q.to(torch.bfloat16), Hkv, rep).contiguous()
     out = kvattn(qg, cache.k, cache.k_scale, cache.v, cache.v_scale,
                  _norm_pos(pos, B, q.device), _norm_window(window), rep,
-                 block_s, spec)
-    return _ungroup_rows(out, B, T, Hkv, rep, D).to(q.dtype)
+                 block_s, spec, key_offset=key_offset,
+                 return_lse=return_lse)
+    if not return_lse:
+        return _ungroup_rows(out, B, T, Hkv, rep, D).to(q.dtype)
+    out, lse = out
+    lse = lse.reshape(B, Hkv, T, rep).permute(0, 2, 1, 3).reshape(B, T, H)
+    return _ungroup_rows(out, B, T, Hkv, rep, D), lse
 
 
 def kvattn_decode_paged(q: torch.Tensor, cache: PagedKVCache,

@@ -70,7 +70,7 @@ def _dequant(t: torch.Tensor, scale: torch.Tensor, D: int) -> torch.Tensor:
 
 def _flash_walk(q: torch.Tensor, tiles: Iterable[Tuple[int, torch.Tensor,
                                                        torch.Tensor]],
-                qpos: torch.Tensor, window: int) -> torch.Tensor:
+                qpos: torch.Tensor, window: int, return_lse: bool = False):
     """Online-softmax flash decode over ``tiles`` of (base, kd, vd), kd/vd
     (B, Hkv, bs, D) bf16-valued f32 from :func:`_dequant`, ``base`` the
     logical position of the tile's first token.  q: (B, Hkv, R, D) bf16;
@@ -80,7 +80,9 @@ def _flash_walk(q: torch.Tensor, tiles: Iterable[Tuple[int, torch.Tensor,
     The kernel's rounding points: scores in f32 times ``1/sqrt(D)``,
     masked to ``NEG_INF``, p zeroed under the mask, p rounded to bf16
     before the PV product (l sums the unrounded p), output
-    ``bf16(acc / max(l, 1e-20))``."""
+    ``bf16(acc / max(l, 1e-20))``.  ``return_lse`` returns the output in
+    f32 instead, unrounded, and each row's ``m + log(l)`` (B, Hkv, R) f32,
+    -inf where it keeps no key."""
     B, Hkv, R, D = q.shape
     qf = q.float()[:, :, :, None, :]                          # (B,Hkv,R,1,D)
     inv = torch.rsqrt(torch.full((), float(D), device=q.device))
@@ -102,7 +104,12 @@ def _flash_walk(q: torch.Tensor, tiles: Iterable[Tuple[int, torch.Tensor,
         pb = p.to(torch.bfloat16).float()[:, :, :, None, :]   # (B,Hkv,R,1,bs)
         acc = acc * alpha + (pb * vt[:, :, None]).sum(-1)
         m = m_new
-    return (acc / l.clamp_min(1e-20)).to(torch.bfloat16)
+    out = acc / l.clamp_min(1e-20)
+    if not return_lse:
+        return out.to(torch.bfloat16)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                      torch.full_like(l, float("-inf")))
+    return out, lse[..., 0]
 
 
 def _row_frontiers(pos: torch.Tensor, R: int, rep: int) -> torch.Tensor:
@@ -114,14 +121,20 @@ def _row_frontiers(pos: torch.Tensor, R: int, rep: int) -> torch.Tensor:
 
 def kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
                v: torch.Tensor, v_scale: torch.Tensor, pos: torch.Tensor,
-               window: int, rep: int, block_s: int) -> torch.Tensor:
+               window: int, rep: int, block_s: int, key_offset: int = 0,
+               return_lse: bool = False):
     """Multi-query attention over the dense slab, walked in ``block_s``
     tiles (every tile of the slab; the kernel skips the tiles past each
     slot's frontier, exact no-ops of the walk).
 
     q: (B, Hkv, R, D) bf16, rows token-major; k/v (B, S, Hkv, Dstore) of
     any KV format (int8 kv8, nibble-packed int8 kv4, float8_e5m2, bf16);
-    scales (B, S, Hkv) f32; pos (B,) first query position."""
+    scales (B, S, Hkv) f32; pos (B,) first query position.  The slab
+    holds the keys at positions ``key_offset`` on (one rank's range of a
+    sequence-sharded cache); ``return_lse`` returns the output unrounded
+    in f32 and each row's log-sum-exp (B, Hkv, R) f32, -inf for a row that
+    keeps no key here, so results over disjoint ranges combine and are
+    rounded once (:func:`combine_lse`)."""
     B, Hkv, R, D = q.shape
     S = k.shape[1]
 
@@ -132,9 +145,23 @@ def kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
                           k_scale[:, sl].permute(0, 2, 1), D)
             vd = _dequant(v[:, sl].permute(0, 2, 1, 3),
                           v_scale[:, sl].permute(0, 2, 1), D)
-            yield base, kd, vd
+            yield key_offset + base, kd, vd
 
-    return _flash_walk(q, tiles(), _row_frontiers(pos, R, rep), window)
+    return _flash_walk(q, tiles(), _row_frontiers(pos, R, rep), window,
+                       return_lse)
+
+
+def combine_lse(outs, lses, dtype=torch.bfloat16) -> torch.Tensor:
+    """One attention output from partial ones over disjoint key ranges:
+    ``outs`` (..., D) f32 each with its rows' log-sum-exp ``lses`` (...),
+    as :func:`kvattn_ref` returns them; weights ``exp(lse - max lse)`` in
+    f32, the sum rounded once to ``dtype``.  A row no range keeps gives
+    0."""
+    lse = torch.stack([t.float() for t in lses])
+    top = lse.amax(0).clamp_min(-1e30)                 # -inf rows: finite
+    w = torch.exp(lse - top)
+    num = (w[..., None] * torch.stack([o.float() for o in outs])).sum(0)
+    return (num / w.sum(0).clamp_min(1e-20)[..., None]).to(dtype)
 
 
 def paged_kvattn_ref(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor,
@@ -347,9 +374,9 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # runs them on the card too, to count a step on the plain route)
 
 def _plain_kvattn(q, k, k_scale, v, v_scale, pos, window, rep, block_s,
-                  spec):
+                  spec, key_offset=0, return_lse=False):
     return kvattn_ref(q, k, k_scale, v, v_scale, pos, window, rep,
-                      min(int(block_s), k.shape[1]))
+                      min(int(block_s), k.shape[1]), key_offset, return_lse)
 
 
 def _plain_paged_kvattn(q, k, k_scale, v, v_scale, block_table, pos,

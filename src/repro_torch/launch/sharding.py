@@ -424,16 +424,80 @@ def placements(spec: Spec, mesh) -> tuple:
     return tuple(out)
 
 
+def _tree_map2(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of tensors — dicts, lists, tuples,
+    PackedWeights (specs ``{"data", "scales"}``) and dataclasses (specs a
+    dict by field, as ``ShardingRules.cache`` gives them); None stays
+    None."""
+    from repro_torch.core.packing import PackedWeight
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map2(fn, v, s) for v, s in zip(tree, specs))
+    if isinstance(tree, PackedWeight):
+        return dataclasses.replace(tree, data=fn(tree.data, specs["data"]),
+                                   scales=fn(tree.scales, specs["scales"]))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map2(fn, getattr(tree, f.name), specs[f.name])
+            for f in dataclasses.fields(tree)})
+    if not isinstance(tree, torch.Tensor):
+        raise TypeError(f"distribute: {type(tree).__name__} is not a tensor")
+    return fn(tree, specs)
+
+
 def distribute(tree, specs, mesh):
     """``tree`` of tensors as DTensors on ``mesh`` by the matching tree of
     ``specs`` (each rank keeps its shard of the full tensor it holds).
-    Leaves requiring grad stay leaves requiring grad."""
+    Leaves requiring grad stay leaves requiring grad.  Takes the trees of
+    :func:`_tree_map2`."""
     from torch.distributed.tensor import distribute_tensor
-    if isinstance(tree, dict):
-        return {k: distribute(v, specs[k], mesh) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(distribute(v, s, mesh) for v, s in zip(tree, specs))
-    if not isinstance(tree, torch.Tensor):
-        raise TypeError(f"distribute: {type(tree).__name__} is not a tensor")
-    out = distribute_tensor(tree.detach(), mesh, placements(specs, mesh))
-    return out.requires_grad_(tree.requires_grad)
+
+    def one(t, spec):
+        out = distribute_tensor(t.detach(), mesh, placements(spec, mesh))
+        return out.requires_grad_(t.requires_grad)
+
+    return _tree_map2(one, tree, specs)
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a tensor of ``shape`` placed by
+    ``spec`` (the rules shard only dims the axes divide)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            n = axis_size(mesh, entry)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                                 f"over {entry} ({n})")
+            out[d] //= n
+    return tuple(out)
+
+
+def abstract(tree, specs, mesh):
+    """A tree of stand-ins (tensors whose values are never read: meta or
+    fake) as DTensors on ``mesh`` by ``specs``, each rank's local shard a
+    new empty tensor of its shard's shape on the mesh's device type — made
+    under ``FakeTensorMode``, nothing is allocated (the dry-run's
+    arguments)."""
+    from torch.distributed.tensor import DTensor
+    dev = mesh.device_type
+
+    def one(t, spec):
+        local = torch.empty(local_shape(t.shape, spec, mesh), dtype=t.dtype,
+                            device=dev)
+        return DTensor.from_local(local, mesh, placements(spec, mesh),
+                                  run_check=False, shape=tuple(t.shape),
+                                  stride=_contiguous_stride(t.shape))
+
+    return _tree_map2(one, tree, specs)
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    out, n = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(n)
+        n *= s
+    return tuple(reversed(out))

@@ -40,6 +40,20 @@ def sp_local(q_local: torch.Tensor, k_full: torch.Tensor,
         pos_offset=rank * q_local.shape[1])
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: the
+    all-gather's backward reduce-scatters it, and torch 2.11's
+    reduce-scatter refuses a strided input (the transpose's gradient)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def build_sp_prefill(mesh):
     """``fn(q, k, v, causal=True, window=None)`` → out, or None where the
     reference falls back (not causal, S not a multiple of the model axis,
@@ -60,8 +74,8 @@ def build_sp_prefill(mesh):
     def gather_seq(t):
         """(B, S_local, h, D) → (B, S, h, D) over "model" (differentiable:
         the backward reduce-scatters), gathered along a leading S."""
-        return gather(t.transpose(0, 1).contiguous(), 0, group) \
-            .transpose(0, 1)
+        return _ContiguousGrad.apply(
+            gather(t.transpose(0, 1).contiguous(), 0, group)).transpose(0, 1)
 
     def fn(q, k, v, causal=True, window=None):
         S = q.shape[1]

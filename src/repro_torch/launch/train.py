@@ -23,6 +23,7 @@ Usage:
 """
 import argparse
 import contextlib
+import dataclasses
 import logging
 import math
 import socket
@@ -81,20 +82,39 @@ def _expert_parallel(rules):
     whole batch under the sort dispatch, whose capacity is the call's),
     through ``local_map``; the f32 sums of the ranks' experts are added
     over "model" and rounded once.  Gradients: x's summed over the
-    expert ranks, the router's and the experts' over the batch ranks."""
+    expert ranks, the router's and the experts' over the batch ranks.
+    Packed leaves (the serve step's expert stacks and router) go in as
+    their data and scales, each placed as its stack."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
+    from repro_torch.core.packing import PackedWeight
     from repro_torch.models import moe as MOE
 
     from .sharding import placements
     mesh = rules.mesh
     leaves = ("router", "we1", "we3", "we2")
 
+    def parts(w):
+        return (w.data, w.scales) if isinstance(w, PackedWeight) else (w,)
+
+    def rebuild(lp, flat):
+        out, i = {}, 0
+        for n in leaves:
+            w = lp[n]
+            if isinstance(w, PackedWeight):
+                out[n] = dataclasses.replace(w, data=flat[i],
+                                             scales=flat[i + 1])
+                i += 2
+            else:
+                out[n] = flat[i]
+                i += 1
+        return out
+
     def fn(x, lp, cfg, policy):
         x_pl = placements(rules.activation(
             x.shape, batch=MOE.rows_route_alone()), mesh)
-        w_pl = placements(rules.experts(lp["we1"].shape), mesh)
+        w_pl = placements(rules.experts(parts(lp["we1"])[0].shape), mesh)
         rep = (Replicate(),) * mesh.ndim
         by_rows = [isinstance(p, Shard) for p in x_pl]
         by_expert = [isinstance(p, Shard) for p in w_pl]
@@ -106,19 +126,26 @@ def _expert_parallel(rules):
         w_grad = tuple(Partial() if r else p for p, r in zip(w_pl, by_rows))
         e_dim = by_expert.index(True) if True in by_expert else None
 
-        def local(xl, router, *ws):
-            e0 = 0 if e_dim is None else \
-                mesh.get_coordinate()[e_dim] * ws[0].shape[0]
-            return MOE.moe_partial(
-                xl, dict(zip(leaves, (router,) + ws)), cfg, policy,
-                experts=range(e0, e0 + ws[0].shape[0])).float()
+        n_router = len(parts(lp["router"]))
+        n_w = len(parts(lp["we1"]))
 
-        args = [x.redistribute(mesh, x_pl), lp["router"].redistribute(
-            mesh, rep)] + [lp[n].redistribute(mesh, w_pl) for n in leaves[1:]]
+        def local(xl, *flat):
+            lw = rebuild(lp, flat)
+            n = parts(lw["we1"])[-1].shape[0]
+            e0 = 0 if e_dim is None else mesh.get_coordinate()[e_dim] * n
+            return MOE.moe_partial(xl, lw, cfg, policy,
+                                   experts=range(e0, e0 + n)).float()
+
+        args = [x.redistribute(mesh, x_pl)] + \
+            [t.redistribute(mesh, rep) for t in parts(lp["router"])] + \
+            [t.redistribute(mesh, w_pl) for n in leaves[1:]
+             for t in parts(lp[n])]
         out = local_map(local, out_placements=(out_pl,),
-                        in_placements=(x_pl, rep) + (w_pl,) * 3,
-                        in_grad_placements=(out_pl, router_grad) +
-                        (w_grad,) * 3, device_mesh=mesh)(*args)
+                        in_placements=(x_pl,) + (rep,) * n_router +
+                        (w_pl,) * (3 * n_w),
+                        in_grad_placements=(out_pl,) +
+                        (router_grad,) * n_router + (w_grad,) * (3 * n_w),
+                        device_mesh=mesh)(*args)
         out = out.redistribute(mesh, x_pl).to(x.dtype)
         return out.redistribute(mesh, [Replicate() if p.is_partial() else p
                                        for p in x.placements])
@@ -126,23 +153,82 @@ def _expert_parallel(rules):
     return fn
 
 
+def _vocab_parallel_nll(rules):
+    """The next-token NLL of (B, S, d) DTensor hidden states through
+    ``logits_of`` (B, S, V), the vocabulary on "model" (the embedding's
+    rule): through ``local_map`` each rank
+    takes, over its vocab range, the rows' max, the sum of ``exp(logit -
+    max)`` and the target's logit (0 where the target lies outside); the
+    maxima are combined and the sums added over "model" (all-reduces of
+    (B, S) rows), so no rank holds the whole vocabulary's logits.  f32, as
+    ``Model.loss_fn``'s ``log_softmax``; the max is a constant of the
+    gradient, as it is there."""
+    import torch
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .mesh import axis_names
+    from .sharding import placements
+    mesh = rules.mesh
+    m = axis_names(mesh).index("model")
+    n = mesh.size(m)
+
+    def on_model(pl, p):
+        return tuple(p if i == m else q for i, q in enumerate(pl))
+
+    def fn(logits_of, h, targets):
+        row = placements(rules.tokens(tuple(targets.shape)), mesh)
+        lg_pl = on_model(row, Shard(2))
+        logits = logits_of(h).redistribute(mesh, lg_pl)
+        targets = targets.redistribute(mesh, row)
+        chunk = -(-logits.shape[-1] // n)         # Shard's (ceil) split
+
+        def local_max(lg):
+            return lg.detach().float().amax(-1)
+
+        def local_sums(lg, tg, top):
+            lg = lg.float()
+            t = tg.long() - mesh.get_local_rank("model") * chunk
+            inside = (t >= 0) & (t < lg.shape[-1])
+            tl = torch.gather(lg, -1, t.clamp(0, lg.shape[-1] - 1)[..., None])
+            return (torch.exp(lg - top[..., None]).sum(-1),
+                    torch.where(inside, tl[..., 0], torch.zeros_like(top)))
+
+        top = local_map(local_max, out_placements=(on_model(row, Partial(
+            "max")),), in_placements=(lg_pl,), device_mesh=mesh)(logits)
+        top = top.redistribute(mesh, row)
+        sums = on_model(row, Partial())
+        se, tl = local_map(local_sums, out_placements=(sums, sums),
+                           in_placements=(lg_pl, row, row),
+                           device_mesh=mesh)(logits, targets, top)
+        se, tl = (t.redistribute(mesh, row) for t in (se, tl))
+        return torch.log(se) + top - tl
+
+    return fn
+
+
 @contextlib.contextmanager
 def _sharded_hooks(rules):
     """Install, for the block, the model's DTensor hooks from ``rules``:
-    rwkv's head constraint, flash attention's operand placements and
-    moe's expert parallelism."""
+    rwkv's head constraint, flash attention's operand placements, moe's
+    expert parallelism and, where "model" splits the vocabulary, the
+    vocab-parallel loss."""
     from repro_torch.core import attention as A
     from repro_torch.models import common as C
     from repro_torch.models import moe as MOE
+    from repro_torch.models import registry as REG
     C.set_head_constraint(_head_constraint(rules))
     A.set_flash_placements(_flash_placements(rules))
     MOE.set_sharded_ffn(_expert_parallel(rules))
+    if rules.model_size > 1:
+        REG.set_sharded_nll(_vocab_parallel_nll(rules))
     try:
         yield
     finally:
         C.set_head_constraint(None)
         A.set_flash_placements(None)
         MOE.set_sharded_ffn(None)
+        REG.set_sharded_nll(None)
 
 
 def train_sharded(cfg, mesh, n_steps: int = 100, batch: int = 8,

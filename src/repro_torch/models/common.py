@@ -26,6 +26,24 @@ from repro_torch.kernels import ops
 _HEAD_CONSTRAINT = None
 
 
+#: the sharded serve step's hooks, installed by launch code
+#: (``launch/shardserve.py``): a packed GEMM whose weight is sharded
+#: (``fn(x, w, policy) -> y``), decode attention over a sharded slab
+#: (``fn(q, cache_l, spec, pos, window, block_s) -> out``) and a lookup in
+#: a vocab-sharded table outside autograd (``fn(table, tokens) -> rows``);
+#: a DTensor operand with no hook installed raises or takes the training
+#: step's route
+_SHARDED_LINEAR = None
+_SHARDED_DECODE = None
+_SHARDED_EMBED = None
+
+
+def set_sharded_serve(linear=None, decode=None, embed=None) -> None:
+    """Install (or, with None, remove) the sharded serve step's hooks."""
+    global _SHARDED_LINEAR, _SHARDED_DECODE, _SHARDED_EMBED
+    _SHARDED_LINEAR, _SHARDED_DECODE, _SHARDED_EMBED = linear, decode, embed
+
+
 def set_head_constraint(fn) -> None:
     """Install (or, with None, remove) the head-axis constraint."""
     global _HEAD_CONSTRAINT
@@ -39,6 +57,51 @@ def constrain_heads(x: torch.Tensor) -> torch.Tensor:
     return _HEAD_CONSTRAINT(x)
 
 
+def _whole_heads(y, heads: int):
+    """DTensor ``y`` whose last dim is to be split into ``heads`` heads,
+    gathered over each mesh dim that shards that dim and does not divide
+    the heads (DTensor may shard a product's columns, or a gradient, of
+    its own accord): a split must keep whole heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = y.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and
+               p.dim == y.ndim - 1 and heads % mesh.size(i) else p
+               for i, p in enumerate(y.placements))
+    return y if pl == tuple(y.placements) else y.redistribute(mesh, pl)
+
+
+def split_heads(y: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``y.reshape(*shape)``, the last dim split into (heads, head dim), a
+    DTensor on whole heads first (:func:`_whole_heads`)."""
+    if A.is_dtensor(y):
+        y = _whole_heads(y, shape[-2])
+    return y.reshape(*shape)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """Identity whose backward puts the gradient on whole heads before
+    the merge's backward splits it (:func:`merge_heads`)."""
+
+    @staticmethod
+    def forward(ctx, y, heads):
+        ctx.heads = heads
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.heads), None
+
+
+def merge_heads(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``, the last two dims (heads, head dim) merged.
+    On a DTensor the gradient is put on whole heads before the reshape's
+    backward splits it again, as :func:`split_heads` does going
+    forward."""
+    if not A.is_dtensor(x):
+        return x.reshape(*shape)
+    return _WholeHeadsGrad.apply(x.reshape(*shape), x.shape[-2])
+
+
 def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows ``table[tokens]`` of an embedding table.  A DTensor table (the
     sharded step) goes through ``F.embedding``, whose sharding rule DTensor
@@ -47,6 +110,8 @@ def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     masked partial rows have no backward redistribution); a plain table
     is indexed, as before."""
     if A.is_dtensor(table):
+        if _SHARDED_EMBED is not None and not torch.is_grad_enabled():
+            return _SHARDED_EMBED(table, tokens)
         from torch.distributed.tensor import Replicate
         whole = table.redistribute(table.device_mesh,
                                    [Replicate()] * table.device_mesh.ndim)
@@ -63,9 +128,17 @@ def linear(x: torch.Tensor, w, policy: Optional[PrecisionPolicy] = None
            ) -> torch.Tensor:
     """x @ w where w is a bf16 tensor (``torch.matmul``) or a PackedWeight
     (the mixed-precision GEMM kernels, routed by ``policy``)."""
+    if _SHARDED_LINEAR is not None and A.is_dtensor(x) and \
+            not isinstance(w, PackedWeight):
+        return _SHARDED_LINEAR(x, w, policy)
     if isinstance(w, PackedWeight):
         if policy is None:
             raise ValueError("a packed weight needs its precision policy")
+        if A.is_dtensor(w.data):
+            if _SHARDED_LINEAR is None:
+                raise ValueError("a sharded packed weight needs the sharded "
+                                 "serve step's GEMM (set_sharded_serve)")
+            return _SHARDED_LINEAR(x, w, policy)
         return mp_matmul(x, w, policy)
     return torch.matmul(x, w.to(x.dtype))
 
@@ -153,6 +226,11 @@ def attend_decode(q: torch.Tensor, cache_l, spec: FormatSpec, pos,
         raise ValueError(f"attend_decode: unknown impl {impl!r} "
                          "(expected 'kernel' or 'xla')")
     paged = isinstance(cache_l, PKV.PagedKVCache)
+    if impl == "kernel" and not paged and A.is_dtensor(cache_l.k):
+        if _SHARDED_DECODE is None:
+            raise ValueError("a sharded slab needs the sharded serve step's "
+                             "decode attention (set_sharded_serve)")
+        return _SHARDED_DECODE(q, cache_l, spec, pos, window, block_s or 256)
     if impl == "xla":
         if paged:
             ml = None if max_live is None else max_live + q.shape[1] - 1
@@ -234,6 +312,15 @@ def rope_rotation(pos: torch.Tensor, head_dim: int, *,
                   ) -> torch.Tensor:
     """(B, S) absolute positions → complex64 ``cos + i·sin`` table of
     shape (B, S, 1, rot/2), shared by every layer's q and k of a step."""
+    if A.is_dtensor(pos):
+        # no sharding rule for polar: each rank's rows of its positions
+        from torch.distributed.tensor.experimental import local_map
+        return local_map(
+            lambda p: rope_rotation(p, head_dim, rotary_pct=rotary_pct,
+                                    theta=theta),
+            out_placements=(pos.placements,),
+            in_placements=(pos.placements,),
+            device_mesh=pos.device_mesh)(pos)
     inv = rope_freqs(head_dim, rotary_pct, theta, device=pos.device)
     ang = pos.float()[..., None] * inv                        # (B, S, rot/2)
     return torch.polar(torch.ones_like(ang), ang)[:, :, None, :]

@@ -50,6 +50,13 @@ def init_cache(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
     return EncDecCache(self_kv=mk(max_seq), cross_kv=mk(cfg.enc_seq))
 
 
+def cache_spec(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
+               max_seq: int) -> EncDecCache:
+    """:func:`init_cache` with no storage (meta tensors): the dry-run's
+    stand-in."""
+    return init_cache(cfg, policy, batch, max_seq, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -112,7 +119,7 @@ def _mlp(h, lp, policy):
 
 def _proj(h, w, policy, heads, hd):
     B, T, _ = h.shape
-    return C.linear(h, w, policy).reshape(B, T, heads, hd)
+    return C.split_heads(C.linear(h, w, policy), B, T, heads, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +141,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor,
         k = _proj(h, lp["wk"], policy, Hkv, hd)
         v = _proj(h, lp["wv"], policy, Hkv, hd)
         attn = A.flash_attention(q, k, v, causal=False)
-        x = x + C.linear(attn.reshape(B, S, -1), lp["wo"], policy)
+        x = x + C.linear(C.merge_heads(attn, B, S, -1), lp["wo"], policy)
         h2 = _layer_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp(h2, lp, policy)
     return _layer_norm(x, params["enc_ln_post"], cfg.norm_eps)
@@ -175,11 +182,11 @@ def _decoder(params, cfg: ModelConfig, policy, x, cache: EncDecCache,
     for i, lp in enumerate(params["decoder"]):
         h = _layer_norm(x, lp["ln1"], cfg.norm_eps)
         attn = self_attn(lp, h, i)
-        x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
+        x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
         hx = _layer_norm(x, lp["lnx"], cfg.norm_eps)
         qx = _proj(hx, lp["xwq"], policy, H, hd)
         xattn = A.cross_attention(qx, cache.cross_kv.layer(i), policy.kv)
-        x = x + C.linear(xattn.reshape(B, T, -1), lp["xwo"], policy)
+        x = x + C.linear(C.merge_heads(xattn, B, T, -1), lp["xwo"], policy)
         h2 = _layer_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp(h2, lp, policy)
     return x
@@ -206,7 +213,7 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
     B, T = tokens.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos = torch.arange(T, device=tokens.device)
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     x = x + _dec_pos_embed(params, pos)[None]
 
     def self_attn(lp, h, i):
@@ -231,7 +238,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.dim() == 0:
         pos = pos.expand(B).contiguous()
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     x = x + _dec_pos_embed(params, pos)[:, None]
 
     def self_attn(lp, h, i):
@@ -274,13 +281,13 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
                                  _proj(h, lp["wk"], policy, Hkv, hd),
                                  _proj(h, lp["wv"], policy, Hkv, hd),
                                  causal=True)
-        x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
+        x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
         hx = _layer_norm(x, lp["lnx"], cfg.norm_eps)
         xattn = A.flash_attention(_proj(hx, lp["xwq"], policy, H, hd),
                                   _proj(enc_out, lp["xwk"], policy, Hkv, hd),
                                   _proj(enc_out, lp["xwv"], policy, Hkv, hd),
                                   causal=False)
-        x = x + C.linear(xattn.reshape(B, T, -1), lp["xwo"], policy)
+        x = x + C.linear(C.merge_heads(xattn, B, T, -1), lp["xwo"], policy)
         h2 = _layer_norm(x, lp["ln2"], cfg.norm_eps)
         return x + _mlp(h2, lp, policy)
 

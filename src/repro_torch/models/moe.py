@@ -22,6 +22,12 @@ priority orders and rounding points:
   choice) order; the combine adds ``bf16(out · bf16(gate))`` into a bf16
   output, rounding after each add.
 
+A third, ``static``, is the sort dispatch with every expert run on its
+whole capacity buffer (the reference's production form: static shapes,
+no host read), for the dry-run, whose fake tensors hold no values to
+read: the same kept assignments and combine, the padding slots computed
+and added with a gate of 0.
+
 The reference's one-hot dispatch is an exact gather (one nonzero term
 per buffer slot), so both are computed here by indexing.  Every expert's
 FFN runs only on the tokens it kept: an expert that keeps none is skipped
@@ -55,12 +61,18 @@ _DISPATCH_IMPL = "einsum"
 
 
 def set_dispatch_impl(name: str) -> None:
-    """Pick the dispatch: ``"einsum"`` (default) or ``"sort"``."""
+    """Pick the dispatch: ``"einsum"`` (default), ``"sort"`` or
+    ``"static"`` (module docstring)."""
     global _DISPATCH_IMPL
-    if name not in ("einsum", "sort"):
-        raise ValueError(f"unknown dispatch {name!r} (expected 'einsum' or "
-                         "'sort')")
+    if name not in ("einsum", "sort", "static"):
+        raise ValueError(f"unknown dispatch {name!r} (expected 'einsum', "
+                         "'sort' or 'static')")
     _DISPATCH_IMPL = name
+
+
+def dispatch_impl() -> str:
+    """The dispatch in effect."""
+    return _DISPATCH_IMPL
 
 
 def _expert_weights(w, dtype=torch.bfloat16) -> torch.Tensor:
@@ -159,6 +171,25 @@ def dispatch_einsum(gate_idx: torch.Tensor, E: int, cap: int
     return torch.stack(keep, -1)
 
 
+def sort_slots(gate_idx: torch.Tensor, E: int, cap: int) -> torch.Tensor:
+    """The sort dispatch's buffers as an (E, cap) table of flattened
+    assignment indices (:func:`dispatch_sort`'s kept ones, each at its
+    position in its expert's buffer); an empty slot holds B·S·k, one past
+    the last assignment.  Static shapes: no host read."""
+    eid = gate_idx.reshape(-1).long()
+    n = eid.numel()
+    order = torch.sort(eid, stable=True).indices
+    eid_s = eid[order]
+    start = torch.searchsorted(eid_s, torch.arange(E, device=eid.device))
+    pos_s = torch.arange(n, device=eid.device) - start[eid_s]
+    slot = torch.where(pos_s < cap, eid_s * cap + pos_s,
+                       torch.full_like(pos_s, E * cap))
+    table = torch.full((E * cap + 1,), n, dtype=torch.long,
+                       device=eid.device)
+    table.index_put_((slot,), order)       # the extra slot takes the dropped
+    return table[:E * cap].reshape(E, cap)
+
+
 def dispatch_sort(gate_idx: torch.Tensor, E: int, cap: int
                   ) -> torch.Tensor:
     """The sort dispatch's kept assignments: (B·S·k,) bool over the
@@ -188,8 +219,8 @@ def set_sharded_ffn(fn) -> None:
 
 def rows_route_alone() -> bool:
     """Whether a shard of batch rows routes as it would in the whole
-    batch: the einsum dispatch's capacity is per row, the sort dispatch's
-    the whole call's."""
+    batch: the einsum dispatch's capacity is per row, the sort (and
+    static) dispatch's the whole call's."""
     return _DISPATCH_IMPL == "einsum"
 
 
@@ -222,6 +253,19 @@ def moe_partial(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
     tok = torch.arange(B * S, device=x.device).repeat_interleave(K)
     eid = gate_idx.reshape(-1).long()
     g = gates.reshape(-1).to(torch.bfloat16)       # the combine's bf16 gate
+    if _DISPATCH_IMPL == "static":
+        cap = _sort_capacity(cfg, B * S * K)
+        table = sort_slots(gate_idx, E, cap)
+        zero = torch.zeros(1, dtype=tok.dtype, device=x.device)
+        tok_p = torch.cat([tok, zero])
+        g_p = torch.cat([g, torch.zeros(1, dtype=g.dtype, device=x.device)])
+        y = torch.zeros((B * S, d), dtype=torch.bfloat16, device=x.device)
+        for e in experts:
+            slots = table[e]
+            rows = tok_p[slots]
+            out = _expert_ffn(xt[rows], lp, e - experts.start)
+            y.index_add_(0, rows, out * g_p[slots, None])
+        return y.reshape(B, S, d)
     if _DISPATCH_IMPL == "sort":
         keep = dispatch_sort(gate_idx, E, _sort_capacity(cfg, B * S * K))
         y = torch.zeros((B * S, d), dtype=torch.bfloat16, device=x.device)

@@ -71,6 +71,13 @@ def init_cache(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
                          dtype=torch.bfloat16, device=device))
 
 
+def cache_spec(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
+               max_seq: int) -> HybridCache:
+    """:func:`init_cache` with no storage (meta tensors): the dry-run's
+    stand-in."""
+    return init_cache(cfg, policy, batch, max_seq, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -282,15 +289,16 @@ def _qkv(h, lp, cfg: ModelConfig, policy, rope_pos):
     B, T, _ = h.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rot = C.rope_rotation(rope_pos, hd, theta=cfg.rope_theta)
-    q = C.linear(h, lp["wq"], policy).reshape(B, T, H, hd)
-    k = C.linear(h, lp["wk"], policy).reshape(B, T, Hkv, hd)
-    v = C.linear(h, lp["wv"], policy).reshape(B, T, Hkv, hd)
+    q = C.split_heads(C.linear(h, lp["wq"], policy), B, T, H, hd)
+    k = C.split_heads(C.linear(h, lp["wk"], policy), B, T, Hkv, hd)
+    v = C.split_heads(C.linear(h, lp["wv"], policy), B, T, Hkv, hd)
     return C.apply_rope(q, rot), C.apply_rope(k, rot), v
 
 
 def _attn_tail(x, attn, lp, cfg: ModelConfig, policy):
     """Output projection, residual and the SwiGLU MLP."""
-    x = x + C.linear(attn.reshape(*x.shape[:-1], -1), lp["wo"], policy)
+    x = x + C.linear(C.merge_heads(attn, *x.shape[:-1], -1), lp["wo"],
+                     policy)
     h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + C.swiglu(h2, lp, policy)
 
@@ -383,7 +391,7 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
             ) -> Tuple[torch.Tensor, HybridCache]:
     """tokens (B, T) from position 0 → (last-position logits (B, V), the
     cache with every attention block's K/V written and the final states)."""
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     x, cache = _run(params, cfg, policy, x, cache, _rec_block_seq,
                     _attn_block_seq)
     h = C.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -399,7 +407,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.dim() == 0:
         pos = pos.expand(B).contiguous()
-    x = params["embed"][tokens[:, 0].long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens[:, 0]).to(policy.compute_dtype)
 
     def attn_block(x, lp, cfg, policy, cache_l):
         return _attn_block_step(x, lp, cfg, policy, cache_l, pos)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import attention as A
 from repro_torch.core.precision import PrecisionPolicy, get_policy
 
 from . import common as C
@@ -65,6 +66,12 @@ def init_state(cfg: ModelConfig, batch: int, device="cuda") -> RWKVState:
                              device=device),
         wkv=torch.zeros((L, batch, d // dh, dh, dh), dtype=torch.float32,
                         device=device))
+
+
+def state_spec(cfg: ModelConfig, batch: int) -> RWKVState:
+    """:func:`init_state` with no storage (meta tensors): the dry-run's
+    stand-in."""
+    return init_state(cfg, batch, device="meta")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -151,23 +158,23 @@ def _wkv_chunked(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     ys = []
     for c in range(n):
         rc, kc, vc, lwc = rs[:, c], ks[:, c], vs[:, c], lw[:, c]
-        la = torch.cumsum(lwc, dim=1)              # log A_i (inclusive)
+        la = A.cumsum(lwc, 1)                      # log A_i (inclusive)
         a_prev = torch.exp(la - lwc)               # A_{i-1}
         a_end = torch.exp(la[:, -1:])              # A_C, (B, 1, H, dh)
         r_t = rc * a_prev                          # r~_i
         k_t = kc * torch.exp(-la)                  # k~_j = k_j / A_j
         # inter-chunk: y_i += r~_i @ S0
-        y = torch.einsum("bchd,bhde->bche", r_t, s)
+        y = A.einsum("bchd,bhde->bche", r_t, s)
         # intra-chunk: strictly lower triangular
-        scores = torch.einsum("bchd,bkhd->bhck", r_t, k_t)
-        scores = torch.where(mask, scores, 0.0)
-        y = y + torch.einsum("bhck,bkhe->bche", scores, vc)
+        scores = A.einsum("bchd,bkhd->bhck", r_t, k_t)
+        scores = scores.masked_fill(~mask, 0.0)
+        y = y + A.einsum("bhck,bkhe->bche", scores, vc)
         # diagonal (current-token bonus u)
-        diag = torch.einsum("bchd,bchd->bch", rc, u[None, None] * kc)
+        diag = A.einsum("bchd,bchd->bch", rc, u[None, None] * kc)
         y = y + diag[..., None] * vc
         # S' = diag(A_C) S + Σ_j (A_C / A_j ⊙ k_j)ᵀ v_j
         kd = kc * torch.exp(la[:, -1:] - la)       # ratios ≤ 1
-        s = a_end[:, 0, :, :, None] * s + torch.einsum("bchd,bche->bhde",
+        s = a_end[:, 0, :, :, None] * s + A.einsum("bchd,bche->bhde",
                                                        kd, vc)
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(B, S, H, dh), s
@@ -189,14 +196,14 @@ def _time_mix_seq(x, x_prev_last, lp, cfg: ModelConfig, policy, s0):
     def proj(name, mu):
         return C.linear(_lerp(x, xs, lp[mu]), lp[name], policy)
 
-    r = C.constrain_heads(proj("wr", "mu_r").reshape(B, S, H, dh))
-    k = C.constrain_heads(proj("wk", "mu_k").reshape(B, S, H, dh))
-    v = C.constrain_heads(proj("wv", "mu_v").reshape(B, S, H, dh))
+    r = C.constrain_heads(C.split_heads(proj("wr", "mu_r"), B, S, H, dh))
+    k = C.constrain_heads(C.split_heads(proj("wk", "mu_k"), B, S, H, dh))
+    v = C.constrain_heads(C.split_heads(proj("wv", "mu_v"), B, S, H, dh))
     g = F.silu(proj("wg", "mu_g").float())
     logw = C.constrain_heads(_log_decay(_lerp(x, xs, lp["mu_w"]), lp,
                                         policy).reshape(B, S, H, dh))
     y, s_fin = _wkv_chunked(r, k, v, logw, lp["u"], s0)
-    y = C.group_norm(y.reshape(B, S, d).to(x.dtype), lp["ln_x"], H)
+    y = C.group_norm(C.merge_heads(y, B, S, d).to(x.dtype), lp["ln_x"], H)
     y = (y.float() * g).to(x.dtype)
     return C.linear(y, lp["wo"], policy), x[:, -1], s_fin
 
@@ -275,7 +282,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
                 ) -> Tuple[torch.Tensor, RWKVState]:
     """tokens (B, 1) → ((B, V) logits, the new state).  ``pos`` is unused:
     the state is positional."""
-    x = params["embed"][tokens[:, 0].long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens[:, 0]).to(policy.compute_dtype)
     B, d = x.shape
     dh = cfg.rwkv_head_dim
     H = d // dh
@@ -288,16 +295,16 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
         def proj(name, mu):
             return C.linear(_lerp(h, tm_s, lp[mu]), lp[name], policy)
 
-        r = proj("wr", "mu_r").reshape(B, H, dh).float()
-        k = proj("wk", "mu_k").reshape(B, H, dh).float()
-        v = proj("wv", "mu_v").reshape(B, H, dh).float()
+        r = C.split_heads(proj("wr", "mu_r"), B, H, dh).float()
+        k = C.split_heads(proj("wk", "mu_k"), B, H, dh).float()
+        v = C.split_heads(proj("wv", "mu_v"), B, H, dh).float()
         g = F.silu(proj("wg", "mu_g").float())
         logw = _log_decay(_lerp(h, tm_s, lp["mu_w"]), lp, policy).reshape(
             B, H, dh)
         u = lp["u"].float()
         # y = r·(S + (u⊙k)ᵀ v);  S' = diag(w)·S + kᵀ v
-        kv = torch.einsum("bhd,bhe->bhde", k, v)
-        y = torch.einsum("bhd,bhde->bhe", r, wkv_s + u[None, :, :, None] * kv)
+        kv = A.einsum("bhd,bhe->bhde", k, v)
+        y = A.einsum("bhd,bhde->bhe", r, wkv_s + u[None, :, :, None] * kv)
         wkv.append(torch.exp(logw)[..., None] * wkv_s + kv)
         y = C.group_norm(y.reshape(B, d).to(x.dtype), lp["ln_x"], H)
         y = (y.float() * g).to(x.dtype)

@@ -111,6 +111,13 @@ def init_cache(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
                          n_layers=cfg.n_layers, device=device)
 
 
+def cache_spec(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
+               max_seq: int) -> KV.KVCache:
+    """:func:`init_cache` with no storage (meta tensors): the dry-run's
+    stand-in."""
+    return init_cache(cfg, policy, batch, max_seq, device="meta")
+
+
 def init_paged_cache(cfg: ModelConfig, policy: PrecisionPolicy, n_slots: int,
                      n_blocks: int, block_size: int, blocks_per_slot: int,
                      device="cuda") -> PKV.PagedKVCache:
@@ -143,9 +150,9 @@ def qkv(h, lp, cfg: ModelConfig, policy):
     """q (B, T, H, hd), k and v (B, T, Hkv, hd) projections."""
     B, T, _ = h.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = C.linear(h, lp["wq"], policy).reshape(B, T, H, hd)
-    k = C.linear(h, lp["wk"], policy).reshape(B, T, Hkv, hd)
-    v = C.linear(h, lp["wv"], policy).reshape(B, T, Hkv, hd)
+    q = C.split_heads(C.linear(h, lp["wq"], policy), B, T, H, hd)
+    k = C.split_heads(C.linear(h, lp["wk"], policy), B, T, Hkv, hd)
+    v = C.split_heads(C.linear(h, lp["wv"], policy), B, T, Hkv, hd)
     return q, k, v
 
 
@@ -204,7 +211,7 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
             q = C.apply_rope(q, rotation)
             k = C.apply_rope(k, rotation)
         attn = A.flash_attention(q, k, v, causal=True, window=win)
-        xc = xc + C.linear(attn.reshape(B, S, -1), lp["wo"], policy)
+        xc = xc + C.linear(C.merge_heads(attn, B, S, -1), lp["wo"], policy)
         h2 = C.rms_norm(xc, lp["ln2"], cfg.norm_eps)
         return xc + ffn(h2, lp, cfg, policy)
 
@@ -235,7 +242,7 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
     layer's K/V are quantized into the slab at position 0.  Returns the
     last row's (B, V) logits and the cache.  Raises ``ValueError`` when
     the sequence does not fit the slab."""
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     if img_embeds is not None:
         proj = C.linear(img_embeds.to(x.dtype), params["img_proj"], policy)
         x = torch.cat([proj.to(x.dtype), x], dim=1)
@@ -262,7 +269,7 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
         attn = A.flash_attention(q, k, v, causal=True,
                                  window=None if win == BIG_WINDOW else win)
         KV.append(cache.layer(i), k, v, 0, policy.kv)
-        x = x + C.linear(attn.reshape(B, S, -1), lp["wo"], policy)
+        x = x + C.linear(C.merge_heads(attn, B, S, -1), lp["wo"], policy)
         h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(h2, lp, cfg, policy)
     h_last = C.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
@@ -317,7 +324,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     :func:`repro_torch.models.common.attend_decode`).  Returns ((B, V)
     logits, the cache)."""
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(policy.compute_dtype)
+    x = C.embed_rows(params["embed"], tokens).to(policy.compute_dtype)
     B, T, _ = x.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     per_slot = pos.dim() == 1
@@ -350,7 +357,7 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
                                window=layer_window(cfg, i),
                                block_s=attn_block_s, max_live=max_live,
                                impl=attn_impl)
-        x = x + C.linear(attn.reshape(B, T, -1), lp["wo"], policy)
+        x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
         h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + ffn(h2, lp, cfg, policy)
     if valid is None:

@@ -8,10 +8,13 @@ Port of ``repro.roofline.analysis``.  Three terms, in seconds:
 
 The reference reads FLOPs and bytes from the compiled HLO of its dry-run
 (``hlo_cost``); the port counts one eager call of the step
-(:func:`analyze_step`, ``op_cost``), kernels by their declared cost.  One
-card, so ``chips`` is 1 and the collective term 0: collectives come with
-multi-device launch.  :data:`HW` holds the card's published peaks; no TPU
-constant is kept here.
+(``op_cost``), kernels by their declared cost: on one card
+(:func:`analyze_step`: ``chips`` 1, no collectives), or one rank of a
+sharded step (:func:`analyze_sharded`, the dry-run's: rank 0's FLOPs and
+bytes times the chips, as the reference scales its per-device HLO
+counts, and rank 0's collective wire bytes under the reference's ring
+model).  :data:`HW` holds the card's published peaks; no TPU constant is
+kept here.
 """
 from __future__ import annotations
 
@@ -125,3 +128,22 @@ def analyze_step(fn: Callable, *args, arch: str, shape: str, cfg, seq: int,
         hlo_bytes=c.bytes, collective_bytes_per_device=0.0,
         collective_counts={}, model_flops=model_flops(cfg, seq, batch, kind),
         cost=c)
+
+
+def analyze_sharded(cost: Cost, *, arch: str, shape: str, mesh_desc: str,
+                    chips: int, cfg, seq: int, batch: int,
+                    kind: str) -> RooflineTerms:
+    """The roofline terms of a sharded step from one rank's count
+    (``op_cost.count`` of its local ops under the mesh): the counterpart
+    of ``analyze_compiled`` — ``hlo_flops`` / ``hlo_bytes`` are the
+    rank's counts times ``chips`` (every rank taken to do rank 0's work,
+    as the reference's per-device HLO counts are scaled),
+    ``collective_bytes_per_device`` and ``collective_counts`` the rank's
+    collectives (``Cost.collectives``)."""
+    return RooflineTerms(
+        arch=arch, shape=shape, mesh=mesh_desc, chips=chips,
+        hlo_flops=float(cost.flops * chips),
+        hlo_bytes=float(cost.bytes * chips),
+        collective_bytes_per_device=cost.collective_bytes,
+        collective_counts=dict(cost.collective_counts),
+        model_flops=model_flops(cfg, seq, batch, kind), cost=cost)

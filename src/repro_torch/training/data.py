@@ -59,3 +59,11 @@ def batches(vocab: int, batch: int, seq: int, n_steps: int, seed: int = 0,
     for _ in range(n_steps):
         flat = torch.from_numpy(corpus.stream(need).reshape(batch, seq + 1))
         yield flat[:, :-1].to(device), flat[:, 1:].to(device)
+
+
+def token_specs(batch: int, seq: int):
+    """Stand-ins for a step's (batch, seq) int32 tokens and targets with
+    no storage (meta tensors): the dry-run's, as the reference's
+    ``ShapeDtypeStruct`` pair."""
+    s = torch.empty((batch, seq), dtype=torch.int32, device="meta")
+    return {"tokens": s, "targets": s}

@@ -29,3 +29,10 @@ def test_no_banned_imports(path):
 
 def test_guard_sees_the_whole_port():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
+
+
+def test_the_port_sets_no_xla_flags():
+    """The reference's dry-run sets ``XLA_FLAGS`` at import (512 host
+    devices); the port's runs on a fake process group and names no XLA
+    setting anywhere."""
+    assert not [p.name for p in FILES if "XLA_FLAGS" in p.read_text()]

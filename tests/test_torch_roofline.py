@@ -208,6 +208,23 @@ def test_views_count_nothing():
     assert (c.other_flops, c.bytes) == (x.numel(), 3 * x.numel() * 4)
 
 
+def test_a_count_with_no_dtensor_patches_nothing():
+    """DTensor's sharding propagation is hidden from a counter only once
+    it sees a DTensor op: a plain count leaves DTensor's propagator as it
+    is, with DTensor loaded."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    prop = DTensor._op_dispatcher.sharding_propagator
+    before = (ShardingPropagator._propagate_tensor_meta_non_cached,
+              prop.propagate_op_sharding)
+    x = torch.randn(4, 6)
+    with op_cost.OpCounter() as counter:
+        torch.add(x, x)
+        assert (ShardingPropagator._propagate_tensor_meta_non_cached,
+                prop.propagate_op_sharding) == before
+    assert counter.cost.other_flops == x.numel()
+
+
 # -- a whole decode step -----------------------------------------------------
 
 def _reduced_step(policy, kind, pos=(5, 9, 20, 33), S=64, bs=8):
@@ -353,3 +370,91 @@ def test_training_step_counts_the_same_on_every_route():
         _, stub = op_cost.count(step)
     assert base == stub
     assert set(base.kernels) == {"flash_prefill", "flash_prefill_bwd"}
+
+
+# -- collectives (a sharded step's count) --------------------------------------
+
+def _fake_mesh(shape):
+    from repro_torch.launch.dryrun import fake_mesh
+    return fake_mesh(shape)
+
+
+def test_ring_factors_equal_the_reference():
+    """``tests/test_roofline.py``'s two HLO cases from counted collectives
+    on a fake group: an all-reduce of 256 f32 over 4 ranks counts
+    2·¾·1024 B, an all-gather in groups of 8 of a 64-f32 output ⅞·256 B,
+    as the reference's parser counts them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    hlo_ar = """
+ENTRY %main (a: f32[256]) -> f32[256] {
+  %a = f32[256]{0} parameter(0)
+  ROOT %ar = f32[256]{0} all-reduce(%a), replica_groups={{0,1,2,3}}, to_apply=%add
+}
+"""
+    hlo_ag = """
+ENTRY %main (a: f32[64]) -> f32[64] {
+  %a = f32[64]{0} parameter(0)
+  ROOT %ag = f32[64]{0} all-gather(%a), replica_groups=[2,8]<=[16], dimensions={0}
+}
+"""
+    with _fake_mesh((1, 4)) as mesh:
+        t = DTensor.from_local(torch.ones(256), mesh,
+                               [Replicate(), Partial()], run_check=False)
+        _, c = op_cost.count(t.redistribute, mesh, [Replicate()] * 2)
+    assert c.collectives == {"all-reduce": [1, 2 * 0.75 * 1024]}
+    assert c.collective_bytes == JRA.collective_bytes_from_hlo(
+        hlo_ar)["all-reduce"]
+    with _fake_mesh((2, 8)) as mesh:
+        t = DTensor.from_local(torch.ones(8), mesh, [Replicate(), Shard(0)],
+                               run_check=False, shape=(64,), stride=(1,))
+        _, c = op_cost.count(t.redistribute, mesh, [Replicate()] * 2)
+    assert c.collectives == {"all-gather": [1, 7 / 8 * 256]}
+    assert c.collective_bytes == JRA.collective_bytes_from_hlo(
+        hlo_ag)["all-gather"]
+    assert c.matmul_flops == c.other_flops == 0
+
+
+def test_column_row_mlp_counts_the_closed_form():
+    """A column-parallel then row-parallel MLP on a (2, 2) fake mesh, x (8,
+    16) f32 on the data axis: each rank multiplies its (4, 16) rows by its
+    16 × 16 and 16 × 16 halves, and the row-parallel product's partial sums
+    are all-reduced over "model": 2·½·(4·16·4) B on the wire."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    with _fake_mesh((2, 2)) as mesh:
+        x = DTensor.from_local(torch.ones(4, 16), mesh, [Shard(0), Replicate()],
+                               run_check=False, shape=(8, 16), stride=(16, 1))
+        w1 = DTensor.from_local(torch.ones(16, 16), mesh,
+                                [Replicate(), Shard(1)], run_check=False,
+                                shape=(16, 32), stride=(32, 1))
+        w2 = DTensor.from_local(torch.ones(16, 16), mesh,
+                                [Replicate(), Shard(0)], run_check=False,
+                                shape=(32, 16), stride=(16, 1))
+
+        def mlp():
+            y = torch.relu(x @ w1) @ w2
+            return y.redistribute(mesh, [Shard(0), Replicate()])
+
+        _, c = op_cost.count(mlp)
+    assert c.collectives == {"all-reduce": [1, 2 * 0.5 * 4 * 16 * 4]}
+    assert c.matmul_flops == 2 * 4 * 16 * 16 * 2
+
+
+def test_analyze_sharded_scales_rank_zero_by_the_chips():
+    cost = op_cost.Cost(matmul_flops=10, other_flops=5, bytes=7)
+    cost.add_collective("all-reduce", 1024, 4)
+    cost.add_collective("all-gather", 256, 8)
+    cfg = t_config("smollm-360m")
+    t = TRA.analyze_sharded(cost, arch="a", shape="s", mesh_desc="16x16",
+                            chips=256, cfg=cfg, seq=1, batch=2,
+                            kind="decode")
+    assert (t.hlo_flops, t.hlo_bytes) == (15 * 256, 7 * 256)
+    assert t.collective_bytes_per_device == 2 * 0.75 * 1024 + 7 / 8 * 256
+    assert t.collective_counts == {"all-reduce": 1, "all-gather": 1}
+    ref = JRA.RooflineTerms(arch="a", shape="s", mesh="16x16", chips=256,
+                            hlo_flops=15 * 256, hlo_bytes=7 * 256,
+                            collective_bytes_per_device=t.
+                            collective_bytes_per_device,
+                            collective_counts=t.collective_counts,
+                            model_flops=t.model_flops)
+    assert set(t.row()) == set(ref.row())
+    assert t.dominant == "collective"

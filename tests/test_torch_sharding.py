@@ -25,6 +25,13 @@
   and without window 100 — the output within the reference's 0.03, the
   q / k / v gradients within 2e-2 of their largest value (dK / dV are
   summed over the ranks in bf16 by the reduce-scatter).
+* The sharded serve step (``launch.shardserve``) on the (2, 2) mesh: a
+  prefill and three decode steps of REDUCED chatglm3 (cache on heads),
+  smollm (cache on the sequence), llama4 and rwkv6 under w4a16kv8, each
+  call's logits within 2e-2 of the largest single-device logit.
+* The vocab-parallel loss on the (2, 2) mesh, vocab 1023 split
+  unevenly: nll and logit gradient against ``log_softmax``; an attention
+  merge's gradient sharded across heads (``models.common.merge_heads``).
 * The expert-parallel moe FFN on the (2, 2) mesh, both dispatches:
   each rank computes half the experts; output and gradients against the
   plain call.
@@ -393,8 +400,8 @@ def dist_results(tmp_path_factory):
 
 
 sys.path.insert(0, str(ROOT / "tests"))
-from torch_dist_worker import (BATCH, FAMILIES, SEQ, STEPS,  # noqa: E402
-                               config)
+from torch_dist_worker import (BATCH, FAMILIES, SEQ,  # noqa: E402
+                               SERVE_FAMILIES, STEPS, config)
 
 
 @pytest.mark.parametrize("arch,big", FAMILIES)
@@ -406,6 +413,25 @@ def test_sharded_equals_single_device(dist_results, arch, big):
     got = dist_results["sharded"][arch]["losses"]
     assert len(got) == len(want) == STEPS
     assert np.abs(np.array(got) - np.array(want)).max() < 0.05, (got, want)
+
+
+def test_vocab_parallel_nll_equals_log_softmax(dist_results):
+    """The sharded step's loss over vocab-sharded logits (each rank its
+    range; max and sums over "model") against ``log_softmax`` on one
+    device, vocab 1023 split unevenly: nll and logit gradient within f32
+    rounding."""
+    r = dist_results["nll"]
+    assert r["nll_err"] <= 1e-5 * r["nll_scale"], r
+    assert r["grad_err"] <= 1e-5 * r["grad_scale"], r
+
+
+def test_merge_heads_puts_the_gradient_on_whole_heads(dist_results):
+    """An attention merge's gradient that comes back sharded on d_model
+    over a mesh dim that does not divide the heads (as DTensor may
+    reduce-scatter the vocab-parallel loss's partial gradient) is
+    gathered before the merge's backward splits it: the input gradient
+    is the plain reshape's, exactly."""
+    assert dist_results["merge_heads"] == 0.0
 
 
 @pytest.mark.parametrize("arch,big", FAMILIES)
@@ -436,6 +462,23 @@ def test_moe_expert_parallel_matches_plain(dist_results, impl):
     err, scale = res["err"], res["scale"]
     for e, s, tol in zip(err, scale, [1e-2] * 2 + [2e-2] * 4):
         assert e <= tol * s, res
+
+
+@pytest.mark.parametrize("arch", [a for a, _ in SERVE_FAMILIES])
+def test_sharded_serve_equals_single_device(dist_results, arch):
+    """The sharded serve step on the (2, 2) gloo mesh
+    (``launch.shardserve``): a prefill and three decode steps of the
+    REDUCED config under w4a16kv8, each call's logits within 2e-2 of the
+    largest single-device logit (A16); chatglm3's slab is sharded on its
+    KV heads, smollm's on the sequence (decode attention combined over
+    the ranks by the lse)."""
+    res = dist_results["serve"][arch]
+    assert len(res["err"]) == 1 + 3, res
+    for e, s in zip(res["err"], res["scale"]):
+        assert e <= 2e-2 * s, res
+    want = {"chatglm3-6b": "heads", "smollm-360m": "sequence"}
+    if arch in want:
+        assert res["kv_on_model"] == want[arch], res
 
 
 def test_cli_devices_and_checkpoint(dist_results):

@@ -10,11 +10,21 @@
   (1, 4) mesh against one whole flash call, with and without a window:
   the largest output and q / k / v gradient differences, and the largest
   values they are held against.
+* The sharded serve step (``launch.shardserve``) of SERVE_FAMILIES on
+  the (2, 2) mesh — a prefill and three decode steps — against one
+  device: each call's largest logit difference and largest logit.
 * The expert-parallel ``moe_ffn`` (``launch.train._expert_parallel``) of
   REDUCED llama4 with ``big_model`` on the (2, 2) mesh against the plain
   call, under both dispatches: the output and gradient differences, the
   largest values, the gradients' placements against their parameters',
   and the number of experts each local call computed.
+* The vocab-parallel loss (``launch.train._vocab_parallel_nll``) on the
+  (2, 2) mesh, vocab 1023 (the last rank's shard one column short, one
+  target in each rank's range and at both ends) against ``log_softmax``:
+  the largest nll and logit-gradient differences.
+* ``models.common.merge_heads`` on the (2, 2) mesh, its gradient coming
+  back sharded on the merged dim over "model" (5 heads: not whole heads
+  a rank): the input gradient's largest difference from the plain one.
 """
 import dataclasses
 import json
@@ -170,6 +180,131 @@ def moe_errors(mesh):
     return out
 
 
+#: the sharded serve step's families: (arch, big_model) — a dense config
+#: whose KV heads divide the model axis (chatglm3: the cache sharded on
+#: heads), one whose do not (smollm: on the sequence), moe and rwkv6
+SERVE_FAMILIES = [("chatglm3-6b", False), ("smollm-360m", False),
+                  ("llama4-scout-17b-a16e", True), ("rwkv6-7b", False)]
+#: batch, prompt length, decode steps, slab length of the serve check
+SERVE_B, SERVE_P, SERVE_STEPS, SERVE_S = 4, 14, 3, 32
+
+
+def _serve(cfg, rules=None):
+    """Prefill of SERVE_P tokens and SERVE_STEPS decode steps of a REDUCED
+    config under w4a16kv8 from seeded parameters and tokens: single device
+    (``rules`` None) or the sharded step on ``rules.mesh``
+    (``launch.shardserve``); each call's logits, gathered."""
+    from repro_torch.core.precision import get_policy
+    from repro_torch.launch import shardserve as SS
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    pol = get_policy("w4a16kv8")
+    model = build(cfg)
+    params = quantize_params(model.init_params(0, "cpu"), pol)
+    cache = model.init_cache(pol, SERVE_B, SERVE_S, "cpu")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
+                         dtype=torch.int32)
+    nxt = torch.randint(0, cfg.vocab, (SERVE_STEPS, SERVE_B, 1),
+                        generator=gen, dtype=torch.int32)
+    extra = model.extra_inputs(7, SERVE_B, "cpu")
+    pos = [torch.full((SERVE_B,), SERVE_P + cfg.n_img_tokens + i,
+                      dtype=torch.int32) for i in range(SERVE_STEPS)]
+    out = []
+    if rules is None:
+        with torch.no_grad():
+            lg, cache = model.prefill(params, pol, toks, cache, **extra)
+            out.append(lg)
+            for i in range(SERVE_STEPS):
+                lg, cache = model.decode_step(params, pol, nxt[i], cache,
+                                              pos[i])
+                out.append(lg)
+        return out
+    dp, dc, de = SS.place(model, params, pol, cache, rules, extra)
+    with SS.serve_hooks(rules):
+        lg, dc = SS.run(model.prefill, dp, pol, SS.tokens(toks, rules), dc,
+                        **de)
+        out.append(lg.full_tensor())
+        for i in range(SERVE_STEPS):
+            lg, dc = SS.run(model.decode_step, dp, pol,
+                            SS.tokens(nxt[i], rules), dc,
+                            SS.tokens(pos[i], rules))
+            out.append(lg.full_tensor())
+    return out
+
+
+def serve_errors(mesh):
+    """The sharded serve step of each of SERVE_FAMILIES on ``mesh``
+    against one device: each call's largest logit difference, the largest
+    logit, and where the slab's KV heads went."""
+    from repro_torch.launch.sharding import ShardingRules
+    out = {}
+    for arch, big in SERVE_FAMILIES:
+        cfg = config(arch, big)
+        t0 = time.perf_counter()
+        rules = ShardingRules(mesh, cfg)
+        got, want = _serve(cfg, rules), _serve(cfg)
+        spec = rules.cache_spec("k", (1, SERVE_B, SERVE_S, cfg.n_kv_heads,
+                                      cfg.hd))
+        out[arch] = {
+            "err": [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)],
+            "scale": [w.float().abs().max().item() for w in want],
+            "kv_on_model": "heads" if spec[3] == "model" else
+            ("sequence" if spec[2] == "model" else "none"),
+            "seconds": time.perf_counter() - t0}
+    return out
+
+
+def nll_errors(mesh):
+    """The vocab-parallel NLL and its logit gradient on ``mesh`` against
+    ``log_softmax``'s, f32 logits (4, 6, 1023) from a seed."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.sharding import ShardingRules, placements
+    from repro_torch.launch.train import _vocab_parallel_nll
+    rules = ShardingRules(mesh, get_reduced("smollm-360m"))
+    gen = torch.Generator().manual_seed(11)
+    V = 1023
+    logits = 4 * torch.randn((4, 6, V), generator=gen)
+    tg = torch.randint(0, V, (4, 6), generator=gen)
+    tg[0, :3] = torch.tensor([0, 511, 512])
+    tg[1, :2] = torch.tensor([V - 1, 1000])
+    want_lg = logits.clone().requires_grad_(True)
+    want = -torch.gather(F.log_softmax(want_lg, -1), -1, tg[..., None])[..., 0]
+    want.mean().backward()
+    pl = placements(rules.tokens((4, 6)), mesh)
+    lg = distribute_tensor(logits, mesh, pl).requires_grad_(True)
+    got = _vocab_parallel_nll(rules)(lambda x: x, lg,
+                                     distribute_tensor(tg, mesh, pl))
+    got.mean().backward()
+    return {"nll_err": (got.full_tensor() - want).abs().max().item(),
+            "nll_scale": want.abs().max().item(),
+            "grad_err": (lg.grad.full_tensor() - want_lg.grad).abs().max()
+            .item(),
+            "grad_scale": want_lg.grad.abs().max().item()}
+
+
+def merge_heads_error(mesh):
+    """``merge_heads`` of (4, 6, 5, 8) → (4, 6, 40) with its gradient put
+    on (batch, merged dim over "model"): the input gradient against the
+    plain reshape's."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import common as C
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 6, 5, 8), generator=gen)
+    dy = torch.randn((4, 6, 40), generator=gen)
+    dx = distribute_tensor(x, mesh, [Shard(0), Replicate()])
+    dx.requires_grad_(True)
+    C.merge_heads(dx, 4, 6, -1).backward(
+        distribute_tensor(dy, mesh, [Shard(0), Shard(2)]))
+    return (dx.grad.full_tensor() - dy.reshape(4, 6, 5, 8)).abs().max() \
+        .item()
+
+
 def _rank(rank, world, port):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -178,7 +313,9 @@ def _rank(rank, world, port):
         from repro_torch.launch.mesh import make_mesh
         mesh = make_mesh((2, 2), "cpu")
         res = {"sharded": sharded_losses(mesh), "moe": moe_errors(mesh),
-               "sp": sp_errors(make_mesh((1, 4), "cpu"))}
+               "sp": sp_errors(make_mesh((1, 4), "cpu")),
+               "serve": serve_errors(mesh), "nll": nll_errors(mesh),
+               "merge_heads": merge_heads_error(mesh)}
         if rank == 0:
             print("RESULT " + json.dumps(res), flush=True)
     finally:
