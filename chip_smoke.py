@@ -37,7 +37,10 @@ Phases, in order (any failure raises and exits nonzero):
    and internvl2-2b (M 319 and its img_proj at M 256,
    ``MOE_VLM_GEMM_SHAPES``) and of rwkv6-7b (``RWKV_GEMM_SHAPES``: its
    4096-square projections, ck / cv, and the decay LoRA's 4096 x 64 and
-   64 x 4096, the latter one 64-deep chunk at group 64); decode attention
+   64 x 4096, the latter one 64-deep chunk at group 64) and at two K of
+   32 x an odd number, group 32 (``TAIL_GEMM_SHAPES``: K 1056 x N 960 and
+   K 4128 x N 4096, the kernels' 32-deep tail chunk; a row's bits there
+   the same at M 4 and M 128); decode attention
    at their heads (rep 5, 7 and 2 at D 128, ``MOE_VLM_ATTN``) and flash
    prefill at internvl2's one-shot prefill (S 319, 16 heads on 8, D 128)
    and at gemma3-1b's training shapes (B 2, S 2048, 4 heads on 1, D 288;
@@ -113,6 +116,13 @@ Phases, in order (any failure raises and exits nonzero):
    smollm policy the dense and paged token streams must be identical.
    One request per w4a16kv8 serve is replayed teacher-forced and must
    follow its argmax (rwkv6's with the serve's batch, ``LOCKSTEP_REPLAY``).
+   Then the K-tail phase (``tail_phase``): smollm-360m REDUCED with d_ff
+   480, whose w2 (K 15 x 32) packs at block_k = group = 32, teacher-forced
+   on the card against the CPU on both backends under w4a16kv8, w4a8kv4,
+   w8a16kv16 and w8a8kvfp8, then served on the paged pool through
+   ``Engine.generate`` under w4a16kv8 and w4a8kv4 (launches counted as
+   above), two served streams replayed through the card's engine and a
+   CPU engine built from the same weights, logits against each other.
 6. Paging serves, full-width smollm-360m w4a16kv8, counters zeroed and
    read around each: a shared-prefix serve (``PREFIX_SERVE``) with prefix
    caching off and on — identical streams, 96 cached tokens on every hit,
@@ -251,6 +261,15 @@ RWKV_GEMM_SHAPES = [
     ("rwkv6 cv", 14336, 4096, 128, 128),
     ("rwkv6 w_A", 4096, 64, 128, 64),
     ("rwkv6 w_B", 64, 4096, 64, 128)]
+#: a K of 32 times an odd number, the Pallas GEMMs' block_k = group = 32,
+#: which both kernels read as a 32-deep tail chunk: at smollm-360m's width
+#: (K 1056 = 33 x 32) and at 4096 (K 4128 = 129 x 32)
+TAIL_GEMM_SHAPES = [("tail K 33x32", 1056, 960, 32, 96),
+                    ("tail K 129x32", 4128, 4096, 32, 128)]
+#: the REDUCED dense config whose w2 takes the tail: smollm-360m REDUCED
+#: with d_ff 480 (15 x 32), so w2's K packs at block_k = group = 32
+TAIL_D_FF = 480
+TAIL_POLICIES = ("w4a16kv8", "w4a8kv4", "w8a16kv16", "w8a8kvfp8")
 #: flash prefill at the one-shot serves' shapes: (name, B, H, Hkv, S, D,
 #: causal, window) — recurrentgemma's local attention at the serve prompt
 #: and where the window binds, whisper-tiny's encoder (not a tile multiple)
@@ -494,8 +513,11 @@ def bound_ms(nbytes, ops, ops_per_s=None):
 def gemm_phase(dev, flush):
     """Both GEMM kernels against their plain versions at smollm-360m's,
     recurrentgemma-2b's, whisper-tiny's, the three other dense configs',
-    rwkv6-7b's and the moe and vlm configs' packed shapes, bits 4 and 8,
-    the weights in the kernels' fragment order."""
+    rwkv6-7b's and the moe and vlm configs' packed shapes and at the two
+    32-deep K tails (``TAIL_GEMM_SHAPES``), bits 4 and 8, the weights in
+    the kernels' fragment order.  At the tails, a row's bits must not
+    depend on M: the first 4 rows of the M 128 call are those of a call
+    on those 4 rows alone."""
     import torch
     from repro_torch.core.packing import (dequantize_packed, pack_weight,
                                           to_kernel_layout)
@@ -510,7 +532,7 @@ def gemm_phase(dev, flush):
     shapes = [(f"smollm {n}", *shape) for n, *shape in GEMM_SHAPES] + \
         [(f"recurrentgemma {n}", *shape) for n, *shape in RG_GEMM_SHAPES] + \
         [(f"whisper {n}", *shape) for n, *shape in WH_GEMM_SHAPES] + \
-        DENSE_GEMM_SHAPES + RWKV_GEMM_SHAPES
+        DENSE_GEMM_SHAPES + RWKV_GEMM_SHAPES + TAIL_GEMM_SHAPES
     shapes = [s + (GEMM_MS,) for s in shapes] + MOE_VLM_GEMM_SHAPES
     for name, K, N, bk, bn, Ms in shapes:
         w = torch.randn(K, N, generator=gen, device=dev) / K ** 0.5
@@ -537,6 +559,11 @@ def gemm_phase(dev, flush):
                     tol = GEMM_REL_TOL * ref.float().abs().max().item()
                     check(err <= tol, f"{kern} {name} bits={bits} M={M}: "
                                       f"|Δ|={err} > {tol}")
+                    if K % 64 and M > 4:
+                        few = fn(*(a[:4] for a in args[:-1]), args[-1])
+                        check(torch.equal(y[:4], few),
+                              f"{kern} {name} bits={bits}: rows depend "
+                              f"on M")
                     ops, nbytes = KC.OF[kern](*args)
                     b, by = bound_ms(nbytes, ops, peak)
                     rows[kern].append(dict(
@@ -1035,6 +1062,82 @@ def reference_phase(dev):
             worst[f"{name}/{kind}"] = compare_logits(
                 logits["cpu"], logits[str(dev)], tol, f"{name} {kind}")
     return worst
+
+
+def tail_phase(dev, totals):
+    """smollm-360m REDUCED with d_ff ``TAIL_D_FF`` (15 x 32): w2's K packs
+    at block_k = group = 32 and runs through both kernels' 32-deep tail.
+    Teacher-forced ``decode_step`` on the card (kernels) against the CPU
+    (plain versions), same packed weights, both backends, under
+    ``TAIL_POLICIES`` (both GEMMs, bits 4 and 8).  Then, for w4a16kv8 and
+    w4a8kv4, an engine on the card and one on the CPU from the same
+    weights: w2's codes and scales bit for bit, a paged serve on the card
+    through ``Engine.generate`` (the launch counters zeroed just before
+    and read just after, every GEMM on the policy's kernel, launches
+    added to ``totals``), and two served streams fed teacher-forced
+    through each engine's model and weights, the card's logits against
+    the CPU's.  Returns the worst relative errors and the serves'
+    numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.packing import unpack_weight
+    from repro_torch.core.precision import get_policy
+    from repro_torch.models.registry import build
+    from repro_torch.serving import Engine, EngineConfig
+    from repro_torch.serving.engine import quantize_params
+    cfg = dataclasses.replace(get_reduced("smollm-360m"), d_ff=TAIL_D_FF)
+    model = build(cfg)
+    raw = model.init_params(0, "cpu")
+    stream = torch.randint(1, cfg.vocab, (12,),
+                           generator=torch.Generator().manual_seed(5)).tolist()
+    worst, serves = {}, []
+    for name in TAIL_POLICIES:
+        pol = get_policy(name)
+        params = quantize_params(raw, pol)
+        w2 = params["layers"][0]["w2"]
+        check(w2.shape[0] % 64 == 32 and w2.group == 32,
+              f"d_ff {TAIL_D_FF}: w2 {w2.shape} at group {w2.group} is not "
+              f"a 32-deep K tail")
+        tol = TOL_A8 if pol.int8_matmul else TOL
+        for kind in ("dense", "paged"):
+            logits = {}
+            for d in ("cpu", dev):
+                cache, kw = new_cache(model, pol, kind, 1, d)
+                logits[str(d)] = teacher_forced(
+                    model, to_device(params, d, pol), pol, cache, kw, stream,
+                    [4, 4] + [1] * 4)
+            worst[f"d_ff {TAIL_D_FF} {name}/{kind}"] = compare_logits(
+                logits["cpu"], logits[str(dev)], tol,
+                f"d_ff {TAIL_D_FF} {name} {kind}")
+    prompts = np.random.default_rng(9).integers(1, cfg.vocab,
+                                                (4, 24)).tolist()
+    for name in ("w4a16kv8", "w4a8kv4"):
+        eng = {str(d): Engine(EngineConfig(
+            model=cfg, policy=name, n_slots=4, max_seq=64, block_size=16,
+            prefill_chunk=16, seed=0, device=d, cache_kind="paged"),
+            params=raw) for d in ("cpu", dev)}
+        card, cpu = eng[str(dev)], eng["cpu"]
+        for lg, lc in zip(card.params["layers"], cpu.params["layers"]):
+            check(lg["w2"].layout != "tile" and torch.equal(
+                unpack_weight(lg["w2"]).cpu(), unpack_weight(lc["w2"])) and
+                torch.equal(lg["w2"].scales.cpu(), lc["w2"].scales),
+                f"d_ff {TAIL_D_FF} {name}: the card's w2 is not the CPU's")
+        label = f"d_ff {TAIL_D_FF} {name}/paged"
+        res, outs = run_serve(card, label, prompts, 8, prompts[0], totals)
+        tol = TOL_A8 if card.policy.int8_matmul else TOL
+        for prompt, o in list(zip(prompts, outs))[:2]:
+            got, ref = (route_logits(e, "paged", prompt, o.output_token_ids,
+                                     max_seq=64, chunk=16)
+                        for e in (card, cpu))
+            res["max_rel_err"] = max(res.get("max_rel_err", 0.0),
+                                     compare_logits(ref, got, tol, label))
+        serves.append(res)
+        del eng, card, cpu
+        torch.cuda.empty_cache()
+    return worst, serves
 
 
 def dense_reference(dev):
@@ -2761,7 +2864,11 @@ def dryrun_count_check(dev):
     FLOPs exactly, other FLOPs and bytes within ``DRYRUN_COUNT_TOL``; the
     dry-run's ``peak_bytes`` against ``torch.cuda.max_memory_allocated``
     of the step (parameters, state and inputs resident), within
-    ``DRYRUN_MEM_TOL``."""
+    ``DRYRUN_MEM_TOL``.  The card's peak is taken above what was allocated
+    before the step's parameters were made, after a full garbage
+    collection: tensors of an earlier step that a reference cycle keeps
+    until the collector runs are not the step's."""
+    import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.precision import get_policy
@@ -2782,7 +2889,10 @@ def dryrun_count_check(dev):
         model = build(cfg)
         kw = dict(arch=arch, shape=kind, cfg=cfg, seq=seq, batch=batch,
                   kind=kind)
+        gc.collect()
         torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
         if kind == "train":
             params = tree_map(lambda p: p.requires_grad_(True),
                               model.init_params(0, dev))
@@ -2808,8 +2918,9 @@ def dryrun_count_check(dev):
         torch.cuda.reset_peak_memory_stats(dev)
         eager = analyze_step(step, *args, **kw).cost
         torch.cuda.synchronize()
-        card_peak = torch.cuda.max_memory_allocated(dev)
-        del params, state, args
+        card_peak = torch.cuda.max_memory_allocated(dev) - base
+        del params, state, args, step, toks
+        gc.collect()
         torch.cuda.empty_cache()
         got = rec["device_counts"]
         label = f"{arch} {kind} {batch} x {seq}"
@@ -2826,7 +2937,8 @@ def dryrun_count_check(dev):
         out.append(dict(step=label, dryrun=got, eager=dict(
             matmul_flops=eager.matmul_flops, other_flops=eager.other_flops,
             bytes=eager.bytes), dryrun_peak_bytes=peak,
-            card_peak_bytes=card_peak, peak_ratio=peak / card_peak,
+            card_peak_bytes=card_peak, card_resident_before_bytes=base,
+            peak_ratio=peak / card_peak,
             dryrun_s=t_dry, dryrun_record=rec))
     return out
 
@@ -2843,12 +2955,18 @@ def dryrun_phase(dev, smi):
     import torch
     t0 = time.perf_counter()
     procs = dryrun_cli_start()
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-    lines, rows, launches = seq_sharded_rows(dev, flush, smi)
-    del flush
-    t_a = time.perf_counter() - t0
-    counts = dryrun_count_check(dev)
-    t_b = time.perf_counter() - t0 - t_a
+    try:
+        flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+        lines, rows, launches = seq_sharded_rows(dev, flush, smi)
+        del flush
+        t_a = time.perf_counter() - t0
+        counts = dryrun_count_check(dev)
+        t_b = time.perf_counter() - t0 - t_a
+    except BaseException:
+        for _, p in procs:
+            p.kill()
+            p.wait()
+        raise
     recs = dryrun_cli_wait(procs)
     t_c = time.perf_counter() - t0 - t_a - t_b
     print(f"dryrun phase parts: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
@@ -2975,6 +3093,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _, totals = serve_phase(dev)
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tail_worst, tail_serves = tail_phase(dev, totals)
+    for r in tail_serves:
+        print("serve:", json.dumps(r))
+    print(f"tail phase: d_ff {TAIL_D_FF} REDUCED (w2 a 32-deep K tail), "
+          f"card vs CPU, max rel err {json.dumps(tail_worst)} "
+          f"({time.perf_counter() - t0:.1f} s)")
     for r in training.values():           # main-path runs of the kernels
         for k, n in r.get("launches", {}).items():
             totals[k] += n

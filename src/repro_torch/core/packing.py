@@ -16,7 +16,12 @@ values, the paper's §4.1 fragment order, one per kernel, made by
 :func:`to_kernel_layout` (``layout="frag_a16"`` for ``mpgemm_a16``,
 ``"frag_a8"`` for ``mpgemm_int8``)::
 
-    data[N/16, K/64, 32 lanes, 4·bits] int8
+    data[N/16, ceil(K/64), 32 lanes, 4·bits] int8
+
+A K of 32 times an odd number (group 32, the Pallas GEMMs' smallest
+block_k) lays out ceil(K/64) blocks, the last one's missing 32 K rows
+holding zero codes; ``shape`` stays (K, N), the scales (K/32, N), and
+unpacking drops the padding.
 
 Each (16-column, 64-deep) block holds, for every lane ``4g + t`` of a warp,
 the bytes of its ``mma.sync`` weight fragments in register order, so one
@@ -57,8 +62,9 @@ class PackedWeight:
 
     data   : (Kt, Nt, bk_store, bn) int8 — tile-major; bk_store = bk/2 for
              int4 (two nibbles per byte along K), bk for int8 — or, with
-             ``layout="frag_a16"`` / ``"frag_a8"``, (N/16, K/64, 32,
-             4·bits) in a CUDA kernel's fragment order (module docstring).
+             ``layout="frag_a16"`` / ``"frag_a8"``, (N/16, ceil(K/64),
+             32, 4·bits) in a CUDA kernel's fragment order (module
+             docstring).
     scales : (K//group, N) f32 per-group scales.
 
     A stack (:func:`pack_stack`) carries a leading E axis on both;
@@ -82,7 +88,9 @@ class PackedWeight:
     @property
     def storage_bytes(self) -> int:
         """Bytes of the packed values and their scales: ``K·N·bits/8 +
-        (K/group)·N·4`` a member, the same in every layout."""
+        (K/group)·N·4`` a member, the same in every layout, except that a
+        fragment layout of a K of 32 × odd holds its last block's 32 zero
+        K rows too."""
         return self.data.numel() * self.data.element_size() + \
             self.scales.numel() * self.scales.element_size()
 
@@ -183,10 +191,16 @@ FRAG_K, FRAG_N = 64, 16
 KERNEL_LAYOUTS = {"a16": "frag_a16", "a8": "frag_a8"}
 
 
+def frag_chunks(K: int) -> int:
+    """64-deep blocks of a fragment layout: ceil(K / 64)."""
+    return -(-K // FRAG_K)
+
+
 def _steps(q: torch.Tensor, layout: str) -> torch.Tensor:
-    """(K, N) → (c, s, t, b, ct, r, g): chunk, k16 step, lane t, byte b of
-    the lane's word, column tile, row half, g — the logical element at each
-    fragment position.  Within a step, byte b of lane t holds k = 4t + b
+    """(K, N), K a multiple of 64 → (c, s, t, b, ct, r, g): chunk, k16
+    step, lane t, byte b of the lane's word, column tile, row half, g —
+    the logical element at each fragment position.  Within a step, byte
+    b of lane t holds k = 4t + b
     (``frag_a8``: the s8 MMA's four consecutive k a register) or k = 2t +
     8 (b >> 1) + (b & 1) (``frag_a16``: the bf16 MMA's pairs 2t, 2t + 1
     and 2t + 8, 2t + 9)."""
@@ -217,13 +231,19 @@ def to_kernel_layout(p: PackedWeight, kernel: str) -> PackedWeight:
     if p.layout == layout:
         return p
     K, N = p.shape
-    if K % FRAG_K or N % FRAG_N or p.bits not in (4, 8):
+    tail = K % FRAG_K == 32 and p.group == 32
+    if (K % FRAG_K and not tail) or N % FRAG_N or p.bits not in (4, 8):
         raise ValueError(f"the CUDA GEMMs read weights in blocks of "
                          f"{FRAG_K} K x {FRAG_N} N: the fragment layout "
-                         f"needs K % {FRAG_K} == 0, N % {FRAG_N} == 0 and "
+                         f"needs K % {FRAG_K} == 0 (or 32 at group 32), "
+                         f"N % {FRAG_N} == 0 and "
                          f"bits 4 or 8 (got shape {p.shape}, block_k "
                          f"{p.block_k}, bits {p.bits})")
-    v = _steps(unpack_weight(p), layout)            # (c, s, t, b, ct, r, g)
+    q = unpack_weight(p)
+    Kp = frag_chunks(K) * FRAG_K
+    if Kp != K:                      # the last block's 32 rows: zero codes
+        q = torch.cat([q, q.new_zeros((Kp - K, N))])
+    v = _steps(q, layout)                           # (c, s, t, b, ct, r, g)
     if p.bits == 4:
         # (ct, c, g, t, s, b, r) → byte = column g's nibble | g+8's << 4
         v = v.permute(4, 0, 6, 2, 1, 3, 5).to(torch.int32)
@@ -232,14 +252,15 @@ def to_kernel_layout(p: PackedWeight, kernel: str) -> PackedWeight:
     else:
         # (ct, c, g, t, s, r, b): column g's word, then column g+8's
         data = v.permute(4, 0, 6, 2, 1, 5, 3)
-    data = data.reshape(N // FRAG_N, K // FRAG_K, 32, 4 * p.bits)
+    data = data.reshape(N // FRAG_N, Kp // FRAG_K, 32, 4 * p.bits)
     return dataclasses.replace(p, data=data.contiguous(), layout=layout)
 
 
 def _unpack_frag(p: PackedWeight) -> torch.Tensor:
-    """Fragment-order bytes → (K, N) int8-held values."""
+    """Fragment-order bytes → (K, N) int8-held values (a tail block's
+    zero rows dropped)."""
     K, N = p.shape
-    C, CT = K // FRAG_K, N // FRAG_N
+    C, CT = frag_chunks(K), N // FRAG_N
     if p.bits == 4:
         # (ct, c, g, t, s, b): low nibble column g, high column g+8
         d = p.data.reshape(CT, C, 8, 4, 4, 4)
@@ -247,7 +268,8 @@ def _unpack_frag(p: PackedWeight) -> torch.Tensor:
     else:
         v = p.data.reshape(CT, C, 8, 4, 4, 2, 4).transpose(-1, -2)
     # (ct, c, g, t, s, b, r) → (c, s, t, b, ct, r, g)
-    return _unsteps(v.permute(1, 4, 3, 5, 0, 6, 2), p.layout, K, N)
+    return _unsteps(v.permute(1, 4, 3, 5, 0, 6, 2), p.layout, C * FRAG_K,
+                    N)[:K]
 
 
 def unpack_weight(p: PackedWeight) -> torch.Tensor:

@@ -1,8 +1,15 @@
 // The mainloop of both mixed-precision GEMMs (mpgemm.cu: bf16 activations,
 // mpgemm_int8.cu: int8 activations): y (M, N) bf16 = x (M, K) @ W, W packed
 // at bits 4 or 8 in the kernel's fragment order (core/packing.py
-// to_kernel_layout: frag_a16 or frag_a8), data (N/16, K/64, 32 lanes,
-// 4 * BITS bytes), scales (K/group, N) f32.
+// to_kernel_layout: frag_a16 or frag_a8), data (N/16, ceil(K/64), 32
+// lanes, 4 * BITS bytes), scales (K/group, N) f32.  K is a multiple of 64
+// and of the group, or 32 times an odd number at group 32: then the last
+// chunk is a tail of 32 real K rows.  Its other 32 weight rows hold zero
+// codes, and its loads zero-fill x columns 32-63 and the scale row past
+// K / 32 (cp.async with a source size of 0), so the chunk's second k32
+// step adds exact zeros and the mainloop runs it as any chunk.  Only the
+// kernels instantiated with TAIL do that, and only such a K launches
+// them: every other weight runs the code it ran without the tail.
 //
 // What bounds it on an H100: the weights' bytes at decode (M = 4: 8 flops
 // per 4-bit weight byte; group 32 adds 1 f32 scale per 32 weights, 25 % of
@@ -126,7 +133,7 @@ struct Tile {
 struct Args {
   const void* x;          // (M, K) bf16 (A16) or int8 (A8)
   const float* xscale;    // (M,) per-token scales (A8 only)
-  const int8_t* w;        // (N/16, K/64, 32, 4 * BITS) fragment order
+  const int8_t* w;        // (N/16, ceil(K/64), 32, 4 * BITS) fragment order
   const float* scales;    // (K/group, N)
   __nv_bfloat16* y;       // (M, N)
   int M, K, N, group;
@@ -178,8 +185,9 @@ __device__ __forceinline__ void a8_frag(uint32_t* fa, const uint32_t* wd,
 
 // Grid (ceil(N / BN) * S, ceil(M / BM)), clusters of S blocks along x.
 // LOCAL (A8): every group ends inside its chunk (group <= 64), so an n8
-// tile's s32 partial lives in four registers instead of NT x 4.
-template <bool A8, int BITS, int NT, int STAGES, bool LOCAL = false>
+// tile's s32 partial lives in four registers instead of NT x 4.  TAIL: K
+// is 32 times an odd number (group 32), the last chunk a tail.
+template <bool A8, int BITS, int NT, int STAGES, bool LOCAL, bool TAIL>
 __global__ void __launch_bounds__(THREADS, A8 && !LOCAL ? 1 : 2)
 gemm_kernel(Args a) {
   using L = Tile<A8, BITS, NT, STAGES>;
@@ -196,7 +204,7 @@ gemm_kernel(Args a) {
   const int m0 = blockIdx.y * BM;
   const int ct = cb * WARPS + warp;              // the warp's column tile
   const bool live = ct * 16 < a.N;
-  const int nchunk = a.K / KC;
+  const int nchunk = (a.K + (TAIL ? KC - 1 : 0)) / KC;
   const int unit = a.group > KC ? a.group / KC : 1;   // chunks per unit
   const int nunit = nchunk / unit;
   const int c0 = rank * nunit / S * unit, c1 = (rank + 1) * nunit / S * unit;
@@ -208,6 +216,7 @@ gemm_kernel(Args a) {
   auto load = [&](int i) {                       // chunk c0 + i -> its slot
     unsigned char* st = stage(i % STAGES);
     const int c = c0 + i;
+    const bool tail = TAIL && (c + 1) * KC > a.K;   // 32 real K rows
     if (live) {
       const int8_t* src =
           a.w + (size_t(ct) * nchunk + c) * L::TILE_BYTES + lane * LANE;
@@ -220,10 +229,12 @@ gemm_kernel(Args a) {
     constexpr int SQ = BN / 4;                   // 16-byte pieces a row
     for (int k = threadIdx.x; k < srows * SQ; k += THREADS) {
       const int r = k / SQ, col = cb * BN + (k % SQ) * 4;
+      const bool zero = tail && r;              // the row past K / 32
       if (col < a.N)
         ptx::cp_async16(ssm + r * BN + (k % SQ) * 4,
-                        a.scales + size_t(((c * KC) >> gshift) + r) * a.N +
-                            col);
+                        a.scales + size_t(((c * KC) >> gshift) + r - zero) *
+                                       a.N + col,
+                        zero ? 0 : 16);
     }
     unsigned char* xsm = st + L::W + L::S;
     constexpr int PIECES = XT::BYTES / 16;
@@ -231,10 +242,11 @@ gemm_kernel(Args a) {
     for (int k = threadIdx.x; k < BM * PIECES; k += THREADS) {
       const int r = k / PIECES, p = k % PIECES;
       const int tok = min(m0 + r, a.M - 1);
+      const bool zero = tail && p >= PIECES / 2;   // x columns 32-63
       ptx::cp_async16(xsm + r * XT::ROW + 16 * p,
                       x + (size_t(tok) * a.K + size_t(c) * KC) *
-                              (A8 ? 1 : 2) + 16 * p,
-                      m0 + r < a.M ? 16 : 0);
+                              (A8 ? 1 : 2) + (zero ? 0 : 16 * p),
+                      m0 + r < a.M && !zero ? 16 : 0);
     }
   };
 
@@ -393,12 +405,15 @@ inline int sm_count() {
 // a block, at most MAX_SPLITS, then clamped to the number of K units and
 // to half the number of 64-deep chunks, rounded up (a block of one chunk
 // has no load to overlap, and at M 128 its share of the combine costs more
-// than its MMAs).  A function of the weight's shape and the card only.
+// than its MMAs).  A tail chunk counts as a unit (group 32: a unit is a
+// chunk) and falls to the last rank.  A function of the weight's shape
+// and the card only.
 inline int splits(int K, int N, int group) {
   const int sms = sm_count();
   const int nb = (N + BN - 1) / BN;
-  const int nunit = K / (group > KC ? group : KC);
-  const int half = (K / KC + 1) / 2;
+  const int nchunk = (K + KC - 1) / KC;
+  const int nunit = group > KC ? K / group : nchunk;
+  const int half = (nchunk + 1) / 2;
   const int want = (sms + nb - 1) / nb;
   int s = 1;
   while (s < want && s < MAX_SPLITS) s *= 2;
@@ -407,10 +422,11 @@ inline int splits(int K, int N, int group) {
   return s > 1 ? s : 1;
 }
 
-template <bool A8, int BITS, int NT, int STAGES, bool LOCAL = false>
+template <bool A8, int BITS, bool TAIL, int NT, int STAGES,
+          bool LOCAL = false>
 int launch_tile(const Args& a, cudaStream_t st) {
   using L = Tile<A8, BITS, NT, STAGES>;
-  auto kern = gemm_kernel<A8, BITS, NT, STAGES, LOCAL>;
+  auto kern = gemm_kernel<A8, BITS, NT, STAGES, LOCAL, TAIL>;
   if (L::SMEM > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
@@ -447,29 +463,32 @@ int launch_tile(const Args& a, cudaStream_t st) {
 // than half the SMs idle (then two 64-token rows of blocks beat reading
 // each weight once).  The tile changes how many MMAs share a weight
 // fragment, never a row's sum: the K split is the same at every M.
-template <bool A8, int BITS>
+template <bool A8, int BITS, bool TAIL>
 int launch_bits(const Args& a, cudaStream_t st) {
-  if (a.M <= 8) return launch_tile<A8, BITS, 1, 8>(a, st);
-  if (a.M <= 16) return launch_tile<A8, BITS, 2, 8>(a, st);
-  if (a.M <= 32) return launch_tile<A8, BITS, 4, 6>(a, st);
+  if (a.M <= 8) return launch_tile<A8, BITS, TAIL, 1, 8>(a, st);
+  if (a.M <= 16) return launch_tile<A8, BITS, TAIL, 2, 8>(a, st);
+  if (a.M <= 32) return launch_tile<A8, BITS, TAIL, 4, 6>(a, st);
   if constexpr (A8) {
     const int blocks = (a.N + BN - 1) / BN * splits(a.K, a.N, a.group);
     if (a.M <= 64 || a.group > KC || 2 * blocks < sm_count())
-      return launch_tile<A8, BITS, 8, 4>(a, st);
+      return launch_tile<A8, BITS, TAIL, 8, 4>(a, st);
   }
-  return launch_tile<A8, BITS, 16, 4, A8>(a, st);
+  return launch_tile<A8, BITS, TAIL, 16, 4, A8>(a, st);
 }
 
 // Shape checks shared by both entry points; then the launch.
 template <bool A8>
 int launch(const Args& a, int bits, cudaStream_t st) {
-  if (a.M < 1 || a.K % KC || a.N % 16 ||
+  if (a.M < 1 || a.K % 32 || (a.K % KC && a.group != 32) || a.N % 16 ||
       (a.group != 32 && a.group != 64 && a.group != 128) ||
       a.K % a.group)
     return int(cudaErrorInvalidValue);
-  if (bits == 4) return launch_bits<A8, 4>(a, st);
-  if (bits == 8) return launch_bits<A8, 8>(a, st);
-  return int(cudaErrorInvalidValue);
+  if (bits != 4 && bits != 8) return int(cudaErrorInvalidValue);
+  if (a.K % KC)                        // 32 x odd: the last chunk a tail
+    return bits == 4 ? launch_bits<A8, 4, true>(a, st)
+                     : launch_bits<A8, 8, true>(a, st);
+  return bits == 4 ? launch_bits<A8, 4, false>(a, st)
+                   : launch_bits<A8, 8, false>(a, st);
 }
 
 }  // namespace gemm

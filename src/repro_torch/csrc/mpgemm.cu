@@ -16,10 +16,10 @@
 // memory.
 #include "gemm_tile.cuh"
 
-// x (M, K) bf16; w (N/16, K/64, 32, 4 * bits) int8 fragment order; scales
-// (K/group, N) f32; y (M, N) bf16.  Takes bits in {4, 8}, group in {32,
-// 64, 128}, K a multiple of 64 and of group, N a multiple of 16, and
-// 16-byte aligned x, w and scales.  Returns the CUDA error of the launch
+// x (M, K) bf16; w (N/16, ceil(K/64), 32, 4 * bits) int8 fragment order;
+// scales (K/group, N) f32; y (M, N) bf16.  Takes bits in {4, 8}, group in
+// {32, 64, 128}, K a multiple of 64 and of group or, at group 32, of 32,
+// N a multiple of 16, and 16-byte aligned x, w and scales.  Returns the CUDA error of the launch
 // (0 on success).
 extern "C" int mpgemm_a16(const void* x, const void* w, const void* scales,
                           void* y, int bits, int M, int K, int N, int group,

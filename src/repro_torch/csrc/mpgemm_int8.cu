@@ -16,8 +16,8 @@
 // from ldmatrix.
 #include "gemm_tile.cuh"
 
-// xq (M, K) int8; xscale (M,) f32; w (N/16, K/64, 32, 4 * bits) int8
-// fragment order; scales (K/group, N) f32; y (M, N) bf16.  Takes what
+// xq (M, K) int8; xscale (M,) f32; w (N/16, ceil(K/64), 32, 4 * bits)
+// int8 fragment order; scales (K/group, N) f32; y (M, N) bf16.  Takes what
 // mpgemm_a16 takes.  Returns the CUDA error of the launch (0 on success).
 extern "C" int mpgemm_int8(const void* x, const void* xs, const void* w,
                            const void* scales, void* y, int bits, int M,

@@ -21,8 +21,8 @@ Cost = Tuple[int, int]
 
 def gemm(M: int, K: int, N: int, weight_bytes: int, a8: bool) -> Cost:
     """``y (M, N) bf16 = x (M, K) @ W``: x in bf16 (A16) or int8 with one
-    f32 scale a row (A8), W's ``weight_bytes`` (``PackedWeight.
-    storage_bytes``: packed values + per-group f32 scales)."""
+    f32 scale a row (A8), W's ``weight_bytes`` (:func:`weight_bytes`:
+    packed values + per-group f32 scales)."""
     x_bytes = M * K + M * 4 if a8 else M * K * 2
     return 2 * M * N * K, x_bytes + weight_bytes + M * N * 2
 
@@ -112,14 +112,26 @@ def flash_backward(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
 
 # -- the cost of one wrapper call, from the wrapper's own arguments --------
 
+def weight_bytes(w) -> int:
+    """Bytes of a packed (K, N) weight that y = x · dequant(W) needs: its
+    K·N values and its (K/group, N) f32 scales, the same in every layout.
+    A fragment layout of a K of 32 × odd also holds, and the kernels also
+    read, its last chunk's 32 zero K rows (``core.packing.to_kernel_layout``);
+    they are not counted."""
+    K, N = w.shape
+    return K * N * w.bits // 8 + (K // w.group) * N * 4
+
+
 def of_mpgemm_a16(x, w) -> Cost:
-    """``kernels.mpgemm.mpgemm_a16(x, w)``."""
-    return gemm(x.shape[0], *w.shape, w.storage_bytes, a8=False)
+    """``kernels.mpgemm.mpgemm_a16(x, w)``: the weight bytes of
+    :func:`weight_bytes`."""
+    return gemm(x.shape[0], *w.shape, weight_bytes(w), a8=False)
 
 
 def of_mpgemm_int8(xq, xscale, w) -> Cost:
-    """``kernels.mpgemm.mpgemm_int8(xq, xscale, w)``."""
-    return gemm(xq.shape[0], *w.shape, w.storage_bytes, a8=True)
+    """``kernels.mpgemm.mpgemm_int8(xq, xscale, w)``: as
+    :func:`of_mpgemm_a16`."""
+    return gemm(xq.shape[0], *w.shape, weight_bytes(w), a8=True)
 
 
 def of_kvattn(q, k, k_scale, v, v_scale, pos, window, rep, block_s,

@@ -16,14 +16,17 @@ read either layout; CUDA tensors launch the kernels or raise.  Each kernel
 takes only its own fragment layout (``core.packing.to_kernel_layout``,
 which the engine applies to every packed weight on the card, for the
 kernel its policy routes to): any other layout raises instead of being
-repacked per call.
+repacked per call.  K is any multiple of 64 and of the group, or, at
+group 32, 32 times an odd number (the Pallas GEMMs' block_k 32): the
+last 64-deep chunk then holds 32 real rows, and the kernels zero-fill
+the rest of its x columns and scale rows.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.packing import (FRAG_K, FRAG_N, KERNEL_LAYOUTS,
-                                      PackedWeight)
+                                      PackedWeight, frag_chunks)
 
 from repro_torch.roofline import op_cost
 
@@ -44,14 +47,15 @@ def _check_weight(x: torch.Tensor, w: PackedWeight, kernel: str) -> None:
             f"the {kernel} GEMM takes the {KERNEL_LAYOUTS[kernel]!r} "
             f"fragment layout (core.packing.to_kernel_layout(w, "
             f"{kernel!r})), got a {w.layout!r}-layout weight")
-    if w.bits not in (4, 8) or w.group not in GROUPS or \
-            K % max(FRAG_K, w.group) or N % FRAG_N:
+    if w.bits not in (4, 8) or w.group not in GROUPS or K % 32 or \
+            K % w.group or (K % FRAG_K and w.group != 32) or N % FRAG_N:
         raise ValueError(f"kernel takes bits 4 or 8, group in {GROUPS}, "
-                         f"K a multiple of 64 and of group, N of 16 (got "
-                         f"bits={w.bits}, group={w.group}, shape={w.shape})")
+                         f"K a multiple of 64 and of group (or of 32 at "
+                         f"group 32), N of 16 (got bits={w.bits}, "
+                         f"group={w.group}, shape={w.shape})")
     _build.check_operands(x.device, (
         ("W.data", w.data, torch.int8,
-         (N // FRAG_N, K // FRAG_K, 32, 4 * w.bits)),
+         (N // FRAG_N, frag_chunks(K), 32, 4 * w.bits)),
         ("W.scales", w.scales, torch.float32, (K // w.group, N))))
     if any(t.data_ptr() % 16 for t in (x, w.data, w.scales)):
         raise ValueError("the kernels copy x, W and its scales in 16-byte "

@@ -207,9 +207,10 @@ class ShardingRules:
         32, 4·bits): the reference's (K, N) decision made on the counts a
         shard can take whole — K in units of whole 64-deep fragments and
         whole scale groups (K / lcm(64, group)), N in 16-wide blocks —
-        with K's entry on dim 1 and N's on dim 0."""
+        with K's entry on dim 1 and N's on dim 0.  A K of 32 × odd (a
+        32-deep tail chunk) is one unit: no shard holds its K whole."""
         K, N = p.shape
-        units = (K // math.lcm(64, p.group), N // 16)
+        units = (K // math.lcm(64, p.group) if K % 64 == 0 else 1, N // 16)
         lead = () if n_stack is None else (n_stack,)
         spec = self._matrix_spec(wname, lead + units, len(lead),
                                  len(lead) + 1)

@@ -170,10 +170,11 @@ def maybe_quantize(w: torch.Tensor, policy: PrecisionPolicy,
     """Quantize+pack a 2D weight, or an (E, K, N) stack over its trailing
     (K, N) (a MoE layer's experts, :func:`core.packing.pack_stack`), if
     it is large enough and tileable; small or odd weights stay bf16
-    (embeddings, norms stay high precision).  The CUDA GEMMs also need
-    K % 64 == 0 (``core.packing.to_kernel_layout``): a K of 32 times an
-    odd number packs here (block_k 32), and the engine then refuses it on
-    the card at load time."""
+    (embeddings, norms stay high precision).  Every weight packed here
+    at the default group also runs through the CUDA GEMMs: a K of 32
+    times an odd number packs with block_k = group = 32, which the
+    kernels read as a 32-deep tail chunk (``core.packing.
+    to_kernel_layout``)."""
     if policy.weights.bits == 16 or w.dim() < 2:
         return w
     if w.dim() > 3:

@@ -34,6 +34,7 @@ from repro_torch.core import precision as TPR
 from repro_torch.models import transformer as TT
 from repro_torch.models.registry import build as t_build
 from repro_torch.serving import Engine, EngineConfig
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -36,6 +36,7 @@ from repro_torch.core import precision as TPR
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.flashprefill import flash_prefill
 from repro_torch.models import common as TC
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

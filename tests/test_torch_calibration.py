@@ -33,6 +33,7 @@ from repro_torch.core import calibration as TCAL
 from repro_torch.core import packing as TPK
 from repro_torch.core import quantize as TQ
 from repro_torch.kernels.ref import mpgemm_ref
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -360,6 +360,10 @@ GEMM_SHAPES = [  # K, N, bk, bn: every pick_blocks tile of smollm-360m
     # 64-deep K chunk at group 64 (fewer chunks than the cp.async ring's
     # stages, no K split)
     (4096, 64, 128, 64), (64, 4096, 64, 128),
+    # K of 32 x an odd number at block_k = group = 32: the 32-deep tail
+    # chunk alone (K 32), after one chunk (96), and at smollm-360m's
+    # width (1056, a K split of 9 with the tail on the last rank)
+    (32, 128, 32, 128), (96, 256, 32, 128), (1056, 960, 32, 96),
 ]
 #: token counts: decode (1, 4), the kernels' token tiles of 8 / 16 / 32 /
 #: 128 (int8: 64) and their edges (16, 17, 37, 64), a full prefill chunk

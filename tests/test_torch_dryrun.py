@@ -67,6 +67,7 @@ from repro_torch.training import data as D  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_sharding import (FakeMesh, _compare, _jflat,  # noqa: E402
                                  _jrules, _pflat)
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -54,6 +54,7 @@ from repro_torch.serving import (Engine, EngineConfig, EngineError,
 from repro_torch.core.paged_kvcache import cache_leaves
 from repro_torch.serving.engine import _slot_insert
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -32,6 +32,7 @@ from repro_torch.kernels.flashprefill import (FlashPrefill, flash_prefill,
                                               flash_prefill_bwd)
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.ref import NEG_INF
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

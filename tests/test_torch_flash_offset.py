@@ -35,6 +35,7 @@ from repro_torch.kernels.flashprefill import (BWD_KEYS, BWD_ROWS, bwd_plan,
                                              pick_tile)
 from repro_torch.kernels.ref import (NO_WINDOW, flash_prefill_bwd_ref,
                                      flash_prefill_walk)
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

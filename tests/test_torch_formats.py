@@ -29,6 +29,7 @@ from repro_torch.core import packing as TP
 from repro_torch.core import paged_kvcache as TPKV
 from repro_torch.core import precision as TPR
 from repro_torch.core import quantize as TQ
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores
@@ -158,14 +159,15 @@ def test_kernel_layout_bitwise(bk, bn, bits):
 
 @pytest.mark.parametrize("kernel", ["a16", "a8"])
 def test_kernel_layout_needs_k_multiple_of_64(kernel):
-    """A K of 32 times an odd number packs on the CPU at block_k 32 (as in
-    the JAX package), but has no fragment layout: the CUDA GEMMs read K
-    in 64-deep chunks, and the error says so."""
-    from repro_torch.models.common import maybe_quantize
+    """The CUDA GEMMs read K in 64-deep chunks.  A K of 32 times an odd
+    number packs on the CPU at any group that divides it (as in the JAX
+    package), but outside group 32, whose 32-deep tail
+    ``tests/test_torch_gemm_tail.py`` covers, it has no fragment layout,
+    and the error says so."""
     w = torch.from_numpy(_bf16(np.random.default_rng(5), (288, 256), 0.05))
-    pt = maybe_quantize(w, TPR.get_policy("w4a16kv8"))
-    assert pt.layout == "tile" and pt.block_k == 32
-    with pytest.raises(ValueError, match=r"K % 64 == 0.*block_k 32"):
+    pt = TP.pack_weight(w, bits=4, group=16, block_k=16)
+    assert pt.layout == "tile" and pt.shape == (288, 256)
+    with pytest.raises(ValueError, match=r"K % 64 == 0.*block_k 16"):
         TP.to_kernel_layout(pt, kernel)
 
 

@@ -47,6 +47,7 @@ from repro_torch.kernels import ref as TREF
 from repro_torch.kernels.kvattn import kvattn
 from repro_torch.kernels.mpgemm import mpgemm_a16, mpgemm_int8
 from repro_torch.kernels.paged_kvattn import paged_kvattn
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -46,6 +46,7 @@ from repro_torch.core.packing import PackedWeight
 from repro_torch.core.precision import get_policy as t_policy
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -61,6 +61,7 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import transformer as TT
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores
@@ -80,14 +81,6 @@ def _t(a) -> torch.Tensor:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().numpy()
-
-
-@pytest.fixture(autouse=True)
-def _einsum_dispatch():
-    """Every test starts and ends on both packages' default dispatch."""
-    yield
-    JMOE.set_dispatch_impl("einsum")
-    TMOE.set_dispatch_impl("einsum")
 
 
 def _cfgs(E=4, k=2, cf=1.25, d=64, f=128):

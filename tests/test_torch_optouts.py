@@ -47,6 +47,7 @@ from repro_torch.core import paged_kvcache as TPKV
 from repro_torch.core import precision as TPR
 from repro_torch.models import common as TC
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

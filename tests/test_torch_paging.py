@@ -41,6 +41,7 @@ from repro_torch.core.kvcache import store_dim
 from repro_torch.core.precision import get_policy
 from repro_torch.serving import (Engine, EngineConfig, EngineError,
                                  SamplingParams, Status)
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

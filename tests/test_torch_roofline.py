@@ -62,6 +62,7 @@ from repro_torch.roofline import op_cost
 from repro_torch.serving.engine import quantize_params as t_quantize
 from repro_torch.training import data as D
 from repro_torch.training.loop import tree_map
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -62,6 +62,7 @@ from repro_torch.serving import (Engine, EngineConfig, EngineError,
 from repro_torch.core.paged_kvcache import cache_leaves
 from repro_torch.serving.engine import _slot_insert
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

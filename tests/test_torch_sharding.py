@@ -72,6 +72,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import quantize_params
 from repro_torch.training import optimizer as TO
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

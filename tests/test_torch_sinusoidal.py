@@ -42,6 +42,7 @@ from repro_torch.convert import params_from_jax, to_tensor
 from repro_torch.core.precision import get_policy as t_policy
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -58,6 +58,7 @@ from repro_torch.training import checkpoint as CK
 from repro_torch.training import data as D
 from repro_torch.training import optimizer as O
 from repro_torch.training.loop import empty_state, train, tree_map
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

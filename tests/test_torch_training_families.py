@@ -65,6 +65,8 @@ from repro_torch.models.registry import build as t_build
 from repro_torch.training import optimizer as TO
 from repro_torch.training.loop import make_train_step, tree_map
 from repro_torch.training.optimizer import leaf_groups
+import torch_defaults
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores
@@ -158,6 +160,23 @@ def _jit(fn, arch, *args, **kw):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_gradients_match_jax(arch, monkeypatch):
     _loss_and_gradients(arch, monkeypatch)
+
+
+def test_moe_parity_holds_after_the_reference_dryrun(monkeypatch):
+    """The reference's ``build_lowerable`` leaves JAX's moe dispatch on
+    ``"sort"`` (``src/repro/launch/dryrun.py:94``) and its options set
+    (``block_skip``: the triangle walk), and a test process shares them
+    with every later file; here the port is left off its default too.
+    ``torch_defaults.reset_globals`` puts both packages back, and the
+    llama4 loss and gradients then meet their bars."""
+    from repro.core import attention as JA
+    JMOE.set_dispatch_impl("sort")
+    JA.set_block_skip(True)
+    TMOE.set_dispatch_impl("sort")
+    torch_defaults.reset_globals()
+    assert JMOE._DISPATCH_IMPL == TMOE.dispatch_impl() == "einsum"
+    assert JA.BLOCK_SKIP is False
+    _loss_and_gradients("llama4-scout-17b-a16e", monkeypatch)
 
 
 def test_loss_and_gradients_match_jax_at_head_dim_288(monkeypatch):

@@ -47,6 +47,7 @@ from repro_torch.models.registry import VIT_WIDTH, build
 from repro_torch.serving import (Engine, EngineConfig, EngineError,
                                  SamplingParams)
 from repro_torch.serving.engine import quantize_params as t_quantize
+from torch_defaults import package_defaults  # noqa: F401
 
 # tiny tensors: one intra-op thread avoids the barrier waits that
 # dominate when pytest-xdist workers share the cores

@@ -9,35 +9,20 @@ trees call them: no key offset, no lse.
 
     python3 tools/kvattn_bits.py OLD NEW [--out build/kvattn_bits.json]
 
-Each TREE is a checkout of the repository (``.`` for this one) and runs in
-a process of its own with its own ``src/`` on the path and its own
-``build/`` directory; the shapes and the stores are this tree's.  Prints,
-per shape and kernel, whether every tree's bytes equal the first tree's;
-exits 1 if any differ.
+Each TREE is a checkout of the repository (``.`` for this one), run as
+``tools/_bits.py`` says; the shapes and the stores are this tree's.
+Prints, per shape and kernel, whether every tree's bytes equal the first
+tree's; exits 1 if any differ.
 """
-import argparse
-import hashlib
-import json
-import os
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _digest(t) -> str:
-    """SHA-256 of a tensor's bytes."""
-    import torch
-    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
-                          .numpy().tobytes()).hexdigest()
+import _bits
 
 
 def shapes():
     """(fmt, B, Hkv, rep, D, bs, bps, T, pos, window) of the attention
     phase."""
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as C
+    C = _bits.chip_smoke()
     out = [(fmt, 4, 5, 3, 64, 16, 16, T, pos, None)
            for fmt in C.KV_FORMATS
            for T, pos in ((1, [95, 36, 70, 0]), (32, [32, 0, 64, 96]))]
@@ -51,8 +36,7 @@ def run_tree(cases) -> dict:
     """Digests of both kernels' outputs at ``cases`` with the wrappers on
     the path (one tree)."""
     import torch
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as C
+    C = _bits.chip_smoke()
     from repro_torch.core.paged_kvcache import blocks_needed
     from repro_torch.core.precision import get_policy
     from repro_torch.kernels.kvattn import kvattn
@@ -79,49 +63,10 @@ def run_tree(cases) -> dict:
                              pool.block_table, posd, win, rep, n_live, spec)
         torch.cuda.synchronize()
         out[f"{i:02d} {fmt} B={B} Hkv={Hkv} rep={rep} D={D} bs={bs} T={T} "
-            f"window={window}"] = {"kvattn": _digest(dense),
-                                   "paged_kvattn": _digest(paged)}
+            f"window={window}"] = {"kvattn": _bits.digest(dense),
+                                   "paged_kvattn": _bits.digest(paged)}
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("trees", nargs="*")
-    ap.add_argument("--out", default="build/kvattn_bits.json")
-    ap.add_argument("--one", help=argparse.SUPPRESS)   # worker: shapes file
-    args = ap.parse_args()
-    if args.one:
-        cases = json.loads(Path(args.one).read_text())
-        print("DIGESTS " + json.dumps(run_tree(cases)), flush=True)
-        return 0
-    spec = Path(args.out).with_suffix(".shapes.json")
-    spec.parent.mkdir(parents=True, exist_ok=True)
-    spec.write_text(json.dumps(shapes()))
-    runs = []
-    for tree in args.trees:
-        src = str(Path(tree).resolve() / "src")
-        r = subprocess.run([sys.executable, __file__, "--one", str(spec)],
-                           env=dict(os.environ, PYTHONPATH=src),
-                           capture_output=True, text=True)
-        if r.returncode:
-            print(r.stdout[-3000:], r.stderr[-3000:])
-            return 1
-        line = [x for x in r.stdout.splitlines()
-                if x.startswith("DIGESTS ")][-1]
-        runs.append(json.loads(line[len("DIGESTS "):]))
-    same = {name: {k: all(run[name][k] == runs[0][name][k]
-                          for run in runs[1:])
-                   for k in runs[0][name]} for name in runs[0]}
-    for name, row in same.items():
-        print(f"{name:52s} " + "  ".join(
-            f"{k} {'same' if v else 'DIFFERENT'}" for k, v in row.items()))
-    ok = all(all(r.values()) for r in same.values())
-    Path(args.out).write_text(json.dumps({"trees": args.trees, "same": same,
-                                          "ok": ok}, indent=1))
-    print("kvattn_bits:", "every output the same bits" if ok else
-          "outputs differ")
-    return 0 if ok else 1
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_bits.main("kvattn", shapes, run_tree))
