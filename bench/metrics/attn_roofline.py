@@ -1,0 +1,62 @@
+"""attn_roofline: the share of paged attention's roofline the kernel
+reaches in the traced steps, in %.
+
+Needed work, from each traced step's host ``pos`` and ``valid`` (the
+program's step records, ``repro_torch.trace``) and the configuration's
+geometry: per held layer and slot that fed ``valid`` rows at ``pos``,
+its live keys ``min(pos + valid, window)`` read once, each
+``Hkv × 2 × (D·kv_bits/8 + 4)`` bytes (K and V with their f32 scales),
+the fed rows' queries and outputs in bf16, and ``4·H·D`` operations for
+each pair of a fed row and a key it attends.  The same whatever kernel
+implements the attention: walk buckets and padding rows are not counted.
+Its least time at the card's published peaks (``bench.hw``), summed over
+the calls, over the device time of the kernels named ``paged_kvattn``
+(``repro_torch/csrc/paged_kvattn.cu``) in the trace."""
+from bench import hw, session
+
+KERNEL = "paged_kvattn"
+
+
+def windows(model):
+    """Each held layer's attention window (None: global), as the program
+    sets them (``models/transformer.layer_window``)."""
+    win, period = model.get("window"), model.get("local_global_period")
+    return [None if win is None or
+            (period and i % period == period - 1) else win
+            for i in range(model["n_layers"])]
+
+
+def layer_work(pos, valid, H, Hkv, D, kv_bits, window):
+    """(operations, bytes) of one layer's attention over a step's slots."""
+    ops = nbytes = 0
+    for p, v in zip(pos.tolist(), valid.tolist()):
+        if v <= 0:
+            continue
+        live = p + v if window is None else min(p + v, window)
+        nbytes += live * Hkv * 2 * (D * kv_bits // 8 + 4) + 2 * v * H * D * 2
+        keys = sum(p + t + 1 if window is None else min(p + t + 1, window)
+                   for t in range(v))
+        ops += 4 * H * D * keys
+    return ops, nbytes
+
+
+def read(w):
+    t = w.trace
+    if t is None:
+        return None
+    dev = sum(s for n, s in t.kernel_s.items() if KERNEL in n)
+    recs = session.steps(w)
+    if dev <= 0 or recs is None:
+        return None
+    m = w.model
+    H, Hkv = m["n_heads"], m["n_kv_heads"]
+    D = m.get("head_dim") or m["d_model"] // H
+    kv_bits = int(w.policy[w.policy.index("kv") + 2:])
+    least = 0.0
+    for r in recs:
+        if r.t_step == 0:
+            continue
+        for win in windows(m):
+            least += hw.least_seconds(*layer_work(r.pos, r.valid, H, Hkv, D,
+                                                  kv_bits, win))
+    return 100.0 * least / dev

@@ -1621,35 +1621,6 @@ def train_reference(dev):
     return worst
 
 
-def profile_window(eng, prompts, sp):
-    """Where a short serving window's time goes: ``torch.profiler``'s
-    device events (kernels and copies) summed against the host wall clock
-    of the same window.  Runs after the counted window."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        steps0 = eng.model_steps
-        eng.generate(prompts, sp)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-        steps = eng.model_steps - steps0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    busy = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(steps=steps, wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                device_idle_share=1 - busy / wall_us,
-                top_device=[dict(name=k[:60], ms=t / 1e3, count=n)
-                            for k, (t, n) in top])
-
-
 def launch_counters():
     """The six kernel wrappers, by name."""
     from repro_torch.kernels.flashprefill import (flash_prefill,
@@ -1814,7 +1785,6 @@ def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
     GEMM and attention call.  Adds the run's launches to ``totals``."""
     import numpy as np
     import torch
-    from repro_torch.serving import SamplingParams
     eng, setup_s = smollm_engine(dev, policy=policy, cache_kind=kind)
     rng = np.random.default_rng(0)
     prompts = rng.integers(1, eng.model_cfg.vocab,
@@ -1827,8 +1797,6 @@ def serve_one(dev, policy, kind, n_req, prompt_len, new_tokens, totals):
         # be the argmax of decode_step's logits up to a near-tie
         teacher_forced_check(eng, kind, prompts[0], outs[0].output_token_ids,
                              kind)
-        res["profile"] = profile_window(eng, prompts[:4], SamplingParams(
-            max_new_tokens=8))
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     streams = [o.output_token_ids for o in outs]
     del eng
@@ -2014,8 +1982,6 @@ def serve_one_shot(dev, arch, max_seq, n_req, prompt_len, new_tokens,
                setup_s=setup_s, launches=launches,
                kv_resident_bytes=eng.kv_resident_bytes(),
                replay_alone_vs_batch_rel=batch_vs_alone,
-               profile=profile_window(eng, prompts, SamplingParams(
-                   max_new_tokens=8)),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     del eng
     torch.cuda.empty_cache()
@@ -2033,14 +1999,13 @@ def dense_config_serves(dev, totals, serves=DENSE_SERVES):
     teacher-forced step of its request 0 the opt-out's logits, the kernel
     route's and those of exact attention agree pairwise within
     ``TOL_ROUTES`` · max |logit| (the routes put the KV scales in
-    different places, so not bitwise).  A moe config's slab serve is
-    profiled (``profile_window``)."""
+    different places, so not bitwise)."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving import Engine, EngineConfig
     runs = []
     for arch, layers, max_seq, n_req, plen, new, chunk in serves:
         cfg = get_config(arch)
@@ -2071,9 +2036,6 @@ def dense_config_serves(dev, totals, serves=DENSE_SERVES):
                                       streams[kind, impl][0], label,
                                       max_seq=max_seq, chunk=chunk,
                                       attn_impl=impl)
-            if arch in MOE_GEMMS_PER_LAYER and kind == "dense":
-                res["profile"] = profile_window(eng, prompts, SamplingParams(
-                    max_new_tokens=8))
             if impl == "xla":        # the same stream by the kernel route
                 kw = dict(max_seq=max_seq, chunk=chunk)
                 ref = teacher_forced_check(

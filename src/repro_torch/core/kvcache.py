@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
+
 from . import quantize as Q
 from .precision import FormatSpec
 
@@ -147,8 +149,8 @@ def write_rows(cache: KVCache, pos: torch.Tensor, T: int,
     ``b*S + pos[b] + t``.  Rows past ``valid[b]`` or past ``S`` are
     dropped (JAX's ``mode="drop"`` scatter), never clamped onto a live
     cell.  The same for every layer; the filter reads the device mask back
-    (one sync).  None for a sharded slab (its write finds its own
-    rows)."""
+    (one sync, counted in ``repro_torch.trace.host_syncs``).  None for a
+    sharded slab (its write finds its own rows)."""
     if is_sharded(cache):
         return None
     B, S = pos.shape[0], cache.max_seq
@@ -159,6 +161,7 @@ def write_rows(cache: KVCache, pos: torch.Tensor, T: int,
         keep &= t[None] < valid.long()[:, None]
     flat = torch.arange(B, device=pos.device)[:, None] * S + tok
     src = torch.nonzero(keep.reshape(B * T)).reshape(-1)
+    trace.sync()
     return src, flat.reshape(B * T)[src]
 
 

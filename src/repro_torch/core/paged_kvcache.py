@@ -33,6 +33,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 from .kvcache import KVCache, scatter_rows, store_dim
 from .precision import FormatSpec
 
@@ -345,7 +347,8 @@ def write_rows(cache: PagedKVCache, pos: torch.Tensor, T: int,
     mapped by a sentinel are *filtered out* here — PyTorch has no
     drop-mode scatter, and clamping them would dirty a live cell.  The
     result is the same for every layer (one table), so a decode step
-    computes it once; the filter reads the device mask back (one sync).
+    computes it once; the filter reads the device mask back (one sync,
+    counted in ``repro_torch.trace.host_syncs``).
     """
     B = pos.shape[0]
     t = torch.arange(T, device=pos.device)
@@ -355,6 +358,7 @@ def write_rows(cache: PagedKVCache, pos: torch.Tensor, T: int,
         keep &= t[None] < valid.long()[:, None]
     keep = keep.reshape(B * T)
     src = torch.nonzero(keep).reshape(-1)
+    trace.sync()
     return src, flat.reshape(B * T)[src]
 
 

@@ -51,6 +51,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core.packing import PackedWeight, dequantize_packed
@@ -233,7 +234,8 @@ def moe_ffn(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
             raise ValueError("moe_ffn of DTensors needs the sharded step's "
                              "expert parallelism (set_sharded_ffn)")
         return _SHARDED_FFN(x, lp, cfg, policy)
-    return moe_partial(x, lp, cfg, policy).to(x.dtype)
+    with trace.span("moe.ffn"):
+        return moe_partial(x, lp, cfg, policy).to(x.dtype)
 
 
 def moe_partial(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
@@ -248,7 +250,8 @@ def moe_partial(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.topk
     experts = range(E) if experts is None else experts
-    _, gates, gate_idx = route(x, lp, cfg, policy)
+    with trace.span("moe.route"):
+        _, gates, gate_idx = route(x, lp, cfg, policy)
     xt = x.to(torch.bfloat16).reshape(B * S, d)
     tok = torch.arange(B * S, device=x.device).repeat_interleave(K)
     eid = gate_idx.reshape(-1).long()
@@ -266,23 +269,33 @@ def moe_partial(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
             out = _expert_ffn(xt[rows], lp, e - experts.start)
             y.index_add_(0, rows, out * g_p[slots, None])
         return y.reshape(B, S, d)
-    if _DISPATCH_IMPL == "sort":
-        keep = dispatch_sort(gate_idx, E, _sort_capacity(cfg, B * S * K))
-        y = torch.zeros((B * S, d), dtype=torch.bfloat16, device=x.device)
-    else:
-        keep = dispatch_einsum(gate_idx, E, _capacity(cfg, S)).reshape(-1)
-        y = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
-    # one host read: which experts hold a kept token
-    kept = torch.nonzero(keep).reshape(-1)
-    for e in torch.unique(eid[kept]).tolist():
-        if e not in experts:
-            continue
-        sel = kept[eid[kept] == e]
-        out = _expert_ffn(xt[tok[sel]], lp, e - experts.start)
+    with trace.span("moe.dispatch"):
         if _DISPATCH_IMPL == "sort":
-            y.index_add_(0, tok[sel], out * g[sel, None])
+            keep = dispatch_sort(gate_idx, E, _sort_capacity(cfg, B * S * K))
+            y = torch.zeros((B * S, d), dtype=torch.bfloat16,
+                            device=x.device)
         else:
-            y.index_add_(0, tok[sel], out.float() * g[sel, None].float())
+            keep = dispatch_einsum(gate_idx, E,
+                                   _capacity(cfg, S)).reshape(-1)
+            y = torch.zeros((B * S, d), dtype=torch.float32,
+                            device=x.device)
+        # three host reads: the kept assignments (nonzero), which experts
+        # hold one (unique, then tolist)
+        kept = torch.nonzero(keep).reshape(-1)
+        touched = torch.unique(eid[kept]).tolist()
+        trace.sync(3)
+    with trace.span("moe.experts"):
+        for e in touched:
+            if e not in experts:
+                continue
+            # and one more an expert: its kept rows (a boolean-mask index)
+            sel = kept[eid[kept] == e]
+            trace.sync()
+            out = _expert_ffn(xt[tok[sel]], lp, e - experts.start)
+            if _DISPATCH_IMPL == "sort":
+                y.index_add_(0, tok[sel], out * g[sel, None])
+            else:
+                y.index_add_(0, tok[sel], out.float() * g[sel, None].float())
     return y.reshape(B, S, d)
 
 

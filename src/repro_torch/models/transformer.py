@@ -21,6 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core import kvcache as KV
@@ -343,29 +344,31 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
         x = x + _position_rows(n_ctx, x.shape[-1], pos, T, per_slot)
     rows = (PKV if paged else KV).write_rows(cache, pos, T, valid)
     for i, lp in enumerate(params["layers"]):
-        cache_l = cache.layer(i)
-        h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(h, lp, cfg, policy)
-        if rotation is not None:
-            q = C.apply_rope(q, rotation)
-            k = C.apply_rope(k, rotation)
-        if paged:
-            PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
+        with trace.span("model.layer"):
+            cache_l = cache.layer(i)
+            h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = qkv(h, lp, cfg, policy)
+            if rotation is not None:
+                q = C.apply_rope(q, rotation)
+                k = C.apply_rope(k, rotation)
+            if paged:
+                PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
+            else:
+                KV.append_per_slot(cache_l, k, v, pos, policy.kv, rows=rows)
+            attn = C.attend_decode(q, cache_l, policy.kv, pos,
+                                   window=layer_window(cfg, i),
+                                   block_s=attn_block_s, max_live=max_live,
+                                   impl=attn_impl)
+            x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
+            h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + ffn(h2, lp, cfg, policy)
+    with trace.span("model.head"):
+        if valid is None:
+            h_sel = x[:, -1]
         else:
-            KV.append_per_slot(cache_l, k, v, pos, policy.kv, rows=rows)
-        attn = C.attend_decode(q, cache_l, policy.kv, pos,
-                               window=layer_window(cfg, i),
-                               block_s=attn_block_s, max_live=max_live,
-                               impl=attn_impl)
-        x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
-        h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn(h2, lp, cfg, policy)
-    if valid is None:
-        h_sel = x[:, -1]
-    else:
-        # each slot reads its last *valid* row (idle slots clamp to row 0;
-        # the engine discards their logits)
-        idx = (valid.long() - 1).clamp(0, T - 1)
-        h_sel = x[torch.arange(B, device=dev), idx]
-    h_last = C.rms_norm(h_sel, params["final_norm"], cfg.norm_eps)
-    return lm_logits(params, h_last), cache
+            # each slot reads its last *valid* row (idle slots clamp to row
+            # 0; the engine discards their logits)
+            idx = (valid.long() - 1).clamp(0, T - 1)
+            h_sel = x[torch.arange(B, device=dev), idx]
+        h_last = C.rms_norm(h_sel, params["final_norm"], cfg.norm_eps)
+        return lm_logits(params, h_last), cache

@@ -60,9 +60,12 @@ its n-token prompt although the prefill wrote ``n_img + n - 1`` rows:
 each step overwrites and attends to the slab's first rows, the image's
 while ``n - 1 < n_img``.
 
-Sampling is per slot (``serving/sampler.py``); feed cursors are host-side,
-and the one device→host sync per iteration besides the KV write filter is
-the sampled-token fetch.
+Sampling is per slot (``serving/sampler.py``); feed cursors are host-side.
+On a card a chunked step waits for the device at each host → device copy
+of its inputs and of a slot's block-table row, at the KV write filter and
+at the sampled-token fetch (and, moe, in ``moe_partial``): each is counted
+in ``repro_torch.trace.host_syncs``.  Under a recording ``torch.profiler``
+the step's phases are spans of :mod:`repro_torch.trace`.
 """
 from __future__ import annotations
 
@@ -72,6 +75,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import kvcache as KV
 from repro_torch.core import paged_kvcache as PKV
 from repro_torch.core.packing import PackedWeight, to_kernel_layout
@@ -215,6 +219,9 @@ class Engine:
         #: stream tokens fed through those steps (prompt chunks, replay
         #: and decode rows; a prefix hit's shared extent is not fed)
         self.fed_tokens = 0
+        #: rows those steps computed: ``n_slots × t_step`` each, padding
+        #: and idle slots included
+        self.computed_rows = 0
 
     # -- the batched step ---------------------------------------------------
 
@@ -224,21 +231,29 @@ class Engine:
         (B, t_step) host array, slot b's first ``valid[b]`` real.  Returns
         the sampled (B,) tokens on the host."""
         dev = self.device
-        kw = {}
-        if self._kv_family:
-            # every KV family walks the engine's tiles (the one-shot vlm
-            # too, as the reference passes them to every family with
-            # kernels); only chunked engines feed padding rows
-            kw = dict(max_live=max_live, attn_block_s=self.attn_block_s,
-                      attn_impl=self.config.attn_impl)
-        if self._chunked:
-            kw["valid"] = torch.from_numpy(valid).to(dev)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.policy, torch.from_numpy(tokens).to(dev),
-            self.cache, torch.from_numpy(pos).to(dev), **kw)
+        with trace.span("engine.inputs"):
+            kw = {}
+            if self._kv_family:
+                # every KV family walks the engine's tiles (the one-shot
+                # vlm too, as the reference passes them to every family
+                # with kernels); only chunked engines feed padding rows
+                kw = dict(max_live=max_live, attn_block_s=self.attn_block_s,
+                          attn_impl=self.config.attn_impl)
+            if self._chunked:
+                kw["valid"] = torch.from_numpy(valid).to(dev)
+            tokens_d = torch.from_numpy(tokens).to(dev)
+            pos_d = torch.from_numpy(pos).to(dev)
+            trace.sync(2 + self._chunked)
+        with trace.span("model.forward"):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.policy, tokens_d, self.cache, pos_d, **kw)
         self.model_steps += 1
-        nxt = S.sample(logits, temp, top_k, seeds, steps)
-        return nxt.cpu().numpy()
+        self.computed_rows += tokens.size
+        with trace.span("engine.sample"):
+            nxt = S.sample(logits, temp, top_k, seeds, steps)
+        with trace.span("engine.fetch"):
+            trace.sync()
+            return nxt.cpu().numpy()
 
     # -- public API --------------------------------------------------------
 
@@ -397,6 +412,7 @@ class Engine:
         if blocks:
             row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
         self.cache.block_table[slot].copy_(row)
+        trace.sync()
 
     def _register_prefix(self, req: Request) -> None:
         """Publish the slot's full prompt blocks below the decode frontier
@@ -532,46 +548,67 @@ class Engine:
         re-feed already-streamed tokens after a preemption emit nothing
         and count as ``replay_iterations``.  Returns one
         :class:`RequestOutput` per emitting request."""
-        for req in self.scheduler.admit():
-            self._admit(req)
+        trace.begin_step(self)      # opens engine.step while recording
+        try:
+            return self._iterate()
+        finally:
+            trace.end_step(self)
+
+    def _iterate(self) -> List[RequestOutput]:
+        """The body of :meth:`step`, its phases under their spans."""
+        with trace.span("engine.admit"):
+            for req in self.scheduler.admit():
+                if req.admit_time is None:
+                    req.admit_time = self.now()
+                    trace.admitted(req.rid, req.admit_time - req.arrival_time)
+                self._admit(req)
         running = self.scheduler.running()
         if not running:
             return []
-        chunk = self.prefill_chunk if self._chunked else 1
-        t_step, valids = self.scheduler.plan(chunk)
-        if self._growth:
-            # before the step, so every surviving slot's appends land in
-            # mapped blocks; preemption shrinks the batch: re-plan
-            running = self._grow_for_step(running, valids)
-            if not running:
-                return []
+        with trace.span("engine.plan"):
+            chunk = self.prefill_chunk if self._chunked else 1
             t_step, valids = self.scheduler.plan(chunk)
+            if self._growth:
+                # before the step, so every surviving slot's appends land
+                # in mapped blocks; preemption shrinks the batch: re-plan
+                running = self._grow_for_step(running, valids)
+                if not running:
+                    return []
+                t_step, valids = self.scheduler.plan(chunk)
 
-        # idle slots feed token 0 at position 0 with valid == 0: their
-        # writes are dropped and their logits discarded
-        tokens = np.zeros((self.n_slots, t_step), np.int64)
-        pos = np.zeros((self.n_slots,), np.int32)
-        valid = np.zeros((self.n_slots,), np.int32)
-        temp = np.zeros((self.n_slots,), np.float32)
-        top_k = np.zeros((self.n_slots,), np.int32)
-        seeds = np.zeros((self.n_slots,), np.int64)
-        steps = np.zeros((self.n_slots,), np.int64)
-        for r in running:
-            v = valids[r.rid]
-            stream = r.prompt + r.output
-            tokens[r.slot, :v] = stream[r.pos:r.pos + v]
-            pos[r.slot] = r.pos
-            valid[r.slot] = v
-            self.fed_tokens += v
-            temp[r.slot] = r.params.temperature
-            top_k[r.slot] = r.params.top_k
-            seeds[r.slot] = r.seed
-            steps[r.slot] = len(r.output)
+            # idle slots feed token 0 at position 0 with valid == 0: their
+            # writes are dropped and their logits discarded
+            tokens = np.zeros((self.n_slots, t_step), np.int64)
+            pos = np.zeros((self.n_slots,), np.int32)
+            valid = np.zeros((self.n_slots,), np.int32)
+            temp = np.zeros((self.n_slots,), np.float32)
+            top_k = np.zeros((self.n_slots,), np.int32)
+            seeds = np.zeros((self.n_slots,), np.int64)
+            steps = np.zeros((self.n_slots,), np.int64)
+            for r in running:
+                v = valids[r.rid]
+                stream = r.prompt + r.output
+                tokens[r.slot, :v] = stream[r.pos:r.pos + v]
+                pos[r.slot] = r.pos
+                valid[r.slot] = v
+                self.fed_tokens += v
+                temp[r.slot] = r.params.temperature
+                top_k[r.slot] = r.params.top_k
+                seeds[r.slot] = r.seed
+                steps[r.slot] = len(r.output)
+            trace.note_plan(t_step, pos, valid)
 
-        # paged: bound the kernel's walk by the batch's live context
-        max_live = self._live_bucket(running) if self._paged else None
+            # paged: bound the kernel's walk by the batch's live context
+            max_live = self._live_bucket(running) if self._paged else None
         nxt = self._step_fn(tokens, pos, valid, temp, top_k, seeds, steps,
                             max_live)
+        with trace.span("engine.retire"):
+            return self._retire(running, valids, nxt)
+
+    def _retire(self, running: List[Request], valids: Dict[int, int],
+                nxt: np.ndarray) -> List[RequestOutput]:
+        """Advance every fed slot's cursor; a slot that consumed its last
+        unfed token emits its sampled token and retires when finished."""
         t = self.now()
         outputs: List[RequestOutput] = []
         for r in running:

@@ -127,6 +127,8 @@ class Request:
     pos: int = 0
     output: List[int] = dataclasses.field(default_factory=list)
     finish_reason: Optional[FinishReason] = None
+    #: engine time of the first admission (its queue wait ends there)
+    admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     #: prompt tokens served from the prefix cache (reported on outputs)
