@@ -976,7 +976,7 @@ def flash_bwd_phase(dev, flush):
 def to_device(params, dev, policy):
     """Parameter dict/list of tensors and PackedWeights → ``dev``, packed
     2-D weights on the card in the fragment order of the GEMM kernel
-    ``policy`` routes to, expert stacks in their tile layout (as the
+    ``policy`` routes to, expert stacks in the A16 kernel's (as the
     engine's ``quantize_params`` lays them out there)."""
     import torch
     from repro_torch.core.packing import PackedWeight, to_kernel_layout
@@ -984,10 +984,9 @@ def to_device(params, dev, policy):
         return {k: to_device(v, dev, policy) for k, v in params.items()}
     if isinstance(params, list):
         return [to_device(v, dev, policy) for v in params]
-    if isinstance(params, PackedWeight) and not params.stacked and \
-            torch.device(dev).type == "cuda":
-        return to_kernel_layout(params.to(dev),
-                                "a8" if policy.int8_matmul else "a16")
+    if isinstance(params, PackedWeight) and torch.device(dev).type == "cuda":
+        return to_kernel_layout(params.to(dev), "a8" if policy.int8_matmul
+                                and not params.stacked else "a16")
     return params.to(dev)
 
 
@@ -1225,8 +1224,9 @@ def moe_reference(dev):
     kernels on the card against the plain versions on the CPU,
     teacher-forced over 44 tokens, same packed weights, both backends;
     the card's routing held to the CPU's up to a near-tie (flips
-    counted)."""
+    counted); every routed expert on the card through the A16 GEMM."""
     import torch
+    from repro_torch import trace
     from repro_torch.configs import get_reduced
     from repro_torch.core.precision import get_policy
     from repro_torch.models.registry import build
@@ -1246,10 +1246,16 @@ def moe_reference(dev):
                 hold, logits = RoutingHold(), {}
                 for i, d in enumerate(("cpu", dev)):
                     cache, kw = new_cache(model, pol, kind, 1, d)
+                    c0 = trace.moe_experts_packed, trace.moe_experts_plain
                     with hold.run(replay=i > 0, eps=FLIP_SHARE * tol):
                         logits[str(d)] = teacher_forced(
                             model, to_device(params, d, pol), pol, cache, kw,
                             stream, [16, 16, 8, 1, 1, 1, 1])
+                packed = trace.moe_experts_packed - c0[0]
+                check(packed > 0 and trace.moe_experts_plain == c0[1],
+                      f"{arch} {name} {kind}: {packed} routed experts on "
+                      f"the card through the A16 GEMM, "
+                      f"{trace.moe_experts_plain - c0[1]} plain")
                 key = f"{arch}/{name}/{kind}"
                 worst[key] = compare_logits(logits["cpu"], logits[str(dev)],
                                             tol, f"{arch} {name} {kind}")
@@ -1670,17 +1676,22 @@ def run_serve(eng, label, prompts, new_tokens, warm, totals, gemms=7):
     warm-up request ``warm``; the launch counters are zeroed just before
     and read just after.  Checks that every request produced its tokens,
     that each GEMM went through the kernel the policy routes to (``gemms``
-    per layer and step) and each attention call through the backend's
-    kernel (1 per layer and step), and that a paged engine holds no block
-    at the end.  Adds the run's launches to ``totals``; returns the run's numbers
-    and the finished outputs."""
+    per layer and step; and three A16 launches for each routed expert,
+    ``trace.moe_experts_packed``), that every routed expert ran through
+    the A16 GEMM (none plain; between one and every expert of each moe
+    layer a step) and each attention call through the backend's kernel
+    (1 per layer and step), and that a paged engine holds no block at
+    the end.  Adds the run's launches to ``totals``; returns the run's
+    numbers and the finished outputs."""
     import torch
+    from repro_torch import trace
     from repro_torch.serving import SamplingParams, percentile_stats
     eng.generate([warm], SamplingParams(max_new_tokens=2))
     counters = launch_counters()
     for f in counters.values():
         f.launches = 0
     steps0, fed0 = eng.model_steps, eng.fed_tokens
+    experts0 = trace.moe_experts_packed, trace.moe_experts_plain
     t0 = time.perf_counter()
     outs = eng.generate(prompts, SamplingParams(max_new_tokens=new_tokens))
     torch.cuda.synchronize()
@@ -1700,6 +1711,15 @@ def run_serve(eng, label, prompts, new_tokens, warm, totals, gemms=7):
     attn = "paged_kvattn" if eng.cache_kind == "paged" else "kvattn"
     want = {k: 0 for k in launches}
     want[gemm] = gemms * L * steps
+    packed = trace.moe_experts_packed - experts0[0]
+    plain = trace.moe_experts_plain - experts0[1]
+    n_moe = sum(isinstance(lp, dict) and "we1" in lp
+                for lp in eng.params.get("layers", []))
+    check(plain == 0 and n_moe * steps <= packed <=
+          n_moe * cfg.n_experts * steps,
+          f"{label}: routed experts {packed} through the A16 GEMM, {plain} "
+          f"plain, over {steps} steps of {n_moe} moe layers")
+    want["mpgemm_a16"] += 3 * packed
     if eng.config.attn_impl == "kernel":     # "xla": plain attention
         want[attn] = L * steps
     check(launches == want, f"{label}: launches {launches} != {want} "

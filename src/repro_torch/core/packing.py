@@ -39,9 +39,10 @@ stay ``(K/group, N)``.  Every layout is an exact permutation:
 A stack of same-shape weights (a MoE layer's (E, K, N) experts) packs
 member by member (:func:`pack_stack`): the bytes ``jax.vmap(pack_weight)``
 gives, one PackedWeight with a leading E axis on ``data`` and ``scales``.
-Stacks are read only by the plain dequantizer (the MoE layer dequantizes
-the experts it routes to, as the reference does), never by the GEMM
-kernels, so they keep the tile-major layout on the card too.
+:func:`to_kernel_layout` lays a stack out member by member too, so that
+member e (``p[e]``) is a contiguous fragment-order weight that the A16
+GEMM takes as it is: the MoE layer runs each routed expert's products
+through the kernel on the card (``models.moe``).
 """
 from __future__ import annotations
 
@@ -67,8 +68,9 @@ class PackedWeight:
              docstring).
     scales : (K//group, N) f32 per-group scales.
 
-    A stack (:func:`pack_stack`) carries a leading E axis on both;
-    ``shape`` stays the members' (K, N) and ``p[e]`` is member e.
+    A stack (:func:`pack_stack`) carries a leading E axis on both, in
+    either layout; ``shape`` stays the members' (K, N) and ``p[e]`` is
+    member e.
     """
 
     data: torch.Tensor
@@ -223,13 +225,20 @@ def _unsteps(v: torch.Tensor, layout: str, K: int, N: int) -> torch.Tensor:
 def to_kernel_layout(p: PackedWeight, kernel: str) -> PackedWeight:
     """The same packed weight in the fragment order of the CUDA kernel
     ``kernel`` ("a16": ``mpgemm_a16``, "a8": ``mpgemm_int8``; module
-    docstring), on ``p``'s device: an exact permutation of its values."""
+    docstring), on ``p``'s device: an exact permutation of its values.  A
+    stack is laid out member by member into one (E, N/16, ceil(K/64), 32,
+    4·bits) tensor (one member's transients at a time); its scales are
+    kept."""
     layout = KERNEL_LAYOUTS[kernel]
-    if p.stacked:
-        raise ValueError("stacked weights are read by the plain "
-                         "dequantizer only and keep the tile layout")
     if p.layout == layout:
         return p
+    if p.stacked:
+        first = to_kernel_layout(p[0], kernel).data
+        data = first.new_empty((p.n_members,) + tuple(first.shape))
+        data[0] = first
+        for e in range(1, p.n_members):
+            data[e] = to_kernel_layout(p[e], kernel).data
+        return dataclasses.replace(p, data=data, layout=layout)
     K, N = p.shape
     tail = K % FRAG_K == 32 and p.group == 32
     if (K % FRAG_K and not tail) or N % FRAG_N or p.bits not in (4, 8):

@@ -38,7 +38,7 @@ def mpgemm(x: torch.Tensor, w: PackedWeight,
     Pallas block-shape constraint the CUDA kernels lack)."""
     if w.stacked:
         raise ValueError("a stack of packed weights is not a GEMM operand "
-                         "(models.moe dequantizes the experts it routes to)")
+                         "(models.moe multiplies by its members, w[e])")
     K, N = w.shape
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)

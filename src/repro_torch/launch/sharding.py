@@ -27,10 +27,11 @@ reference's tree.
 **Packed weights.**  On the tile layout, ``data`` (Kt, Nt, bk_store, bn)
 and ``scales`` (K/group, N) get the reference's specs.  The CUDA GEMMs'
 fragment layout (``core/packing.py``) holds ``data`` as (N/16, K/64, 32,
-4·bits): its spec puts the reference's decision for N on dim 0 and for K
-on dim 1, made on the counts a shard can take whole — 16-wide column
-blocks and K units holding whole 64-deep fragments and whole scale
-groups (:meth:`ShardingRules.frag_spec`).
+4·bits), an expert stack's with E first: its spec puts the reference's
+decision for E on dim 0 of a stack, for N on the next dim and for K on
+the one after, made on the counts a shard can take whole — 16-wide
+column blocks and K units holding whole 64-deep fragments and whole
+scale groups (:meth:`ShardingRules.frag_spec`).
 """
 from __future__ import annotations
 
@@ -204,20 +205,24 @@ class ShardingRules:
     def frag_spec(self, wname: str, p, n_stack: Optional[int] = None
                   ) -> Spec:
         """Spec of a fragment-layout packed weight's ``data`` (N/16, K/64,
-        32, 4·bits): the reference's (K, N) decision made on the counts a
-        shard can take whole — K in units of whole 64-deep fragments and
-        whole scale groups (K / lcm(64, group)), N in 16-wide blocks —
-        with K's entry on dim 1 and N's on dim 0.  A K of 32 × odd (a
-        32-deep tail chunk) is one unit: no shard holds its K whole."""
+        32, 4·bits), or an expert stack's (E, N/16, K/64, 32, 4·bits): the
+        reference's (E, K, N) decision made on the counts a shard can
+        take whole — K in units of whole 64-deep fragments and whole
+        scale groups (K / lcm(64, group)), N in 16-wide blocks — with E's
+        entry first, then N's and K's.  A K of 32 × odd (a 32-deep tail
+        chunk) is one unit: no shard holds its K whole."""
         K, N = p.shape
         units = (K // math.lcm(64, p.group) if K % 64 == 0 else 1, N // 16)
         lead = () if n_stack is None else (n_stack,)
-        spec = self._matrix_spec(wname, lead + units, len(lead),
-                                 len(lead) + 1)
+        experts = (p.n_members,) if p.stacked else ()
+        shape = lead + experts + units
+        spec = self._matrix_spec(wname, shape, len(shape) - 2,
+                                 len(shape) - 1,
+                                 expert_ax=len(lead) if experts else None)
         if lead and spec[0] is not None:
             raise ValueError(f"{wname}: the rule shards the layer axis")
-        k_entry, n_entry = spec[len(lead):]
-        return (n_entry, k_entry, None, None)
+        *e_entry, k_entry, n_entry = spec[len(lead):]
+        return tuple(e_entry) + (n_entry, k_entry, None, None)
 
     def params(self, tree) -> Any:
         """Specs of a port parameter tree (dicts, layer lists, tensors and
@@ -376,9 +381,11 @@ class ShardingRules:
         return activation_spec(self.mesh, shape, heads, seq, batch)
 
     def experts(self, shape) -> Spec:
-        """An (E, K, N) expert stack as the sharded step computes with it:
-        E on "model" where the parameter rule puts it there, nothing on
-        the data axes (FSDP's shards are gathered for the product)."""
+        """An expert stack's tensor of ``shape``, E first ((E, K, N), or a
+        packed stack's data in either layout and its scales), as the
+        sharded step computes with it: E on "model" where the parameter
+        rule puts it there, nothing on the data axes (FSDP's shards are
+        gathered for the product)."""
         on_model = _div(shape[0], self.model_size)
         return _pad((self.model if on_model else None,), len(shape))
 

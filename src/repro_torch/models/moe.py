@@ -5,8 +5,15 @@ quantization-transparent linear and the experts as XLA einsums on
 dequantized bf16 expert weights, outside any Pallas kernel; here a
 packed router goes through :func:`repro_torch.models.common.linear` (the
 mixed-precision GEMM kernels on the card), a bf16 one is a plain
-f32-accumulated product, and the experts are plain PyTorch matmuls on the
-dequantized members of the packed stack.
+f32-accumulated product.  An expert stack in the A16 kernel's fragment
+order (``layout="frag_a16"``: the engine gives it to every packed stack
+on the card) runs each routed expert's three products through
+``kernels.mpgemm.mpgemm_a16`` on member ``w[e]``, with bf16 activations
+under every policy; the CPU's tile stacks, bf16 training stacks and the
+dry-run's run them as plain PyTorch matmuls on the dequantized member,
+and a packed stack on the card in another layout raises.  Both sum bf16
+products in f32 and round each product once to bf16, in other orders.
+``trace.expert_ffn`` counts which path each expert's FFN took.
 
 Two dispatch implementations, as in the reference, with its capacities,
 priority orders and rounding points:
@@ -31,9 +38,9 @@ and added with a gate of 0.
 The reference's one-hot dispatch is an exact gather (one nonzero term
 per buffer slot), so both are computed here by indexing.  Every expert's
 FFN runs only on the tokens it kept: an expert that keeps none is skipped
-and its weights are not dequantized (its contribution in the reference is
-an exact zero), and the padding slots of a buffer are not computed
-(their rows are zero and nothing reads them).
+and its weights are not read (its contribution in the reference is an
+exact zero), and the padding slots of a buffer are not computed (their
+rows are zero and nothing reads them).
 
 Capacity is per call (``_capacity(cfg, S)`` from the call's S), so a
 prompt chunk can drop tokens that a one-token step would keep: the
@@ -55,6 +62,7 @@ from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as A
 from repro_torch.core.packing import PackedWeight, dequantize_packed
+from repro_torch.kernels import ops as KO
 
 from . import common as C
 
@@ -145,14 +153,41 @@ def route(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig, policy
     return probs, vals, idx
 
 
+def _expert_mm(x: torch.Tensor, w, e: int, packed: bool) -> torch.Tensor:
+    """bf16 ``x @ w[e]``, f32 sums rounded once: through the A16 GEMM on
+    the member as it lies in its stack (``packed``), else :func:`_mm` of
+    the dequantized member."""
+    return KO.mpgemm_a16(x, w[e]) if packed else _mm(x, _expert(w, e))
+
+
+def _swiglu(xs: torch.Tensor, ws, e: int, packed: bool) -> torch.Tensor:
+    """Member ``e``'s SwiGLU of the stacks ``ws`` (we1, we3, we2) on xs
+    (n, d) bf16 → (n, d) bf16, with the reference's rounding points; each
+    product by :func:`_expert_mm`."""
+    h1 = _expert_mm(xs, ws[0], e, packed)
+    h3 = _expert_mm(xs, ws[1], e, packed)
+    h = F.silu(h1.float()).to(torch.bfloat16) * h3
+    return _expert_mm(h, ws[2], e, packed)
+
+
 def _expert_ffn(xs: torch.Tensor, lp: Dict[str, Any], e: int
                 ) -> torch.Tensor:
     """Expert ``e``'s SwiGLU on its kept rows xs (n, d) bf16 → (n, d)
-    bf16, with the reference's rounding points."""
-    h1 = _mm(xs, _expert(lp["we1"], e))
-    h3 = _mm(xs, _expert(lp["we3"], e))
-    h = F.silu(h1.float()).to(torch.bfloat16) * h3
-    return _mm(h, _expert(lp["we2"], e))
+    bf16: through the A16 GEMM when all three stacks are in its order,
+    else plain (module docstring); a packed stack on the card in any
+    other order raises (the engine lays every one out)."""
+    ws = lp["we1"], lp["we3"], lp["we2"]
+    packed = all(isinstance(w, PackedWeight) and w.layout == "frag_a16"
+                 for w in ws)
+    if not packed and xs.device.type == "cuda" and \
+            any(isinstance(w, PackedWeight) for w in ws):
+        raise ValueError(
+            "packed expert stacks on the card are read in the A16 GEMM's "
+            "fragment order (core.packing.to_kernel_layout(w, 'a16'), as "
+            "serving.engine.quantize_params lays them out); got layouts "
+            f"{[getattr(w, 'layout', 'bf16') for w in ws]}")
+    trace.expert_ffn(packed, xs.shape[0])
+    return _swiglu(xs, ws, e, packed)
 
 
 def dispatch_einsum(gate_idx: torch.Tensor, E: int, cap: int

@@ -101,9 +101,12 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     are moved to ``device`` (when given) first.  On a CUDA device the
     packed 2D weights are put in the fragment order of the GEMM kernel the
     policy routes to (``to_kernel_layout``), so the card holds one copy,
-    in the layout that kernel reads; the CPU keeps the JAX package's
-    tile-major bytes, and so do expert stacks everywhere (only the plain
-    dequantizer reads them).  Returns a new parameter structure."""
+    in the layout that kernel reads; expert stacks are put, member by
+    member, in the A16 kernel's order under every policy (the experts
+    take bf16 activations, as the reference's einsum does; ``models.moe``
+    runs them through it).  A weight that layout cannot hold raises, with
+    its path.  The CPU keeps the JAX package's tile-major bytes.  Returns
+    a new parameter structure."""
     if isinstance(params, dict):
         return {k: quantize_params(v, policy, device, _path + (k,))
                 for k, v in params.items()}
@@ -115,11 +118,10 @@ def quantize_params(params, policy: PrecisionPolicy, device=None, _path=()):
     skip = any(str(k).startswith(s) for k in _path for s in _SKIP_KEYS)
     if not skip and t.dim() >= 2 and t.dtype == torch.bfloat16:
         w = C.maybe_quantize(t, policy)
-        if isinstance(w, PackedWeight) and not w.stacked and \
-                t.device.type == "cuda":
+        if isinstance(w, PackedWeight) and t.device.type == "cuda":
             try:
-                w = to_kernel_layout(w, "a8" if policy.int8_matmul
-                                     else "a16")
+                w = to_kernel_layout(w, "a8" if policy.int8_matmul and
+                                     not w.stacked else "a16")
             except ValueError as e:
                 raise ValueError(f"weight {'/'.join(map(str, _path))}: "
                                  f"{e}") from e

@@ -38,7 +38,9 @@ Spans, nested as the calls are (``model.layer`` once per held layer, the
 Counters, always on (plain integer adds): ``host_syncs`` here, counted by
 :func:`sync` at every call of the chunked serve path that waits for the
 device when it is a card (a blocking host → device copy, a read back, an
-op whose output size the host must know); ``Engine.fed_tokens``,
+op whose output size the host must know); ``moe_experts_packed``,
+``moe_experts_plain`` and ``moe_expert_rows`` here, counted by
+:func:`expert_ffn` at every routed expert's FFN; ``Engine.fed_tokens``,
 ``Engine.computed_rows`` and ``Request.admit_time`` on the engine.
 """
 from __future__ import annotations
@@ -57,6 +59,13 @@ MAX_STEPS = 20_000
 
 #: calls of the serve path that waited for the device, since import
 host_syncs = 0
+#: routed experts' FFNs run through the A16 GEMM kernel on their stacks'
+#: fragment order, and through the plain path (dequantized members), since
+#: import
+moe_experts_packed = 0
+moe_experts_plain = 0
+#: rows those FFNs computed (each expert's kept assignments), since import
+moe_expert_rows = 0
 
 
 class Counters(NamedTuple):
@@ -64,6 +73,9 @@ class Counters(NamedTuple):
     fed_tokens: int
     computed_rows: int
     host_syncs: int
+    moe_experts_packed: int = 0
+    moe_experts_plain: int = 0
+    moe_expert_rows: int = 0
 
 
 class Span(NamedTuple):
@@ -105,7 +117,8 @@ _top = None
 
 
 def _counters(eng) -> Counters:
-    return Counters(eng.fed_tokens, eng.computed_rows, host_syncs)
+    return Counters(eng.fed_tokens, eng.computed_rows, host_syncs,
+                    moe_experts_packed, moe_experts_plain, moe_expert_rows)
 
 
 def begin_step(eng) -> None:
@@ -175,6 +188,17 @@ def sync(n: int = 1) -> None:
     """Count ``n`` calls that waited for the device."""
     global host_syncs
     host_syncs += n
+
+
+def expert_ffn(packed: bool, rows: int) -> None:
+    """Count one routed expert's FFN over ``rows`` rows, run through the
+    A16 GEMM kernel (``packed``) or the plain path."""
+    global moe_experts_packed, moe_experts_plain, moe_expert_rows
+    if packed:
+        moe_experts_packed += 1
+    else:
+        moe_experts_plain += 1
+    moe_expert_rows += rows
 
 
 def note_plan(t_step: int, pos: np.ndarray, valid: np.ndarray) -> None:

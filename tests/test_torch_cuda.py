@@ -529,9 +529,10 @@ def test_attention_at_moe_and_vlm_heads(dev, case, fmt):
 
 def test_moe_ffn_on_the_card_matches_cpu(dev):
     """The moe layer (llama4-width router and experts, w4 packed stacks
-    dequantized on the card) against the same call on the CPU, both
-    dispatches, ample capacity: the same routing, outputs within 2e-2 ·
-    max |y| (bf16 matmuls summed in other orders)."""
+    in the A16 GEMM's fragment order on the card, as the engine lays them
+    out) against the same call on the CPU, both dispatches, ample
+    capacity: the same routing, outputs within 2e-2 · max |y| (bf16
+    matmuls summed in other orders)."""
     from repro_torch.configs import get_config
     from repro_torch.core.packing import pack_stack
     from repro_torch.models import moe as MOE
@@ -545,6 +546,8 @@ def test_moe_ffn_on_the_card_matches_cpu(dev):
         lp[name] = pack_stack(w, bits=4, group=64, block_k=64, block_n=128)
     x = torch.randn(4, 32, d, generator=gen).bfloat16()
     on_card = {k: v.to(dev) for k, v in lp.items()}
+    on_card.update({k: to_kernel_layout(on_card[k], "a16")
+                    for k in ("we1", "we3", "we2")})
     probs, _, idx = MOE.route(x, lp, cfg, None)
     idx_card = MOE.route(x.to(dev), on_card, cfg, None)[2].cpu()
     flip = (idx_card != idx).any(-1)                     # (B, S)

@@ -149,13 +149,18 @@ def test_stacked_packer_equals_jax_vmap(bits, group, bk, bn):
 
 
 def test_stacks_are_not_gemm_operands():
+    """A stack in either layout is refused as a GEMM operand; its
+    fragment layout is laid out member by member (``models.moe`` hands
+    the kernel a member)."""
     pt = TP.pack_stack(torch.randn(2, 128, 128), bits=4, group=64,
                        block_k=64, block_n=128)
-    with pytest.raises(ValueError, match="stack"):
-        TC.linear(torch.randn(3, 128).bfloat16(), pt,
-                  t_policy("w4a16kv8"))
-    with pytest.raises(ValueError, match="stack"):
-        TP.to_kernel_layout(pt, "a16")
+    ft = TP.to_kernel_layout(pt, "a16")
+    for w in (pt, ft):
+        with pytest.raises(ValueError, match="stack"):
+            TC.linear(torch.randn(3, 128).bfloat16(), w,
+                      t_policy("w4a16kv8"))
+    assert ft.stacked and ft.layout == "frag_a16"
+    assert torch.equal(ft[1].data, TP.to_kernel_layout(pt[1], "a16").data)
 
 
 @pytest.mark.parametrize("packed", [False, True])

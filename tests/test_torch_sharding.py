@@ -14,7 +14,8 @@
   and Adafactor state (on the reference's tree, as the checkpoint writes
   it), dense cache slabs, paged pools, tokens and extra inputs.
 * The fragment-layout rule: whole 64 × 16 fragments and scale groups a
-  shard, the tile rule's decision where the counts agree.
+  shard, the tile rule's decision where the counts agree; for expert
+  stacks, E placed as on the tile layout.
 * The reference's ``test_production_spec_choices``.
 * Sharded ≡ single device, in one spawned gloo group of 4 ranks
   (``tests/torch_dist_worker.py``): each family's REDUCED config (llama4
@@ -28,7 +29,9 @@
 * The sharded serve step (``launch.shardserve``) on the (2, 2) mesh: a
   prefill and three decode steps of REDUCED chatglm3 (cache on heads),
   smollm (cache on the sequence), llama4 and rwkv6 under w4a16kv8, each
-  call's logits within 2e-2 of the largest single-device logit.
+  call's logits within 2e-2 of the largest single-device logit; llama4's
+  again with every packed weight in the card's fragment order, expert
+  stacks included.
 * The vocab-parallel loss on the (2, 2) mesh, vocab 1023 split
   unevenly: nll and logit gradient against ``log_softmax``; an attention
   merge's gradient sharded across heads (``models.common.merge_heads``).
@@ -344,6 +347,50 @@ def test_fragment_layout_spec(mesh):
     assert seen > 50
 
 
+def _frag_stacks():
+    """(arch, name, K, N, group, bk, bn, E) of every packed expert stack
+    of the full configs (one layer each)."""
+    out = []
+    for arch in ARCHS:
+        _, _, packed, _ = _port_trees(arch)
+        for name, node in packed["layers"][0].items() \
+                if isinstance(packed.get("layers"), list) else ():
+            if isinstance(node, TPK.PackedWeight) and node.stacked:
+                K, N = node.shape
+                out.append((arch, name, K, N, node.group, node.block_k,
+                            node.block_n, node.n_members))
+    return out
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_fragment_layout_spec_of_expert_stacks(mesh):
+    """An expert stack in the fragment layout (E, N/16, K/64, 32, 4·bits):
+    E's entry is the tile stack's, each shard holds whole fragments and
+    whole scale groups, and where the fragment and tile counts divide
+    the same axes, the N and K decisions are the tile rule's."""
+    seen = 0
+    for arch, name, K, N, group, bk, bn, E in _frag_stacks():
+        tr, _ = _rules(arch, mesh, True)
+        p = TPK.PackedWeight(data=torch.empty(0),
+                             scales=torch.empty((E, 1, 1)), bits=4,
+                             group=group, block_k=bk, block_n=bn,
+                             shape=(K, N), layout="frag_a16")
+        spec = tr.frag_spec(name, p, n_stack=4)
+        tile = tr.reference_spec(name, "data",
+                                 (4, E, K // bk, N // bn, bk, bn))
+        assert len(spec) == 5 and spec[3:] == (None, None)
+        assert spec[0] == tile[1], (arch, name, spec, tile)
+        sizes = {"N": N // 16, "K": K // np.lcm(64, group)}
+        for dim, entry in zip("NK", spec[1:3]):
+            if entry is not None:
+                n = TM.axis_size(FakeMesh(mesh), entry)
+                assert sizes[dim] % n == 0, (arch, name, spec)
+        if (K // bk, N // bn) == (sizes["K"], sizes["N"]):
+            assert spec[1:3] == (tile[3], tile[2]), (arch, name)
+        seen += 1
+    assert seen >= 6
+
+
 def test_production_spec_choices():
     """On a 16-way model axis: embed shards on vocab, KV falls back to
     sequence-parallel when heads don't divide (the reference test)."""
@@ -480,6 +527,24 @@ def test_sharded_serve_equals_single_device(dist_results, arch):
     want = {"chatglm3-6b": "heads", "smollm-360m": "sequence"}
     if arch in want:
         assert res["kv_on_model"] == want[arch], res
+
+
+def test_sharded_serve_of_the_card_s_layout_equals_single_device(
+        dist_results):
+    """The sharded serve of REDUCED llama4 (FSDP on) with every packed
+    weight in the A16 GEMM's fragment order, expert stacks included (the
+    card's layout): each call's logits within 2e-2 of the largest
+    single-device logit; the expert stack's data placed with E on
+    "model" and the tile rule's K decision on its K units; every expert
+    run on the kernel's path (its CPU version)."""
+    res = dist_results["serve_card_layout"]
+    assert len(res["err"]) == 1 + 3, res
+    for e, s in zip(res["err"], res["scale"]):
+        assert e <= 2e-2 * s, res
+    tile = res["tile_stack_spec"]             # (E, Kt, Nt, bk, bn)
+    assert res["stack_spec"] == [tile[0], tile[2], tile[1], None, None], res
+    assert res["stack_spec"][0] == "model", res
+    assert res["experts_packed"] > 0 and res["experts_plain"] == 0, res
 
 
 def test_cli_devices_and_checkpoint(dist_results):

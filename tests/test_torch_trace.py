@@ -7,7 +7,8 @@ profiler's timeline.  On the card (marked ``cuda``; this file imports
 nothing of JAX, so ``PYTHONPATH=src python -m pytest --noconftest -q
 tests/test_torch_trace.py`` runs it there) ``trace.host_syncs`` rises by
 exactly the syncs ``torch.cuda.set_sync_debug_mode`` reports in each
-step.
+step; the moe engine's experts run through the A16 GEMM on stacks in its
+fragment order, adding no sync.
 """
 import json
 import warnings
@@ -157,6 +158,7 @@ def test_host_syncs_are_the_card_s_syncs(card, family):
     calls the sync debug mode reports: admitting chunk-wide steps, a
     step that finishes a prompt, decode steps, and retiring steps."""
     eng = engine(family, device="cuda")
+    packed0 = T.moe_experts_packed, T.moe_experts_plain
     eng.generate([[1] * (CHUNK + 1)], SamplingParams(max_new_tokens=2))
     submit(eng, [CHUNK + 1, 3], new_tokens=3)
     widths = []
@@ -175,3 +177,8 @@ def test_host_syncs_are_the_card_s_syncs(card, family):
         assert len(syncs) == T.host_syncs - n0, syncs
         widths.append(eng.fed_tokens - fed0)
     assert widths[0] == CHUNK + 3 and widths[-1] == 1, widths
+    if family == "moe":
+        assert all(lp[n].layout == "frag_a16" for lp in eng.params["layers"]
+                   for n in ("we1", "we3", "we2"))
+        assert T.moe_experts_packed > packed0[0]
+        assert T.moe_experts_plain == packed0[1]

@@ -13,6 +13,12 @@
 * The sharded serve step (``launch.shardserve``) of SERVE_FAMILIES on
   the (2, 2) mesh — a prefill and three decode steps — against one
   device: each call's largest logit difference and largest logit.
+* The same sharded serve of REDUCED llama4 on parameters in the card's
+  layout (every packed weight, expert stacks included, in the A16 GEMM's
+  fragment order, as ``quantize_params`` lays them out on a card): each
+  call's largest logit difference against one device, the spec of an
+  expert stack's data, and the experts run on the kernel's path and on
+  the plain one.
 * The expert-parallel ``moe_ffn`` (``launch.train._expert_parallel``) of
   REDUCED llama4 with ``big_model`` on the (2, 2) mesh against the plain
   call, under both dispatches: the output and gradient differences, the
@@ -189,11 +195,27 @@ SERVE_FAMILIES = [("chatglm3-6b", False), ("smollm-360m", False),
 SERVE_B, SERVE_P, SERVE_STEPS, SERVE_S = 4, 14, 3, 32
 
 
-def _serve(cfg, rules=None):
+def _card_layout(tree):
+    """``tree`` with every packed weight, expert stacks included, in the
+    A16 GEMM's fragment order: the layout ``quantize_params`` gives them
+    on a card under w4a16kv8."""
+    from repro_torch.core.packing import PackedWeight, to_kernel_layout
+    if isinstance(tree, dict):
+        return {k: _card_layout(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_card_layout(v) for v in tree]
+    if isinstance(tree, PackedWeight):
+        return to_kernel_layout(tree, "a16")
+    return tree
+
+
+def _serve(cfg, rules=None, card_layout=False):
     """Prefill of SERVE_P tokens and SERVE_STEPS decode steps of a REDUCED
     config under w4a16kv8 from seeded parameters and tokens: single device
     (``rules`` None) or the sharded step on ``rules.mesh``
-    (``launch.shardserve``); each call's logits, gathered."""
+    (``launch.shardserve``); each call's logits, gathered.  With
+    ``card_layout`` the packed weights are in the card's layout
+    (:func:`_card_layout`)."""
     from repro_torch.core.precision import get_policy
     from repro_torch.launch import shardserve as SS
     from repro_torch.models.registry import build
@@ -201,6 +223,8 @@ def _serve(cfg, rules=None):
     pol = get_policy("w4a16kv8")
     model = build(cfg)
     params = quantize_params(model.init_params(0, "cpu"), pol)
+    if card_layout:
+        params = _card_layout(params)
     cache = model.init_cache(pol, SERVE_B, SERVE_S, "cpu")
     gen = torch.Generator().manual_seed(3)
     toks = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_P), generator=gen,
@@ -254,6 +278,40 @@ def serve_errors(mesh):
             ("sequence" if spec[2] == "model" else "none"),
             "seconds": time.perf_counter() - t0}
     return out
+
+
+def card_layout_serve_errors(mesh):
+    """The sharded serve step of REDUCED llama4 (``big_model``: FSDP on)
+    on parameters in the card's layout against one device: each call's
+    largest logit difference and the largest logit, the spec the rules
+    give an expert stack's data in that layout and in the tile one, and
+    the experts the sharded run took through the kernel's path and
+    through the plain one."""
+    from repro_torch import trace
+    from repro_torch.core.precision import get_policy
+    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import quantize_params
+    cfg = config("llama4-scout-17b-a16e", True)
+    rules = ShardingRules(mesh, cfg)
+    c0 = trace.moe_experts_packed, trace.moe_experts_plain
+    got = _serve(cfg, rules, card_layout=True)
+    c1 = trace.moe_experts_packed, trace.moe_experts_plain
+    want = _serve(cfg, card_layout=True)
+    tile = quantize_params(build(cfg).init_params(0, "cpu"),
+                           get_policy("w4a16kv8"))
+
+    def stack_spec(params):
+        return [list(e) if isinstance(e, tuple) else e
+                for e in rules.params(params)["layers"][0]["we1"]["data"]]
+
+    return {"err": [(g.float() - w.float()).abs().max().item()
+                    for g, w in zip(got, want)],
+            "scale": [w.float().abs().max().item() for w in want],
+            "stack_spec": stack_spec(_card_layout(tile)),
+            "tile_stack_spec": stack_spec(tile),
+            "experts_packed": c1[0] - c0[0],
+            "experts_plain": c1[1] - c0[1]}
 
 
 def nll_errors(mesh):
@@ -314,7 +372,9 @@ def _rank(rank, world, port):
         mesh = make_mesh((2, 2), "cpu")
         res = {"sharded": sharded_losses(mesh), "moe": moe_errors(mesh),
                "sp": sp_errors(make_mesh((1, 4), "cpu")),
-               "serve": serve_errors(mesh), "nll": nll_errors(mesh),
+               "serve": serve_errors(mesh),
+               "serve_card_layout": card_layout_serve_errors(mesh),
+               "nll": nll_errors(mesh),
                "merge_heads": merge_heads_error(mesh)}
         if rank == 0:
             print("RESULT " + json.dumps(res), flush=True)
