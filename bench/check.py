@@ -11,16 +11,20 @@ configuration gives it a limit).  Greedy decoding serves the argmax of
 the program's own logits, so a sound program reads only its rounding
 there.
 
-For a moe model the reference routes by itself (``Routing``), from the
-weights, the tokens and the engine's rows as its knobs fix them: a
-prompt is fed in chunks of ``prefill_chunk`` from its start, then one
-position a step, each with its own per-row capacity buffers.  Two things
+The reference, the raw weights' layout and the router's ranking are the
+configuration's architecture module's (``bench/archs/<arch>.py``, handed
+over in the loaded cell).  For a moe model the reference routes by
+itself (``Routing``), from the weights, the tokens and the engine's rows
+as its knobs fix them: a prompt is fed in chunks of ``prefill_chunk``
+from its start, then one position a step, each with its own per-row
+capacity buffers.  Two things
 it cannot know it leaves open, and at a served position of the last
 layer it takes the alternative that fits the served token best:
 
-* near-ties: an expert set whose members' log-probabilities lie within
-  ``tie_eps`` of those it leaves out, which the program's bf16 router
-  logits may order the other way;
+* near-ties: an expert set whose members' ranking values (the module's
+  ``rank``: for the decoder the log-probabilities) lie within ``tie_eps``
+  of those it leaves out, which the program's bf16 router logits may
+  order the other way;
 * the padding rows the engine feeds beside a row that is narrower than
   the step (the last chunk of a prompt, a decoding position in a step
   that carries a chunk): their choices, which depend on the pool's
@@ -37,13 +41,12 @@ import dataclasses
 import itertools
 import math
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from bench import traffic
-from bench.reference.model import Reference
 
 #: candidates an open position is given past its own k (more are rare)
 EXTRA_CANDIDATES = 3
@@ -146,13 +149,16 @@ class Routing:
     """The reference's moe routing for the sampled requests (module
     docstring): ``__call__(layer, probs, at)`` gives each sequence's own
     expert ids and keep, and with ``at`` the routings left open at those
-    positions."""
+    positions.  ``rank`` maps the router's outputs to the values top-k
+    orders, in ``tie_eps``'s units (the architecture module's)."""
 
     def __init__(self, served: List[Served], model: Dict, chunk: int,
-                 tie_eps: float):
+                 tie_eps: float, rank: Callable[[torch.Tensor],
+                                                torch.Tensor]):
         self.K, self.E = model["topk"], model["n_experts"]
         self.factor = model.get("capacity_factor", 1.25)
         self.eps = tie_eps
+        self.rank = rank
         self.rows = [engine_rows(len(s.prompt),
                                  len(s.prompt) + len(s.tokens) - 1, chunk)
                      for s in served]
@@ -168,7 +174,7 @@ class Routing:
         out = []
         self.ties, self.open = [], []
         for i, p in enumerate(probs):
-            logp = torch.log(p.double()).cpu().numpy()
+            logp = self.rank(p).cpu().numpy()
             order = np.argsort(-logp, axis=-1, kind="stable")[
                 :, :K + EXTRA_CANDIDATES]
             pos = [_position(order[r], logp[r], K, self.eps)
@@ -252,19 +258,22 @@ def gaps(logits: List[torch.Tensor], chosen: List[List[int]]
 
 class Judge:
     """The reference's logits over one sample, and the numbers that the
-    program's served tokens, or another precision's choices, read there."""
+    program's served tokens, or another precision's choices, read there.
+    ``c`` is the loaded cell (``harness.load_cell``): its configuration
+    and its architecture module."""
 
-    def __init__(self, cfg: Dict, params: Dict, served: Dict[int, Served],
+    def __init__(self, c: Dict, params: Dict, served: Dict[int, Served],
                  rids: List[int], kv_bits: Optional[int] = None,
                  act_bits: Optional[int] = 0):
+        cfg, arch = c["config"], c["arch"]
         model = cfg["model"]
         self.cfg, self.rids = cfg, rids
         self.route = None
         if model.get("n_experts"):
             self.route = Routing([served[r] for r in rids], model,
                                  cfg["engine"]["prefill_chunk"],
-                                 cfg["check"]["tie_eps"])
-        ref = Reference(model, params, cfg["policy"], kv_bits, act_bits)
+                                 cfg["check"]["tie_eps"], arch.rank)
+        ref = arch.Reference(model, params, cfg["policy"], kv_bits, act_bits)
         seqs, self.at = zip(*(_positions(served[r]) for r in rids)) \
             if rids else ((), ())
         self.logits = ref.logits(seqs, self.at, self.route) if rids else []
@@ -298,30 +307,30 @@ class Judge:
         return [lg[:, 0].argmax(-1).tolist() for lg in self.logits]
 
 
-def compare(cfg: Dict, params: Dict, served: Dict[int, Served], seed: int
+def compare(c: Dict, params: Dict, served: Dict[int, Served], seed: int
             ) -> Tuple[Dict, Dict]:
-    """The numbers ``correct`` compares, each as (value, limit), and what
-    the comparison covered."""
-    chk = cfg["check"]
+    """The numbers ``correct`` compares for the loaded cell ``c``, each as
+    (value, limit), and what the comparison covered."""
+    chk = c["config"]["check"]
     short = sum(len(s.tokens) != s.wanted for s in served.values())
     rids = sample(served, seed, chk["served_tokens"])
-    judge = Judge(cfg, params, served, rids)
+    judge = Judge(c, params, served, rids)
     numbers, info = judge.numbers([served[r].tokens for r in rids])
     info.update(requests=len(rids),
                 served_tokens=sum(len(served[r].tokens) for r in rids))
     return {"short_answers": (short, 0), **numbers}, info
 
 
-def control(cfg: Dict, params: Dict, served: Dict[int, Served], seed: int,
+def control(c: Dict, params: Dict, served: Dict[int, Served], seed: int,
             judge: Optional[Judge] = None, **lower) -> Tuple[Dict, Dict]:
     """The control's numbers and what they covered, as ``compare`` gives
     the program's: the reference computed at the lower precision
     ``lower`` (``kv_bits=4`` or ``act_bits=8``) in the program's place,
     its first choices at the same sample's positions judged by the
     reference."""
-    rids = sample(served, seed, cfg["check"]["served_tokens"])
-    judge = judge or Judge(cfg, params, served, rids)
-    low = Judge(cfg, params, served, rids, **lower)
+    rids = sample(served, seed, c["config"]["check"]["served_tokens"])
+    judge = judge or Judge(c, params, served, rids)
+    low = Judge(c, params, served, rids, **lower)
     numbers, info = judge.numbers(low.own_choices())
     return {"short_answers": (0, 0), **numbers}, info
 

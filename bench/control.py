@@ -25,7 +25,7 @@ import json  # noqa: E402
 
 def main(argv):
     import torch
-    from bench import check, harness, weights
+    from bench import check, harness
     ap = argparse.ArgumentParser(prog="bench/control.py")
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
@@ -37,17 +37,17 @@ def main(argv):
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         _, out, _ = harness.serve(c, seed, args.seconds, False, "cuda", t0)
-        params = weights.draw(harness.shapes(cfg), seed, "cuda")
+        params = c["arch"].draw(harness.shapes(cfg), seed, "cuda")
         served = out.finished
         rids = check.sample(served, seed, cfg["check"]["served_tokens"])
-        judge = check.Judge(cfg, params, served, rids)
+        judge = check.Judge(c, params, served, rids)
         program, info = judge.numbers([served[r].tokens for r in rids])
         row = {"seed": seed, "requests": len(rids),
                "served_tokens": sum(len(served[r].tokens) for r in rids),
                "program": {k: v for k, (v, _) in program.items()},
                "program_correct": check.judged(program), **info}
         for name, prec in lower.items():
-            nums, inf = check.control(cfg, params, served, seed, judge,
+            nums, inf = check.control(c, params, served, seed, judge,
                                       **prec)
             row[name] = {k: v for k, (v, _) in nums.items()}
             row[name]["mean_logit_gap"] = inf["mean_logit_gap"]

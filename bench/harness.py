@@ -24,9 +24,10 @@ import sys
 import time
 from collections import deque
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
-from bench import check, traffic, weights
+from bench import check, traffic
 from bench.trace import SLICE_S, Trace, Tracer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -34,15 +35,43 @@ ROOT = Path(__file__).resolve().parents[1]
 JAX_NAMES = ("jax", "jaxlib", "flax", "repro")
 #: the harness's spans around the calls into the program
 SPANS = ("Engine.step", "submit", "moe_ffn")
+#: what an architecture module (``bench/archs/<name>.py``) exports
+ARCH_API = ("draw", "Reference", "rank", "layer_gemms", "expert_gemms",
+            "moe_layers", "matmul_params", "attn_layers", "tiny")
 
 
 class CellError(ValueError):
     """A cell, configuration, mix or metric that the files do not hold."""
 
 
+def _load(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod     # dataclasses look their module up by name
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def arch(name: str, root: Path = ROOT) -> ModuleType:
+    """The architecture module ``bench/archs/<name>.py``: everything the
+    harness knows of a model's layers (the raw weights' layout, the plain
+    reference, the router's ranking, the work counts, the CPU cut), each
+    name of ``ARCH_API``."""
+    path = root / "bench" / "archs" / f"{name}.py"
+    if not path.exists():
+        raise CellError(f"no architecture module {path} for {name!r}")
+    mod = _load(path, f"bench.archs.{name}")
+    missing = [f for f in ARCH_API if not hasattr(mod, f)]
+    if missing:
+        raise CellError(f"{path} does not export {missing}")
+    return mod
+
+
 def load_cell(name: str, root: Path = ROOT) -> Dict:
     """The cell ``name`` of ``BENCHMARK.json`` with its configuration file,
-    its traffic mix and the metrics it reports, found by name."""
+    its traffic mix, the metrics it reports and its configuration's
+    architecture module (its ``arch``, ``decoder`` where it names none),
+    found by name."""
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {c["name"]: c for c in bench["workloads"]}
     if name not in cells:
@@ -59,7 +88,8 @@ def load_cell(name: str, root: Path = ROOT) -> Dict:
         return [m for m in metrics if name in m.get("workloads", [name])]
     return dict(cell=cell, config=cfg, traffic=mix,
                 end_to_end=mine(bench["end_to_end"]),
-                per_layer=mine(bench["per_layer"]))
+                per_layer=mine(bench["per_layer"]),
+                arch=arch(cfg.get("arch", "decoder"), root))
 
 
 def reader(metric: str, root: Path = ROOT) -> Callable:
@@ -70,11 +100,7 @@ def reader(metric: str, root: Path = ROOT) -> Callable:
     path = root / "bench" / "metrics" / f"{base}.py"
     if not path.exists():
         raise CellError(f"no reader {path} for metric {metric!r}")
-    spec = importlib.util.spec_from_file_location(f"bench.metrics.{base}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"bench.metrics.{base}").read
 
 
 def jax_modules(modules=None) -> List[str]:
@@ -89,6 +115,7 @@ def jax_modules(modules=None) -> List[str]:
 class Window:
     """What the metrics read.  Times are seconds from the window's start."""
     model: Dict
+    arch: ModuleType                # the configuration's (``arch``)
     policy: str
     setup_s: float
     seconds: float                  # the start to the last step's return
@@ -271,7 +298,7 @@ def serve(c: Dict, seed: int, seconds: float, trace: bool, device,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     reqs = traffic.generate(mix, seed, seconds, model["vocab"])
-    params = weights.draw(model, seed, device)
+    params = c["arch"].draw(model, seed, device)
     eng = build(cfg, params, device)
     del params
     with torch.no_grad():
@@ -285,8 +312,8 @@ def serve(c: Dict, seed: int, seconds: float, trace: bool, device,
                 eng, reqs, mix, seconds, tracer,
                 lambda: torch.cuda.reset_peak_memory_stats(dev) if cuda
                 else None)
-    window = Window(model=model, policy=cfg["policy"], setup_s=w0 - t0,
-                    **win)
+    window = Window(model=model, arch=c["arch"], policy=cfg["policy"],
+                    setup_s=w0 - t0, **win)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     del eng
     gc.collect()
@@ -301,9 +328,8 @@ def run(c: Dict, seed: int, seconds: float, trace: bool, device,
     metrics; returns the result line's object and the check's lines."""
     import torch
     window, out, peak = serve(c, seed, seconds, trace, device, t0)
-    cfg = c["config"]
-    params = weights.draw(shapes(cfg), seed, device)
-    numbers, info = check.compare(cfg, params, out.finished, seed)
+    params = c["arch"].draw(shapes(c["config"]), seed, device)
+    numbers, info = check.compare(c, params, out.finished, seed)
     del params
     metrics = {}
     for m in (c["per_layer"] if trace else c["end_to_end"]):

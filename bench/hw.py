@@ -5,10 +5,12 @@ GB's published dense peaks (NVIDIA's data sheet, at its 700 W limit), as
 ``repro_torch.roofline.analysis.HW`` holds them.  ``gemm`` and
 ``weight_bytes`` are ``repro_torch.kernels.cost.gemm`` /
 ``weight_bytes``; ``weight_group`` follows ``repro_torch.models.common.
-maybe_quantize`` and ``pick_blocks`` (which group a packed weight gets);
-``packed_gemms`` lists the weights a token passes through the A16 GEMM
-kernel, and ``matmul_params`` the parameters a token multiplies (both
-read ``residual_d_ff``, the dense residual's width, where it is given).
+maybe_quantize`` and ``pick_blocks`` (which group a packed weight gets).
+``packed_gemms`` lists the weights of one decoder layer a token passes
+through the A16 GEMM kernel besides the routed experts, and
+``matmul_params`` the parameters a token multiplies (both read
+``residual_d_ff``, the dense residual's width, where it is given); the
+decoder's architecture module (``bench/archs/decoder.py``) binds them.
 """
 from __future__ import annotations
 
@@ -59,10 +61,11 @@ def weight_group(K: int, N: int, group: int = 128) -> int:
 
 
 def packed_gemms(model: Dict) -> List[Tuple[str, int, int]]:
-    """(leaf, K, N) of each weight of one layer that goes through the GEMM
-    kernel: attention's four, then the SwiGLU (dense) or the dense
-    residual and the router (moe; the experts are run by plain
-    matmuls)."""
+    """(leaf, K, N) of each weight of one layer that a token passes
+    through the GEMM kernel: attention's four, then the SwiGLU (dense) or
+    the dense residual and the router (moe).  The routed experts' products
+    run in the kernel too, on only the rows routed to each expert: they are
+    counted apart (the architecture module's ``expert_gemms``)."""
     d, f = model["d_model"], model["d_ff"]
     H, Hkv = model["n_heads"], model["n_kv_heads"]
     hd = model.get("head_dim") or d // H

@@ -2,9 +2,10 @@
 reaches in the traced steps, in %.
 
 Needed work, from each traced step's host ``pos`` and ``valid`` (the
-program's step records, ``repro_torch.trace``) and the configuration's
-geometry: per held layer and slot that fed ``valid`` rows at ``pos``,
-its live keys ``min(pos + valid, window)`` read once, each
+program's step records, ``repro_torch.trace``) and each held layer's
+geometry (the architecture module's ``attn_layers``: heads, KV heads,
+head dimension, window): per held layer and slot that fed ``valid`` rows
+at ``pos``, its live keys ``min(pos + valid, window)`` read once, each
 ``Hkv × 2 × (D·kv_bits/8 + 4)`` bytes (K and V with their f32 scales),
 the fed rows' queries and outputs in bf16, and ``4·H·D`` operations for
 each pair of a fed row and a key it attends.  The same whatever kernel
@@ -15,15 +16,6 @@ the calls, over the device time of the kernels named ``paged_kvattn``
 from bench import hw, session
 
 KERNEL = "paged_kvattn"
-
-
-def windows(model):
-    """Each held layer's attention window (None: global), as the program
-    sets them (``models/transformer.layer_window``)."""
-    win, period = model.get("window"), model.get("local_global_period")
-    return [None if win is None or
-            (period and i % period == period - 1) else win
-            for i in range(model["n_layers"])]
 
 
 def layer_work(pos, valid, H, Hkv, D, kv_bits, window):
@@ -48,15 +40,13 @@ def read(w):
     recs = session.steps(w)
     if dev <= 0 or recs is None:
         return None
-    m = w.model
-    H, Hkv = m["n_heads"], m["n_kv_heads"]
-    D = m.get("head_dim") or m["d_model"] // H
+    layers = w.arch.attn_layers(w.model)
     kv_bits = int(w.policy[w.policy.index("kv") + 2:])
     least = 0.0
     for r in recs:
         if r.t_step == 0:
             continue
-        for win in windows(m):
+        for H, Hkv, D, win in layers:
             least += hw.least_seconds(*layer_work(r.pos, r.valid, H, Hkv, D,
                                                   kv_bits, win))
     return 100.0 * least / dev

@@ -9,7 +9,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from bench import check, harness, tiny, weights
+from bench import check, harness, tiny
 
 SECONDS = 2.0
 
@@ -74,12 +74,12 @@ def readings(cell: str, seed: int) -> Dict[str, Dict]:
     cfg = c["config"]
     _, out, _ = harness.serve(c, seed, SECONDS, False, "cpu",
                               time.perf_counter())
-    params = weights.draw(harness.shapes(cfg), seed, "cpu")
-    program, _ = check.compare(cfg, params, out.finished, seed)
+    params = c["arch"].draw(harness.shapes(cfg), seed, "cpu")
+    program, _ = check.compare(c, params, out.finished, seed)
     rids = check.sample(out.finished, seed, cfg["check"]["served_tokens"])
-    judge = check.Judge(cfg, params, out.finished, rids)
+    judge = check.Judge(c, params, out.finished, rids)
     return {"program": program,
-            "kv4": check.control(cfg, params, out.finished, seed, judge,
+            "kv4": check.control(c, params, out.finished, seed, judge,
                                  kv_bits=4)[0],
-            "a8": check.control(cfg, params, out.finished, seed, judge,
+            "a8": check.control(c, params, out.finished, seed, judge,
                                 act_bits=8)[0]}

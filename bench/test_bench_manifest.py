@@ -83,3 +83,15 @@ def test_configs_hold_their_files():
         assert f["reduced"] == c["reduced"]
     used = {c["config"] for c in B["workloads"]}
     assert used == {c["name"] for c in B["configs"]}
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in B["configs"]])
+def test_every_configuration_names_a_whole_architecture(config):
+    entry = next(c for c in B["configs"] if c["name"] == config)
+    name = json.loads((ROOT / entry["file"]).read_text()).get("arch",
+                                                              "decoder")
+    assert NAME.fullmatch(name)
+    assert (ROOT / "bench" / "archs" / f"{name}.py").is_file()
+    mod = harness.arch(name)
+    for api in harness.ARCH_API:
+        assert callable(getattr(mod, api)), api

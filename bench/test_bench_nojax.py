@@ -1,6 +1,11 @@
-"""No run loads JAX or the JAX package; the reference imports nothing of
-the program."""
+"""No run loads JAX or the JAX package; the reference, and every
+architecture module, imports nothing of the program."""
 import ast
+import json
+import subprocess
+import sys
+
+import pytest
 
 from bench import harness
 
@@ -36,3 +41,18 @@ def test_reference_imports_nothing_of_the_program():
     for path in (BENCH / "reference").rglob("*.py"):
         names = set(imports(path))
         assert "repro_torch" not in names and "bench" not in names, path
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in
+                                        (BENCH / "archs").glob("*.py")))
+def test_architecture_module_loads_no_jax_and_nothing_of_the_program(name):
+    code = ("import json, sys\n"
+            "sys.path[:0] = [sys.argv[1]]\n"
+            "from bench import harness\n"
+            "harness.arch(sys.argv[2])\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+            " in harness.JAX_NAMES + ('repro_torch',))))")
+    p = subprocess.run([sys.executable, "-c", code, str(harness.ROOT), name],
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-2000:]
+    assert json.loads(p.stdout.strip().splitlines()[-1]) == []

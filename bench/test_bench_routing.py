@@ -4,7 +4,9 @@ rows, the capacity keep among a row's positions, and what it leaves open
 import numpy as np
 import torch
 
-from bench import check
+from bench import check, harness
+
+RANK = harness.arch("decoder").rank
 
 
 def probs(rows):
@@ -22,7 +24,7 @@ def test_engine_rows_follow_the_chunks():
 def test_clear_choices_are_fixed_and_kept():
     # a chunk of 4 beside a step of 8: 4 padding rows may fill a buffer
     r = check.Routing([check.Served([1] * 4, [1, 1], 2)],
-                      dict(topk=2, n_experts=8), 8, 0.1)
+                      dict(topk=2, n_experts=8), 8, 0.1, RANK)
     p = probs([[5.0, 4.0, 0, 0, 0, 0, 0, 0]] * 5)
     [(idx, keep, alt)] = r(0, [p], [[3, 4]])
     assert idx.tolist() == [[0, 1]] * 5
@@ -38,7 +40,7 @@ def test_clear_choices_are_fixed_and_kept():
     assert r.open == [2, 2]
     # with 3 padding rows at most, a buffer of 4 cannot fill: kept
     r = check.Routing([check.Served([1] * 4, [1, 1], 2)],
-                      dict(topk=2, n_experts=8), 4, 0.1)
+                      dict(topk=2, n_experts=8), 4, 0.1, RANK)
     [(_, _, (_, kept))] = r(0, [p], [[3, 4]])
     assert kept.tolist() == [[[True, True]]] * 2
 
@@ -46,7 +48,7 @@ def test_clear_choices_are_fixed_and_kept():
 def test_a_full_row_drops_past_capacity():
     # eight positions of one chunk choose experts 0 then 1; capacity 4
     r = check.Routing([check.Served([1] * 8, [1], 1)],
-                      dict(topk=2, n_experts=8), 8, 0.1)
+                      dict(topk=2, n_experts=8), 8, 0.1, RANK)
     p = probs([[5.0, 4.0, 0, 0, 0, 0, 0, 0]] * 8)
     [(idx, keep, alt)] = r(0, [p], [[7]])
     assert keep[:, 0].tolist() == [True] * 4 + [False] * 4
@@ -56,7 +58,7 @@ def test_a_full_row_drops_past_capacity():
 
 def test_near_tie_opens_both_sets():
     r = check.Routing([check.Served([1], [1], 1)],
-                      dict(topk=2, n_experts=8), 4, 0.1)
+                      dict(topk=2, n_experts=8), 4, 0.1, RANK)
     p = probs([[5.0, 4.0, 3.95, 0, 0, 0, 0, 0]])
     [(idx, _, alt)] = r(0, [p], [[0]])
     assert idx.tolist() == [[0, 1]]

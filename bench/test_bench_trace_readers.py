@@ -14,13 +14,15 @@ from bench.trace import Trace
 from repro_torch import trace as T
 
 C = T.Counters
+DECODER = harness.arch("decoder")
 
 
 def window(steps, model=None, kernel_s=None, first_step=0, trace=True):
     tr = Trace(window_s=6.0, busy_s=1.0, kernel_s=kernel_s or {},
                span_device_s={}, span_count={}, idle_by_host={},
                first_step=first_step) if trace else None
-    return harness.Window(model=model or {}, policy="w4a16kv8", setup_s=1.0,
+    return harness.Window(model=model or {}, arch=DECODER, policy="w4a16kv8",
+                          setup_s=1.0,
                           seconds=10.0, due={}, first={}, returns={},
                           steps=[(0.0, 0.1, 1, 1)] * steps, model_steps=steps,
                           fed_tokens=steps, trace=tr)
