@@ -3,15 +3,17 @@
 ``get_config(arch_id)`` / ``get_reduced(arch_id)`` resolve an arch id to its
 full and CPU-sized configuration; ``ARCHS`` lists all ten of the JAX
 registry's architectures, in its order, and ``SHAPES`` the reference's four
-input shapes.
+input shapes.  ``PORT_ONLY`` lists the architectures the port runs that the
+JAX package has no model of (outside ``ARCHS``, whose every entry the
+tests hold to the JAX package's).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from . import (arctic_480b, chatglm3_6b, gemma3_1b, internvl2_2b,
-               llama4_scout_17b_a16e, mistral_large_123b, recurrentgemma_2b,
-               rwkv6_7b, smollm_360m, whisper_tiny)
+               k_exaone_236b, llama4_scout_17b_a16e, mistral_large_123b,
+               recurrentgemma_2b, rwkv6_7b, smollm_360m, whisper_tiny)
 from .base import ModelConfig
 
 #: architectures the port runs, in the JAX registry's id spelling and order
@@ -34,13 +36,17 @@ _MODULES = {"arctic-480b": arctic_480b, "rwkv6-7b": rwkv6_7b,
             "internvl2-2b": internvl2_2b, "smollm-360m": smollm_360m,
             "gemma3-1b": gemma3_1b,
             "mistral-large-123b": mistral_large_123b,
-            "recurrentgemma-2b": recurrentgemma_2b}
+            "recurrentgemma-2b": recurrentgemma_2b,
+            "k-exaone-236b-a23b": k_exaone_236b}
+
+#: architectures of the port alone (no JAX counterpart)
+PORT_ONLY: List[str] = ["k-exaone-236b-a23b"]
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"arch {arch_id!r} is not ported (known: "
-                       f"{', '.join(ARCHS)})")
+                       f"{', '.join(ARCHS + PORT_ONLY)})")
     return _MODULES[arch_id]
 
 

@@ -1,7 +1,10 @@
 """ModelConfig — the port's own copy of ``repro.configs.base.ModelConfig``.
 
 Field for field the same dataclass, so a configuration means the same model
-in both packages; only the fields the ported families read are documented.
+in both packages, plus the port's own variants (``PORT_FIELDS``: the
+layer kinds of K-EXAONE), whose defaults leave every configuration of the
+JAX package the model it is there; only the fields the ported families
+read are documented.
 """
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ class ModelConfig:
     window: Optional[int] = None        # sliding-window size (local layers)
     local_global_period: int = 0        # every period-th layer global
     use_rope: bool = True
+    qk_norm: bool = False               # RMSNorm of q and k over head dim
+    post_norms: bool = False            # norm each sub-layer's output, none
+    #                                     before it (EXAONE 4.0)
+    rope_local_only: bool = False       # RoPE on windowed layers only
 
     # MoE ----------------------------------------------------------------
     n_experts: int = 0
@@ -35,6 +42,10 @@ class ModelConfig:
     moe_dense_residual: bool = False
     shared_expert: bool = False
     capacity_factor: float = 1.25
+    first_dense_layers: int = 0         # leading layers with a SwiGLU
+    dense_d_ff: Optional[int] = None    # their width (default d_ff)
+    router_scoring: str = "softmax"     # | "sigmoid": + a selection bias
+    routed_scaling: float = 1.0         # scale of the normalised gates
 
     # SSM / hybrid ---------------------------------------------------------
     rwkv_head_dim: int = 64
@@ -56,6 +67,11 @@ class ModelConfig:
     big_model: bool = False
     sub_quadratic: bool = False
     source: str = ""
+
+    @property
+    def dense_ff(self) -> int:
+        """Width of the leading dense layers: ``dense_d_ff`` or ``d_ff``."""
+        return self.dense_d_ff or self.d_ff
 
     @property
     def hd(self) -> int:
@@ -94,6 +110,8 @@ class ModelConfig:
                 return int(att_layers * (attn + 3 * d * f)
                            + (L - att_layers) * (rec + 3 * d * f) + 2 * V * d)
         total = L * per + V * d * (1 if self.tie_embeddings else 2)
+        if self.n_experts and self.first_dense_layers:
+            total += self.first_dense_layers * (3 * d * self.dense_ff - mlp)
         if self.enc_layers:
             total += self.enc_layers * (4 * d * d + 2 * d * f)  # encoder
             total += L * (d * d + 2 * d * Hkv * hd)             # cross-attn
@@ -110,4 +128,24 @@ class ModelConfig:
         act_mlp = self.topk * 3 * d * f + d * self.n_experts
         if self.moe_dense_residual or self.shared_expert:
             act_mlp += 3 * d * f
-        return int(L * (attn + act_mlp) + 2 * V * d)
+        dense = self.first_dense_layers * (3 * d * self.dense_ff - act_mlp)
+        return int(L * (attn + act_mlp) + dense + 2 * V * d)
+
+
+#: the port's fields that the JAX package's ModelConfig does not have
+PORT_FIELDS = ("qk_norm", "post_norms", "rope_local_only",
+               "first_dense_layers", "dense_d_ff", "router_scoring",
+               "routed_scaling")
+
+
+def jax_fields(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without the port's own fields, which must
+    hold their defaults (a configuration the JAX package also has);
+    raises ``ValueError`` where one does not."""
+    out = dataclasses.asdict(cfg)
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    for name in PORT_FIELDS:
+        if out.pop(name) != defaults[name]:
+            raise ValueError(f"{cfg.name}: {name} is the port's own field, "
+                             f"set to {getattr(cfg, name)!r}")
+    return out

@@ -50,6 +50,12 @@ regardless (both backends make the same calls).
 
 Top-k ties go to the lower expert index, as ``jax.lax.top_k`` breaks them
 (:func:`top_k`: a stable descending sort); bf16 router logits tie often.
+
+The router scores by softmax (the JAX package's) or, with
+``router_scoring="sigmoid"`` (K-EXAONE), by sigmoid, choosing the top-k by
+the scores plus a per-layer selection bias and weighing them by the
+unbiased scores; the gates are normalized over the k and scaled by
+``routed_scaling`` (:func:`route`).
 """
 from __future__ import annotations
 
@@ -122,17 +128,21 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
 
 
-def router_probs(x: torch.Tensor, router_w, policy) -> torch.Tensor:
-    """(B, S, E) f32 softmax of the router's bf16 logits: a packed router
-    through the mixed-precision GEMM, a bf16 one as an f32-accumulated
-    product rounded once (the reference's bf16 dot; cuBLAS's bf16 GEMM
-    may reduce split-K partials in bf16, and a tie-breaking ulp of a
-    router logit moves a token to another expert)."""
+def router_logits(x: torch.Tensor, router_w, policy) -> torch.Tensor:
+    """(B, S, E) bf16 router logits: a packed router through the
+    mixed-precision GEMM, a bf16 one as an f32-accumulated product rounded
+    once (the reference's bf16 dot; cuBLAS's bf16 GEMM may reduce split-K
+    partials in bf16, and a tie-breaking ulp of a router logit moves a
+    token to another expert)."""
     if isinstance(router_w, PackedWeight):
-        logits = C.linear(x, router_w, policy)
-    else:
-        logits = _mm(x.to(torch.bfloat16), router_w.to(torch.bfloat16))
-    return torch.softmax(logits.float(), dim=-1)
+        return C.linear(x, router_w, policy)
+    return _mm(x.to(torch.bfloat16), router_w.to(torch.bfloat16))
+
+
+def router_probs(x: torch.Tensor, router_w, policy) -> torch.Tensor:
+    """(B, S, E) f32 softmax of the router's bf16 logits
+    (:func:`router_logits`)."""
+    return torch.softmax(router_logits(x, router_w, policy).float(), dim=-1)
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,13 +153,32 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def biased_top_k(scores: torch.Tensor, bias: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` experts of the largest ``scores + bias`` and their
+    *unbiased* scores: the bias selects and never weighs (DeepSeek-V3's
+    ``noaux_tc`` gate with one group)."""
+    _, idx = top_k(scores + bias.float(), k)
+    return scores.gather(-1, idx), idx
+
+
 def route(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig, policy
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Router probabilities (B, S, E) f32, then the normalized top-k gates
-    (B, S, k) f32 and their expert ids (B, S, k)."""
-    probs = router_probs(x, lp["router"], policy)
-    vals, idx = top_k(probs, cfg.topk)
+    """Router scores (B, S, E) f32 — the softmax of its logits, or with
+    ``router_scoring="sigmoid"`` their sigmoid, whose top-k is chosen by
+    the scores plus the layer's ``router_bias`` (:func:`biased_top_k`) —
+    then the top-k gates (B, S, k) f32, normalized over the k and scaled
+    by ``routed_scaling``, and their expert ids (B, S, k)."""
+    if cfg.router_scoring == "sigmoid":
+        probs = torch.sigmoid(
+            router_logits(x, lp["router"], policy).float())
+        vals, idx = biased_top_k(probs, lp["router_bias"], cfg.topk)
+    else:
+        probs = router_probs(x, lp["router"], policy)
+        vals, idx = top_k(probs, cfg.topk)
     vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    if cfg.routed_scaling != 1.0:
+        vals = vals * cfg.routed_scaling
     return probs, vals, idx
 
 
@@ -269,6 +298,7 @@ def moe_ffn(x: torch.Tensor, lp: Dict[str, Any], cfg: ModelConfig,
             raise ValueError("moe_ffn of DTensors needs the sharded step's "
                              "expert parallelism (set_sharded_ffn)")
         return _SHARDED_FFN(x, lp, cfg, policy)
+    trace.moe_layer()
     with trace.span("moe.ffn"):
         return moe_partial(x, lp, cfg, policy).to(x.dtype)
 

@@ -5,7 +5,13 @@ paged pool): RMSNorm, interleaved RoPE (or, with ``use_rope=False``,
 sinusoidal positions added to the embeddings), GQA, a SwiGLU or MoE
 feed-forward (:mod:`repro_torch.models.moe`, with arctic's dense residual
 or llama4's shared expert beside it); weights may be bf16 tensors or
-PackedWeights (expert stacks packed member by member).
+PackedWeights (expert stacks packed member by member).  The port's own
+layer variants (K-EXAONE's; none in the JAX package): QK RMSNorm
+(``qk_norm``), each sub-layer's output normalised before the residual add
+and no norm before it (``post_norms``), RoPE on the windowed layers only
+(``rope_local_only``), and leading dense layers of their own width in a
+moe model (``first_dense_layers``, ``dense_d_ff``).  The three forwards
+run one layer body, :func:`layer`.
 :func:`decode_step` is the engine's chunked prefill and decode step;
 :func:`prefill` the one-shot prefill of the vlm family, which prepends
 the projected image embeddings to the prompt; :func:`hidden_states` the
@@ -59,6 +65,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     SwiGLU, the moe family's ``router`` and expert stacks ``we1/we3/we2``
     (E, K, N) (with ``ws1/ws3/ws2`` for a dense residual or shared
     expert), the vlm family's ``img_proj`` (VIT_WIDTH, d_model).  The
+    port's variants draw their own leaves (:func:`_variant_leaves`): a
+    sigmoid router's ``router_bias`` (E,) at 0.02, the QK norms' gains
+    ``q_norm`` / ``k_norm`` (hd,), ``post_attn_norm`` / ``post_ffn_norm``
+    in place of ``ln1`` / ``ln2``, and a leading dense layer's SwiGLU at
+    ``dense_ff``.  The
     values differ from the JAX package's for the same seed (different
     generators); tests carry JAX's parameters across with
     :func:`repro_torch.convert.params_from_jax` instead."""
@@ -73,7 +84,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "final_norm": torch.zeros(d, dtype=torch.bfloat16, device=device),
     }
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         lp = {
             "ln1": torch.zeros(d, dtype=torch.bfloat16, device=device),
             "ln2": torch.zeros(d, dtype=torch.bfloat16, device=device),
@@ -82,7 +93,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "wv": C.dense_init(gen, (d, Hkv * hd)),
             "wo": C.dense_init(gen, (H * hd, d)),
         }
-        if cfg.n_experts:
+        if routes(cfg, i):
             E = cfg.n_experts
             lp["router"] = C.dense_init(gen, (d, E), scale=0.02)
             lp["we1"] = _stack_init(gen, E, (d, f))
@@ -93,9 +104,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 lp["ws3"] = C.dense_init(gen, (d, f))
                 lp["ws2"] = C.dense_init(gen, (f, d))
         else:
-            lp["w1"] = C.dense_init(gen, (d, f))
-            lp["w3"] = C.dense_init(gen, (d, f))
-            lp["w2"] = C.dense_init(gen, (f, d))
+            fd = cfg.dense_ff
+            lp["w1"] = C.dense_init(gen, (d, fd))
+            lp["w3"] = C.dense_init(gen, (d, fd))
+            lp["w2"] = C.dense_init(gen, (fd, d))
+        _variant_leaves(gen, cfg, i, lp)
         layers.append(lp)
     params["layers"] = layers
     if not cfg.tie_embeddings:
@@ -103,6 +116,24 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if cfg.n_img_tokens:
         params["img_proj"] = C.dense_init(gen, (VIT_WIDTH, d))
     return params
+
+
+def _variant_leaves(gen: torch.Generator, cfg: ModelConfig, i: int,
+                    lp: Dict[str, Any]) -> None:
+    """Layer ``i``'s leaves of the port's variants, in place (none for a
+    configuration that sets none of them)."""
+    d, dev = cfg.d_model, gen.device
+    if cfg.post_norms:
+        del lp["ln1"], lp["ln2"]
+        lp["post_attn_norm"] = torch.zeros(d, dtype=torch.bfloat16,
+                                           device=dev)
+        lp["post_ffn_norm"] = torch.zeros(d, dtype=torch.bfloat16,
+                                          device=dev)
+    if cfg.qk_norm:
+        lp["q_norm"] = torch.zeros(cfg.hd, dtype=torch.bfloat16, device=dev)
+        lp["k_norm"] = torch.zeros(cfg.hd, dtype=torch.bfloat16, device=dev)
+    if cfg.router_scoring == "sigmoid" and routes(cfg, i):
+        lp["router_bias"] = C.dense_init(gen, (cfg.n_experts,), scale=0.02)
 
 
 def init_cache(cfg: ModelConfig, policy: PrecisionPolicy, batch: int,
@@ -147,26 +178,75 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.window
 
 
+def routes(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` routes (a moe layer past the leading
+    ``first_dense_layers``)."""
+    return bool(cfg.n_experts) and layer_idx >= cfg.first_dense_layers
+
+
+def layer_rope(cfg: ModelConfig, layer_idx: int) -> bool:
+    """Whether layer ``layer_idx`` rotates q and k: every layer, or with
+    ``rope_local_only`` the windowed ones (a global layer has no
+    positional encoding)."""
+    return not cfg.rope_local_only or \
+        layer_window(cfg, layer_idx) != BIG_WINDOW
+
+
 def qkv(h, lp, cfg: ModelConfig, policy):
-    """q (B, T, H, hd), k and v (B, T, Hkv, hd) projections."""
+    """q (B, T, H, hd), k and v (B, T, Hkv, hd) projections; with
+    ``qk_norm`` q and k are RMS-normalised over the head dimension
+    (gains ``q_norm`` / ``k_norm``)."""
     B, T, _ = h.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = C.split_heads(C.linear(h, lp["wq"], policy), B, T, H, hd)
     k = C.split_heads(C.linear(h, lp["wk"], policy), B, T, Hkv, hd)
     v = C.split_heads(C.linear(h, lp["wv"], policy), B, T, Hkv, hd)
+    if cfg.qk_norm:
+        q = C.rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = C.rms_norm(k, lp["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def ffn(h, lp, cfg: ModelConfig, policy):
-    """The layer's feed-forward block: SwiGLU, or the MoE FFN plus the
-    dense residual / shared expert's SwiGLU."""
-    if cfg.n_experts:
+def ffn(h, lp, cfg: ModelConfig, policy, layer_idx: int):
+    """Layer ``layer_idx``'s feed-forward block: SwiGLU, or where it
+    routes (:func:`routes`) the MoE FFN plus the dense residual / shared
+    expert's SwiGLU."""
+    if routes(cfg, layer_idx):
         y = MOE.moe_ffn(h, lp, cfg, policy)
         if cfg.moe_dense_residual or cfg.shared_expert:
-            y = y + C.swiglu(h, {"w1": lp["ws1"], "w3": lp["ws3"],
-                                 "w2": lp["ws2"]}, policy)
+            with trace.span("moe.shared"):
+                y = y + C.swiglu(h, {"w1": lp["ws1"], "w3": lp["ws3"],
+                                     "w2": lp["ws2"]}, policy)
         return y
     return C.swiglu(h, lp, policy)
+
+
+def sublayer_out(y, lp, name: str, cfg: ModelConfig):
+    """A sub-layer's output as the residual adds it: with ``post_norms``
+    RMS-normalised by the gain ``lp[name]``, else as it is."""
+    return C.rms_norm(y, lp[name], cfg.norm_eps) if cfg.post_norms else y
+
+
+def layer(x, lp, cfg: ModelConfig, policy, layer_idx: int, rotation,
+          attend):
+    """One decoder layer on x (B, T, d), the body of every forward:
+    ``attend(q, k, v)`` → (B, T, H, hd) is the forward's own attention
+    (and cache write) over the rotated q and k; ``rotation`` the step's
+    RoPE table or None (sinusoidal positions).  Pre-norm (``ln1``,
+    ``ln2``) or, with ``post_norms``, ``x + norm(Attn(x))`` and
+    ``x + norm(FFN(x))``."""
+    B, T, _ = x.shape
+    h = x if cfg.post_norms else C.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv(h, lp, cfg, policy)
+    if rotation is not None and layer_rope(cfg, layer_idx):
+        q = C.apply_rope(q, rotation)
+        k = C.apply_rope(k, rotation)
+    attn = attend(q, k, v)
+    o = C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
+    x = x + sublayer_out(o, lp, "post_attn_norm", cfg)
+    h2 = x if cfg.post_norms else C.rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y = ffn(h2, lp, cfg, policy, layer_idx)
+    return x + sublayer_out(y, lp, "post_ffn_norm", cfg)
 
 
 def lm_logits(params, h: torch.Tensor) -> torch.Tensor:
@@ -205,24 +285,18 @@ def hidden_states(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         x = x + C.sinusoidal_pos(S, d, device=x.device)[None]
 
-    def body(xc, lp, win):
-        h = C.rms_norm(xc, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(h, lp, cfg, policy)
-        if rotation is not None:
-            q = C.apply_rope(q, rotation)
-            k = C.apply_rope(k, rotation)
-        attn = A.flash_attention(q, k, v, causal=True, window=win)
-        xc = xc + C.linear(C.merge_heads(attn, B, S, -1), lp["wo"], policy)
-        h2 = C.rms_norm(xc, lp["ln2"], cfg.norm_eps)
-        return xc + ffn(h2, lp, cfg, policy)
-
-    for i, lp in enumerate(params["layers"]):
+    def body(xc, lp, i):
         win = layer_window(cfg, i)
         win = None if win == BIG_WINDOW else win
+        return layer(xc, lp, cfg, policy, i, rotation,
+                     lambda q, k, v: A.flash_attention(q, k, v, causal=True,
+                                                       window=win))
+
+    for i, lp in enumerate(params["layers"]):
         if remat:
-            x = checkpoint(body, x, lp, win, use_reentrant=False)
+            x = checkpoint(body, x, lp, i, use_reentrant=False)
         else:
-            x = body(x, lp, win)
+            x = body(x, lp, i)
     return C.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -261,18 +335,14 @@ def prefill(params, cfg: ModelConfig, policy: PrecisionPolicy,
     else:
         x = x + C.sinusoidal_pos(S, x.shape[-1], device=x.device)[None]
     for i, lp in enumerate(params["layers"]):
-        h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = qkv(h, lp, cfg, policy)
-        if rotation is not None:
-            q = C.apply_rope(q, rotation)
-            k = C.apply_rope(k, rotation)
         win = layer_window(cfg, i)
-        attn = A.flash_attention(q, k, v, causal=True,
-                                 window=None if win == BIG_WINDOW else win)
-        KV.append(cache.layer(i), k, v, 0, policy.kv)
-        x = x + C.linear(C.merge_heads(attn, B, S, -1), lp["wo"], policy)
-        h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + ffn(h2, lp, cfg, policy)
+
+        def attend(q, k, v, i=i, win=win):
+            attn = A.flash_attention(q, k, v, causal=True, window=None
+                                     if win == BIG_WINDOW else win)
+            KV.append(cache.layer(i), k, v, 0, policy.kv)
+            return attn
+        x = layer(x, lp, cfg, policy, i, rotation, attend)
     h_last = C.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return lm_logits(params, h_last), cache
 
@@ -346,22 +416,19 @@ def decode_step(params, cfg: ModelConfig, policy: PrecisionPolicy,
     for i, lp in enumerate(params["layers"]):
         with trace.span("model.layer"):
             cache_l = cache.layer(i)
-            h = C.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = qkv(h, lp, cfg, policy)
-            if rotation is not None:
-                q = C.apply_rope(q, rotation)
-                k = C.apply_rope(k, rotation)
-            if paged:
-                PKV.append_paged(cache_l, k, v, pos, policy.kv, rows=rows)
-            else:
-                KV.append_per_slot(cache_l, k, v, pos, policy.kv, rows=rows)
-            attn = C.attend_decode(q, cache_l, policy.kv, pos,
-                                   window=layer_window(cfg, i),
-                                   block_s=attn_block_s, max_live=max_live,
-                                   impl=attn_impl)
-            x = x + C.linear(C.merge_heads(attn, B, T, -1), lp["wo"], policy)
-            h2 = C.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + ffn(h2, lp, cfg, policy)
+
+            def attend(q, k, v, i=i, cache_l=cache_l):
+                if paged:
+                    PKV.append_paged(cache_l, k, v, pos, policy.kv,
+                                     rows=rows)
+                else:
+                    KV.append_per_slot(cache_l, k, v, pos, policy.kv,
+                                       rows=rows)
+                return C.attend_decode(q, cache_l, policy.kv, pos,
+                                       window=layer_window(cfg, i),
+                                       block_s=attn_block_s,
+                                       max_live=max_live, impl=attn_impl)
+            x = layer(x, lp, cfg, policy, i, rotation, attend)
     with trace.span("model.head"):
         if valid is None:
             h_sel = x[:, -1]

@@ -30,6 +30,7 @@ Spans, nested as the calls are (``model.layer`` once per held layer, the
             moe.route      router and top-k
             moe.dispatch   capacity keep, the touched experts read back
             moe.experts    each touched expert's rows read back, its FFN
+          moe.shared     the shared expert or dense residual beside it
         model.head     final norm and logits
       engine.sample
       engine.fetch     the sampled tokens read back
@@ -40,7 +41,9 @@ Counters, always on (plain integer adds): ``host_syncs`` here, counted by
 device when it is a card (a blocking host → device copy, a read back, an
 op whose output size the host must know); ``moe_experts_packed``,
 ``moe_experts_plain`` and ``moe_expert_rows`` here, counted by
-:func:`expert_ffn` at every routed expert's FFN; ``Engine.fed_tokens``,
+:func:`expert_ffn` at every routed expert's FFN; ``moe_layers_run`` here,
+counted by :func:`moe_layer` at every call of the routed moe FFN (one a
+routing layer and step); ``Engine.fed_tokens``,
 ``Engine.computed_rows`` and ``Request.admit_time`` on the engine.
 """
 from __future__ import annotations
@@ -66,6 +69,8 @@ moe_experts_packed = 0
 moe_experts_plain = 0
 #: rows those FFNs computed (each expert's kept assignments), since import
 moe_expert_rows = 0
+#: calls of the routed moe FFN (one a routing layer and step), since import
+moe_layers_run = 0
 
 
 class Counters(NamedTuple):
@@ -76,6 +81,7 @@ class Counters(NamedTuple):
     moe_experts_packed: int = 0
     moe_experts_plain: int = 0
     moe_expert_rows: int = 0
+    moe_layers_run: int = 0
 
 
 class Span(NamedTuple):
@@ -118,7 +124,8 @@ _top = None
 
 def _counters(eng) -> Counters:
     return Counters(eng.fed_tokens, eng.computed_rows, host_syncs,
-                    moe_experts_packed, moe_experts_plain, moe_expert_rows)
+                    moe_experts_packed, moe_experts_plain, moe_expert_rows,
+                    moe_layers_run)
 
 
 def begin_step(eng) -> None:
@@ -199,6 +206,12 @@ def expert_ffn(packed: bool, rows: int) -> None:
     else:
         moe_experts_plain += 1
     moe_expert_rows += rows
+
+
+def moe_layer() -> None:
+    """Count one call of the routed moe FFN."""
+    global moe_layers_run
+    moe_layers_run += 1
 
 
 def note_plan(t_step: int, pos: np.ndarray, valid: np.ndarray) -> None:

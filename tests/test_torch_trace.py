@@ -8,7 +8,8 @@ nothing of JAX, so ``PYTHONPATH=src python -m pytest --noconftest -q
 tests/test_torch_trace.py`` runs it there) ``trace.host_syncs`` rises by
 exactly the syncs ``torch.cuda.set_sync_debug_mode`` reports in each
 step; the moe engine's experts run through the A16 GEMM on stacks in its
-fragment order, adding no sync.
+fragment order, adding no sync, and so do K-EXAONE's (its QK and post
+norms, RoPE per layer, sigmoid router and shared expert add none).
 """
 import json
 import warnings
@@ -22,7 +23,8 @@ from repro_torch import trace as T
 from repro_torch.configs import get_reduced
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
 
-ARCHS = {"dense": "smollm-360m", "moe": "arctic-480b"}
+ARCHS = {"dense": "smollm-360m", "moe": "arctic-480b",
+         "kexaone": "k-exaone-236b-a23b"}
 CHUNK = 8
 
 
@@ -128,6 +130,30 @@ def test_profiled_steps_nest_and_record(family, fresh_session, tmp_path):
                     sorted(fwd, key=lambda e: e["ts"])):
         assert _inside(f, s)
         assert sum(_inside(x, f) for x in layers) == L
+
+
+@pytest.mark.parametrize("family", ["moe", "kexaone"])
+def test_routed_layers_counted_and_shared_expert_spanned(family,
+                                                         fresh_session):
+    """``trace.moe_layers_run`` rises by the routed layers each model step
+    (K-EXAONE's dense layer 0 routes nothing), and ``moe.shared`` spans
+    the shared expert (arctic: the dense residual) in each of them."""
+    eng = engine(family)
+    cfg = eng.model_cfg
+    routed = cfg.n_layers - cfg.first_dense_layers
+    submit(eng, [11, 5, 19])
+    with profile(activities=[ProfilerActivity.CPU]):
+        while not eng.scheduler.idle:
+            eng.step()
+    recs = [r for r in T.session() if r.t_step]
+    assert recs
+    for r in recs:
+        assert r.end.moe_layers_run - r.start.moe_layers_run == routed
+        names = [s.name for s in r.spans]
+        assert names.count("moe.shared") == names.count("moe.ffn") == routed
+        for i, s in enumerate(r.spans):
+            if s.name == "moe.shared":
+                assert r.spans[s.parent].name == "model.layer"
 
 
 def test_a_new_session_clears_the_last(fresh_session):
